@@ -1,0 +1,590 @@
+// Flash attention for Hopper (sm_90a): forward, dQ backward, dK/dV backward.
+//
+// Replaces the three Pallas TPU kernels of the JAX package's
+// kubeoperator_tpu/workloads/flash_attention.py:
+//   flash_fwd_kernel     <- _fwd / _fwd_kernel            (K1)
+//   flash_bwd_dq_kernel  <- _bwd / _bwd_dq_kernel         (K2)
+//   flash_bwd_dkv_kernel <- _bwd / _bwd_dkv_kernel        (K3)
+//
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, T, D] bf16, contiguous;
+// lse and delta are [BH, T] f32 (the TPU kernels stored [BH, 8, T] only to
+// satisfy Mosaic's (8, 128) tiling). T is a multiple of the 64-row tile
+// (the Python wrapper pads), D is 64 or 128. Keys at or past kv_len are
+// masked to -1e30, causal masks row < col the same way, and the causal loop
+// bounds equal the JAX kernels' `hi` and `lo`.
+//
+// What bounds them on the H100: at the LM's path shape (BH=128, T=2048,
+// D=128, causal) each kernel does 2-4 matrix products of T x T x D per head
+// and moves only O(T*D) bytes, so all three are bound by tensor-core
+// operations (989 TFLOP/s bf16 dense), not by the 3.35 TB/s of HBM.
+//
+// What the design does about it: every product runs on the tensor cores as
+// mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
+// accumulators in registers. One block of 4 warps owns a 64-row tile and
+// each warp owns 16 rows of it, so a row's softmax statistics live in the
+// four lanes that hold it and the T x T scores never leave registers: the
+// probabilities go from the score accumulators straight into the A operand
+// of the next product. Shared memory holds only the bf16 input tiles
+// (about 52-70 KB a block at D=128), so several blocks share an SM and
+// hide each other's loads. As in the TPU kernels, the dQ kernel and the
+// dK/dV kernel are separate, so no block reduces across another (no
+// atomics). Left for later: wgmma, TMA and a pipelined load ring; the
+// probabilities are rounded to bf16 before the P.V-type products.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int NWARPS = 4;     // each warp owns 16 rows of the block's tile
+constexpr int NTHREADS = NWARPS * 32;
+constexpr float NEG_INF = -1e30f;
+
+// bf16 row stride (elements) of the shared tiles: rows stay 16-byte
+// aligned and the fragment loads of 8 rows hit 8 different bank groups
+template <int D> struct Ld { static constexpr int H = D + 8; };
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c[16x8] += a[16x16] . b[16x8]
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (rows r0..r0+15, cols c0..c0+15) of a row-major shared tile
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* m, int r0,
+                                       int c0, int g, int tq) {
+  a[0] = ld32(m + (r0 + g) * LD + c0 + 2 * tq);
+  a[1] = ld32(m + (r0 + g + 8) * LD + c0 + 2 * tq);
+  a[2] = ld32(m + (r0 + g) * LD + c0 + 2 * tq + 8);
+  a[3] = ld32(m + (r0 + g + 8) * LD + c0 + 2 * tq + 8);
+}
+
+// B fragment with B[k][n] = M[n0 + n][k0 + k], M a row-major shared tile
+// (the "x . M^T" operand, e.g. K in Q.K^T)
+template <int LD>
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
+                                       const bf16* m, int n0, int k0, int g,
+                                       int tq) {
+  b0 = ld32(m + (n0 + g) * LD + k0 + 2 * tq);
+  b1 = ld32(m + (n0 + g) * LD + k0 + 2 * tq + 8);
+}
+
+// B fragments of two n-tiles with B[k][n] = M[k0 + k][n0 + n] (the "x . M"
+// operand, e.g. V in P.V): ldmatrix with transpose, 4 8x8 matrices
+template <int LD>
+__device__ __forceinline__ void load_bt2(uint32_t* b, const bf16* m, int k0,
+                                         int n0, int lane) {
+  const bf16* p = m + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// copy a [64][D] bf16 tile from global (row stride D) into shared memory
+// (row stride LD), 16 bytes per thread per step
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
+  constexpr int LD = Ld<D>::H, VEC = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * VEC; idx += NTHREADS) {
+    const int r = idx / VEC, c = idx % VEC;
+    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
+  }
+}
+
+// accumulator element e of an m16n8 tile sits at row g + 8*(e >> 1),
+// column 2*tq + (e & 1); its A-operand image for a k16 step is the pair of
+// n-tiles (2kk, 2kk+1)
+__device__ __forceinline__ void to_a(uint32_t* a, const float* lo,
+                                     const float* hi) {
+  a[0] = pack(lo[0], lo[1]);
+  a[1] = pack(lo[2], lo[3]);
+  a[2] = pack(hi[0], hi[1]);
+  a[3] = pack(hi[2], hi[3]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// K1: forward. One block per (q-tile, bh). Replaces the JAX package's
+// workloads/flash_attention.py::_fwd_kernel (launched by _fwd).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int t, float scale, int causal,
+                 int kv_len) {
+  constexpr int LD = Ld<D>::H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t base = (size_t)bh * t * D;
+  const int row0 = qt * BQ + warp * 16 + g;   // rows of elements 0,1; +8: 2,3
+
+  load_tile<D>(sQ, q + base + (size_t)qt * BQ * D);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, warp * 16, kk * 16, g, tq);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+
+  const int n_kv = t / BK;
+  // the JAX kernel's `hi`: K/V tiles past the diagonal are fully masked
+  const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
+  for (int j = 0; j < hi; ++j) {
+    __syncthreads();                           // previous tile consumed
+    load_tile<D>(sK, k + base + (size_t)j * BK * D);
+    load_tile<D>(sV, v + base + (size_t)j * BK * D);
+    __syncthreads();
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        uint32_t b0, b1;
+        load_b<LD>(b0, b1, sK, n * 8, kk * 16, g, tq);
+        mma(s[n], qf[kk], b0, b1);
+      }
+    }
+
+    // online softmax; each row's statistics are shared by its 4 lanes
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = j * BK + n * 8 + 2 * tq + (e & 1);
+        float x = s[n][e] * scale;
+        if (causal && row < col) x = NEG_INF;
+        if (col >= kv_len) x = NEG_INF;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = __expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P . V, P taken from the score registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t b[4];
+        load_bt2<LD>(b, sV, kk * 16, n * 8, lane);
+        mma(acc[n], pa, b[0], b[1]);
+        mma(acc[n + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (l[i] == 0.0f) l[i] = 1.0f;
+    inv[i] = 1.0f / l[i];
+  }
+  bf16* o0 = o + base + (size_t)row0 * D + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(o0 + n * 8) = pack(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(o0 + 8 * D + n * 8) =
+        pack(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  if (tq == 0) {
+    lse[(size_t)bh * t + row0] = m[0] + logf(l[0]);
+    lse[(size_t)bh * t + row0 + 8] = m[1] + logf(l[1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: dQ. One block per (q-tile, bh); loops over K/V tiles up to the
+// diagonal. P and dS stay in registers; dQ accumulates in registers.
+// Replaces workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int t, float scale, int causal, int kv_len) {
+  constexpr int LD = Ld<D>::H;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + BQ * LD;
+  bf16* sK = sDO + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t base = (size_t)bh * t * D;
+  const int row0 = qt * BQ + warp * 16 + g;
+
+  load_tile<D>(sQ, q + base + (size_t)qt * BQ * D);
+  load_tile<D>(sDO, dout + base + (size_t)qt * BQ * D);
+  const float lse_r[2] = {lse[(size_t)bh * t + row0], lse[(size_t)bh * t + row0 + 8]};
+  const float delta_r[2] = {delta[(size_t)bh * t + row0],
+                            delta[(size_t)bh * t + row0 + 8]};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  const int n_kv = t / BK;
+  const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
+  for (int j = 0; j < hi; ++j) {
+    __syncthreads();
+    load_tile<D>(sK, k + base + (size_t)j * BK * D);
+    load_tile<D>(sV, v + base + (size_t)j * BK * D);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      load_a<LD>(aq, sQ, warp * 16, kk * 16, g, tq);
+      load_a<LD>(ado, sDO, warp * 16, kk * 16, g, tq);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        uint32_t b0, b1;
+        load_b<LD>(b0, b1, sK, n * 8, kk * 16, g, tq);
+        mma(s[n], aq, b0, b1);                  // S = Q.K^T
+        load_b<LD>(b0, b1, sV, n * 8, kk * 16, g, tq);
+        mma(dp[n], ado, b0, b1);                // dP = dO.V^T
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = j * BK + n * 8 + 2 * tq + (e & 1);
+        float x = s[n][e] * scale;
+        if (causal && row < col) x = NEG_INF;
+        if (col >= kv_len) x = NEG_INF;
+        const float p = __expf(x - lse_r[e >> 1]);
+        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]);   // dS
+      }
+    }
+    // dQ += dS . K
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t b[4];
+        load_bt2<LD>(b, sK, kk * 16, n * 8, lane);
+        mma(acc[n], da, b[0], b[1]);
+        mma(acc[n + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  bf16* d0 = dq + base + (size_t)row0 * D + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(d0 + n * 8) = pack(acc[n][0] * scale, acc[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(d0 + 8 * D + n * 8) =
+        pack(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: dK and dV, replacing workloads/flash_attention.py::_bwd_dkv_kernel
+// (launched by _bwd). One block per (k-tile, bh); loops over Q tiles from the
+// JAX kernel's `lo`. Works on transposed scores S^T = K.Q^T so that each
+// warp owns 16 key rows and keeps their dK/dV in registers; each Q tile is
+// taken in two 32-row halves to bound the live score registers.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int t, float scale, int causal,
+                     int kv_len) {
+  constexpr int LD = Ld<D>::H, QH = 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + BK * LD;
+  bf16* sQ = sV + BK * LD;
+  bf16* sDO = sQ + BQ * LD;
+  float* sL = reinterpret_cast<float*>(sDO + BQ * LD);
+  float* sD = sL + BQ;
+
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t base = (size_t)bh * t * D;
+  const int key0 = kt * BK + warp * 16 + g;   // keys of elements 0,1; +8: 2,3
+
+  load_tile<D>(sK, k + base + (size_t)kt * BK * D);
+  load_tile<D>(sV, v + base + (size_t)kt * BK * D);
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc_dk[n][0] = acc_dk[n][1] = acc_dk[n][2] = acc_dk[n][3] = 0.0f;
+    acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.0f;
+  }
+
+  const int n_q = t / BQ;
+  const int lo = causal ? (kt * BK) / BQ : 0;
+  for (int i = lo; i < n_q; ++i) {
+    __syncthreads();
+    load_tile<D>(sQ, q + base + (size_t)i * BQ * D);
+    load_tile<D>(sDO, dout + base + (size_t)i * BQ * D);
+    for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+      sL[r] = lse[(size_t)bh * t + i * BQ + r];
+      sD[r] = delta[(size_t)bh * t + i * BQ + r];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int h0 = 0; h0 < BQ; h0 += QH) {
+      float st[QH / 8][4], dpt[QH / 8][4];
+#pragma unroll
+      for (int n = 0; n < QH / 8; ++n) {
+        st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.0f;
+        dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        load_a<LD>(ak, sK, warp * 16, kk * 16, g, tq);
+        load_a<LD>(av, sV, warp * 16, kk * 16, g, tq);
+#pragma unroll
+        for (int n = 0; n < QH / 8; ++n) {
+          uint32_t b0, b1;
+          load_b<LD>(b0, b1, sQ, h0 + n * 8, kk * 16, g, tq);
+          mma(st[n], ak, b0, b1);               // S^T = K.Q^T
+          load_b<LD>(b0, b1, sDO, h0 + n * 8, kk * 16, g, tq);
+          mma(dpt[n], av, b0, b1);              // dP^T = V.dO^T
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < QH / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1);
+          const int qi = h0 + n * 8 + 2 * tq + (e & 1);
+          float x = st[n][e] * scale;
+          if (causal && i * BQ + qi < key) x = NEG_INF;
+          if (key >= kv_len) x = NEG_INF;
+          const float p = __expf(x - sL[qi]);
+          st[n][e] = p;                                  // P^T
+          dpt[n][e] = p * (dpt[n][e] - sD[qi]);          // dS^T
+        }
+      }
+      // dV += P^T . dO ;  dK += dS^T . Q
+#pragma unroll
+      for (int kk = 0; kk < QH / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        to_a(pa, st[2 * kk], st[2 * kk + 1]);
+        to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          uint32_t b[4];
+          load_bt2<LD>(b, sDO, h0 + kk * 16, n * 8, lane);
+          mma(acc_dv[n], pa, b[0], b[1]);
+          mma(acc_dv[n + 1], pa, b[2], b[3]);
+          load_bt2<LD>(b, sQ, h0 + kk * 16, n * 8, lane);
+          mma(acc_dk[n], da, b[0], b[1]);
+          mma(acc_dk[n + 1], da, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // the TPU kernel pre-scaled Q; here dK = (dS^T . Q) * scale, once
+  bf16* k0p = dk + base + (size_t)key0 * D + 2 * tq;
+  bf16* v0p = dv + base + (size_t)key0 * D + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(k0p + n * 8) =
+        pack(acc_dk[n][0] * scale, acc_dk[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(k0p + 8 * D + n * 8) =
+        pack(acc_dk[n][2] * scale, acc_dk[n][3] * scale);
+    *reinterpret_cast<uint32_t*>(v0p + n * 8) = pack(acc_dv[n][0], acc_dv[n][1]);
+    *reinterpret_cast<uint32_t*>(v0p + 8 * D + n * 8) = pack(acc_dv[n][2], acc_dv[n][3]);
+  }
+}
+
+// dynamic shared-memory bytes of each kernel (must match the carve-up above)
+template <int D> constexpr size_t fwd_smem() { return (size_t)3 * 64 * Ld<D>::H * 2; }
+template <int D> constexpr size_t dq_smem() { return (size_t)4 * 64 * Ld<D>::H * 2; }
+template <int D> constexpr size_t dkv_smem() {
+  return (size_t)4 * 64 * Ld<D>::H * 2 + (size_t)2 * BQ * 4;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int t, float scale, int causal,
+                       int kv_len, cudaStream_t stream) {
+  const size_t smem = fwd_smem<D>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / BQ, bh);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, t,
+      scale, causal, kv_len);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int t, float scale, int causal,
+                      int kv_len, cudaStream_t stream) {
+  const size_t smem = dq_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / BQ, bh);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, t, scale, causal,
+      kv_len);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int t, float scale,
+                       int causal, int kv_len, cudaStream_t stream) {
+  const size_t smem = dkv_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / BK, bh);
+  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, t, scale,
+      causal, kv_len);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// plain C interface (loaded with ctypes). Each returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a shape it does not take.
+// ---------------------------------------------------------------------------
+extern "C" {
+
+int ko_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int bh, int t, int d, float scale, int causal,
+                 int kv_len, void* stream) {
+  if (t % BQ != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_fwd<64>(q, k, v, o, lse, bh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_fwd<128>(q, k, v, o, lse, bh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int ko_flash_bwd_dq(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int bh, int t, int d, float scale, int causal,
+                    int kv_len, void* stream) {
+  if (t % BQ != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int ko_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int bh, int t, int d, float scale,
+                     int causal, int kv_len, void* stream) {
+  if (t % BK != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

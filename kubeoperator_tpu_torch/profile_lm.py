@@ -1,0 +1,104 @@
+"""Where the LM train step's time goes on the card.
+
+    python -m kubeoperator_tpu_torch.profile_lm [--steps 3] [--top 15]
+
+Trains the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048,
+batch 8, bf16, remat dots+attn, bf16 logits) for a few warm steps, then
+traces ``--steps`` more with ``torch.profiler`` and prints one JSON line:
+the window's wall time, the device's busy and idle share, the device time
+by class (the port's flash kernels, cuBLAS GEMMs, the rest) and the
+``--top`` kernels by device time. Needs the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
+
+BENCH_LM = TransformerConfig(vocab_size=32_000, d_model=2048, n_heads=16,
+                             n_layers=4, d_ff=8192, max_seq_len=2048,
+                             dtype=torch.bfloat16, remat=True,
+                             attention="auto", logits_bf16=True,
+                             remat_policy="dots+attn")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_" in low and "kernel" in low:
+        return "flash (port)"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "gemm (cuBLAS)"
+    if "softmax" in low or "nll_loss" in low:
+        return "cross-entropy"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "optimizer"
+    if "copy_kernel" in low:
+        return "casts and copies"
+    return "other elementwise/reduction"
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--batch", type=int, default=8)
+    args = ap.parse_args(argv)
+
+    lt = LMTrainer(BENCH_LM)
+    state = lt.init_state()
+    tokens = lt.synthetic_batch(args.batch, BENCH_LM.max_seq_len)
+    for _ in range(3):
+        state, _ = lt.train_step(state, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, metrics = lt.train_step(state, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+
+    kernels = []
+    for ev in prof.key_averages():
+        # user annotations (e.g. "Optimizer.step#AdamW.step") carry the
+        # device time of the kernels under them: counting both would
+        # count those kernels twice. Kernel names may hold "#" too (C++
+        # lambdas, "{lambda()#1}"), but always with a parenthesis.
+        if getattr(ev, "is_user_annotation", False) or (
+                "#" in ev.key and "(" not in ev.key):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((ev.key, dev_us / 1e3, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    classes: dict[str, float] = {}
+    for name, ms, _ in kernels:
+        cls = kernel_class(name)
+        classes[cls] = classes.get(cls, 0.0) + ms
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "steps": args.steps,
+        "batch": args.batch, "seq_len": BENCH_LM.max_seq_len, "loss": loss,
+        "wall_ms_per_step": wall_ms / args.steps,
+        "device_ms_per_step": device_ms / args.steps,
+        "device_busy_share": device_ms / wall_ms,
+        "class_ms_per_step": {c: ms / args.steps
+                              for c, ms in sorted(classes.items(),
+                                                  key=lambda kv: -kv[1])},
+        "top": [{"kernel": n[:120], "ms_per_step": ms / args.steps,
+                 "calls_per_step": c / args.steps}
+                for n, ms, c in kernels[:args.top]]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,118 @@
+"""Job entry point of the PyTorch port: ``llm`` (train the transformer LM,
+then optionally sample from it). The counterpart of ``cmd_llm`` in
+``kubeoperator_tpu/train/jobs.py``, with the same flags plus ``--device``.
+
+    python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16
+    python -m kubeoperator_tpu_torch.train.jobs llm --device cpu --steps 2 \\
+        --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256
+
+Each record is one JSON line on stdout. Runs on the card unless
+``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+# flags of the JAX command whose non-default values need a part of the
+# system this port does not have yet, and where the ROADMAP queues it
+NOT_PORTED = {
+    "mesh": (None, "multi-device meshes (ROADMAP queue 1, multi-device)"),
+    "experts": (0, "MoE FFNs (ROADMAP queue 1, MoE)"),
+    "sp_attention": ("ring", "sequence-parallel attention (ROADMAP queue 1, "
+                             "multi-device)"),
+    "ckpt_dir": (None, "checkpointing (ROADMAP queue 1, checkpoint)"),
+    "metrics_port": (0, "the ko_train_* metrics server (ROADMAP queue 1, "
+                        "serving and jobs)"),
+}
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def cmd_llm(args: argparse.Namespace) -> int:
+    """Train the transformer LM for ``--steps`` on a synthetic batch, then
+    sample ``--sample`` tokens from the trained model."""
+    for flag, (default, what) in NOT_PORTED.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: {what}")
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+    from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=args.vocab, d_model=args.d_model,
+                            n_heads=args.heads, n_layers=args.layers,
+                            d_ff=args.d_ff or int(args.d_model * 8 / 3 / 32) * 32,
+                            max_seq_len=args.seq_len,
+                            dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    lt = LMTrainer(cfg, device=args.device)
+    state = lt.init_state()
+    tokens = lt.synthetic_batch(args.batch or 1, args.seq_len)
+    while state["step"] < args.steps:
+        state, metrics = lt.train_step(state, tokens)
+        step = state["step"]
+        if step % max(1, args.steps // 10) == 0 or step == args.steps:
+            emit({"job": "llm", "step": step,
+                  "loss": round(float(metrics["loss"]), 4)})
+    if args.sample > 0:
+        # decode path smoke: KV-cached generation from the trained params
+        sampled = generate(cfg, state["model"], tokens[:1, :4],
+                           max_new_tokens=min(args.sample, cfg.max_seq_len - 4),
+                           temperature=0.8, device=lt.device)
+        emit({"job": "llm", "sampled_tokens": sampled[0].tolist()})
+    emit({"job": "llm", "done": True, "steps": state["step"], "chips": 1,
+          "device": str(lt.device), "seq_len": args.seq_len})
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="kubeoperator_tpu_torch.train.jobs",
+                                description="PyTorch port workload jobs")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    lm = sub.add_parser("llm", help="transformer LM (one device)")
+    lm.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    lm.add_argument("--metrics-port", type=int, default=0,
+                    help="not ported: must stay 0")
+    lm.add_argument("--steps", type=int, default=100)
+    lm.add_argument("--seq-len", type=int, default=2048)
+    lm.add_argument("--batch", type=int, default=None)
+    lm.add_argument("--vocab", type=int, default=32_000)
+    lm.add_argument("--d-model", type=int, default=512)
+    lm.add_argument("--heads", type=int, default=8)
+    lm.add_argument("--layers", type=int, default=4)
+    lm.add_argument("--d-ff", type=int, default=None)
+    lm.add_argument("--experts", type=int, default=0,
+                    help="not ported: must stay 0")
+    lm.add_argument("--sample", type=int, default=0,
+                    help=">0: generate this many tokens after training "
+                         "(KV-cached decode smoke)")
+    lm.add_argument("--sp-attention", choices=("ring", "ulysses"),
+                    default="ring", help="not ported: must stay ring")
+    lm.add_argument("--bf16", action="store_true", default=True)
+    lm.add_argument("--no-bf16", dest="bf16", action="store_false")
+    lm.add_argument("--mesh", type=str, default=None,
+                    help="not ported: must stay unset")
+    lm.add_argument("--ckpt-dir", type=str, default=None,
+                    help="not ported: must stay unset")
+    lm.add_argument("--ckpt-every", type=int, default=50)
+    lm.add_argument("--ckpt-keep", type=int, default=3)
+    return p
+
+
+COMMANDS = {"llm": cmd_llm}
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return COMMANDS[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,43 @@
+"""Each CUDA flash-attention kernel against its plain PyTorch version, on
+the card. Imports no JAX, so it runs where the kernels build:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_flash_cuda.py
+
+Without a card every test skips."""
+
+import pytest
+import torch
+
+from kubeoperator_tpu_torch.workloads import flash_attention as tfa
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d,causal,kv_len", [
+    (8, 256, 128, True, 256), (8, 256, 64, False, 196)])
+def test_cuda_kernels_match_plain(bh, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, scale, causal, kv_len)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, scale, causal, kv_len)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, kv_len)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, kv_len)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
+    dk_p, dv_p = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale,
+                                         causal, kv_len)
+    torch.cuda.synchronize()
+    # bf16 outputs; the kernels round P and dS to bf16 before their
+    # products. The limits of chip_smoke.py: elementwise, and a relative
+    # norm that an output 10% wrong on half its rows does not meet
+    for got, want in ((o, o_p), (dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        got, want = got[:, :kv_len].float(), want[:, :kv_len].float()
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+    torch.testing.assert_close(lse[:, :kv_len], lse_p[:, :kv_len],
+                               atol=1e-4, rtol=1e-5)

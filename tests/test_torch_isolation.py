@@ -1,0 +1,79 @@
+"""The PyTorch port stands alone: no module of it (nor chip_smoke.py)
+imports JAX, flax, optax or the JAX package, and its entry points run on
+the card unless the caller asks for the CPU."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from kubeoperator_tpu_torch.train import jobs
+from kubeoperator_tpu_torch.workloads import generate as tgen
+from kubeoperator_tpu_torch.workloads import lm as tlm
+from kubeoperator_tpu_torch.workloads import transformer as ttr
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kubeoperator_tpu"}
+TINY = ttr.TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=1,
+                             d_ff=64, max_seq_len=16, dtype=torch.float32)
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def port_files() -> list[Path]:
+    return sorted((ROOT / "kubeoperator_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = port_files()
+    assert len(files) >= 10
+    for path in files:
+        bad = _imported_roots(path) & FORBIDDEN
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_scan_sees_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("from kubeoperator_tpu.workloads import lm\nimport optax\n")
+    assert _imported_roots(probe) & FORBIDDEN == {"kubeoperator_tpu", "optax"}
+
+
+def _expect_cuda_default(make):
+    """Without a card the default device raises; with one it is CUDA."""
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_trainer_defaults_to_cuda():
+    _expect_cuda_default(lambda: tlm.LMTrainer(TINY).device)
+
+
+def test_generate_defaults_to_cuda():
+    model = ttr.Transformer(TINY).reset_parameters(0)
+    _expect_cuda_default(
+        lambda: tgen.generate(TINY, model, np.zeros((1, 2), int), 1).device)
+
+
+def test_jobs_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default run is the full job")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jobs.main(["llm", "--steps", "1", "--d-model", "32", "--heads", "4",
+                   "--layers", "1", "--d-ff", "64", "--seq-len", "8",
+                   "--vocab", "64"])
