@@ -19,16 +19,30 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048, batch 8,
    bf16, remat dots+attn, bf16 logits), launch counts reset before and
    read after; every kernel must have launched.
+   kernels_packed: K4-K6 (the same kernels on the packed [B, T, H·D]
+   layout) the same way, at ViT-B/16's path shape (B=128, H=12, T=196
+   padded to 256, D=64, non-causal) and at a causal one (B=2, H=4, T=512,
+   D=128); the library call is ``scaled_dot_product_attention`` on the
+   [B, H, T, D] transpose views with the key mask.
 5. jobs + generate: the ``llm`` entry point with ``--sample``, then greedy
    ``generate()`` on four right-padded prompts of mixed lengths from
    trained params, checked for repeatability and against a full forward.
+6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
+   ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
+   counts reset before and read after: K4-K6 each at least once per layer
+   and step, K1-K3 never (the packed route was taken).
+7. vit_job: the ``vit`` entry point at its default width, 2 steps of 64
+   images; it builds its encoder as the JAX job does (auto attention,
+   dense at 196 patches), so it must launch no flash kernel.
 
 Then the ``kernels`` line, and last the device line the harness reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import statistics
@@ -54,6 +68,13 @@ KERNELS = (
     ("flash_fwd", "kubeoperator_tpu/workloads/flash_attention.py:86"),
     ("flash_bwd_dq", "kubeoperator_tpu/workloads/flash_attention.py:158"),
     ("flash_bwd_dkv", "kubeoperator_tpu/workloads/flash_attention.py:186"),
+)
+PACKED_KERNELS = (
+    ("flash_fwd_packed", "kubeoperator_tpu/workloads/flash_attention.py:295"),
+    ("flash_bwd_dq_packed",
+     "kubeoperator_tpu/workloads/flash_attention.py:333"),
+    ("flash_bwd_dkv_packed",
+     "kubeoperator_tpu/workloads/flash_attention.py:366"),
 )
 SOURCE = "kubeoperator_tpu_torch/csrc/flash_attention.cu"
 
@@ -107,17 +128,19 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
-def bounds(bh: int, t: int, d: int, causal: bool, kv_len: int,
-           peak_flops: float, hbm_bytes_per_s: float) -> dict:
+def bounds(bh: int, t: int, d: int, causal: bool,
+           peak_flops: float, hbm_bytes_per_s: float,
+           suffix: str = "") -> dict:
     """Least time per kernel: the larger of bytes over the card's HBM rate
-    and tensor-core FLOPs over its bf16 peak. FLOPs count the (query, key)
-    pairs these inputs need: real query rows against real keys, the lower
-    triangle when causal."""
-    if causal:
-        pairs = sum(min(r + 1, kv_len) for r in range(kv_len))
-    else:
-        pairs = kv_len * kv_len
-    blk, row = bh * t * d * 2, bh * t * 4       # a [BH,T,D] bf16 / [BH,T] f32
+    and tensor-core FLOPs over its bf16 peak, for the work these inputs
+    need at their ``t`` real rows (rows past ``t``, the tile padding, need
+    be neither read nor written). FLOPs count the real (query, key) pairs,
+    the lower triangle when causal; bytes count each real row of every
+    input once and of every output once. The packed layout moves the same
+    bytes (``bh`` = B·H heads); its kernels are named with
+    ``suffix="_packed"``."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    blk, row = bh * t * d * 2, bh * t * 4       # a [BH,t,D] bf16 / [BH,t] f32
     work = {"flash_fwd": (4 * pairs * d * bh, 4 * blk + row),
             "flash_bwd_dq": (6 * pairs * d * bh, 5 * blk + 2 * row),
             "flash_bwd_dkv": (8 * pairs * d * bh, 6 * blk + 2 * row)}
@@ -125,42 +148,82 @@ def bounds(bh: int, t: int, d: int, causal: bool, kv_len: int,
     for name, (flops, nbytes) in work.items():
         t_ops = flops / peak_flops * 1e3
         t_bytes = nbytes / hbm_bytes_per_s * 1e3
-        out[name] = {"bound_ms": max(t_ops, t_bytes),
+        out[name + suffix] = {"bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": flops, "bytes": nbytes}
     return out
 
 
-def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed):
-    """K1-K3 against their plain versions on [B·H, T, D] inputs (zero-
-    padded to the tile grid when T is ragged, keys past T masked). Also
+class Layout:
+    """How ``kernel_phase`` drives one layout's three kernels: their names,
+    wrappers and plain versions, the [.., T, ..] inputs, Δ, and the
+    [B, H, T, D] views the library call takes."""
+
+    def __init__(self, fa, layout: str, b: int, h: int, d: int):
+        self.b, self.h, self.d = b, h, d
+        self.packed = layout == "packed"
+        suffix = "_packed" if self.packed else ""
+        self.names = [n + suffix for n in ("flash_fwd", "flash_bwd_dq",
+                                           "flash_bwd_dkv")]
+        self.kernels = [getattr(fa, n) for n in self.names]
+        self.plains = [getattr(fa, n + "_plain") for n in self.names]
+        self.heads = (h,) if self.packed else ()
+
+    def shape(self, t: int) -> tuple:
+        b, h, d = self.b, self.h, self.d
+        return (b, t, h * d) if self.packed else (b * h, t, d)
+
+    def delta(self, fa, do, o):
+        """Δ as the layout's backward computes it for its kernels."""
+        if self.packed:
+            return fa.packed_delta(do, o, self.h)
+        return fa.bh_delta(do, o)
+
+    def heads4(self, x):
+        """[B, H, T, D] view of a kernel input (no copy)."""
+        tp = x.shape[1]
+        if self.packed:
+            return x.view(self.b, tp, self.h, self.d).transpose(1, 2)
+        return x.view(1, self.b * self.h, tp, self.d)
+
+
+def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
+                 layout="bh"):
+    """One layout's three kernels (K1-K3 on [B·H, T, D], or K4-K6 on the
+    packed [B, T, H·D]) against their plain versions, on inputs zero-
+    padded to the tile grid when T is ragged, keys past T masked. Also
     shows that the limits reject the plain outputs made 10% wrong on the
     late half of the rows."""
     import torch.nn.functional as F
 
+    lay = Layout(fa, layout, b, h, d)
+    fwd_k, dq_k, dkv_k = lay.kernels
+    fwd_p, dq_p_fn, dkv_p_fn = lay.plains
+    n_fwd, n_dq, n_dkv = lay.names
     gen = torch.Generator(device="cuda").manual_seed(1234)
     tp = fa.padded_len(t, 128, fa.TILE)
-    bh, scale, kv_len = b * h, d ** -0.5, t
+    scale, kv_len = d ** -0.5, t
 
     def make():
-        x = torch.randn(bh, t, d, device="cuda", generator=gen).to(torch.bfloat16)
+        x = torch.randn(lay.shape(t), device="cuda",
+                        generator=gen).to(torch.bfloat16)
         return F.pad(x, (0, 0, 0, tp - t)).contiguous()
 
     q, k, v, do = make(), make(), make(), make()
-    o, lse = fa.flash_fwd(q, k, v, scale, causal, kv_len)
-    delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, kv_len)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, kv_len)
+    args = (*lay.heads, scale, causal, kv_len)
+    o, lse = fwd_k(q, k, v, *args)
+    delta = lay.delta(fa, do, o)
+    dq = dq_k(q, k, v, do, lse, delta, *args)
+    dk, dv = dkv_k(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_fwd_plain(q, k, v, scale, causal, kv_len)
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
-    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale,
-                                        causal, kv_len)
-    errs = {"flash_fwd": {"o": compare("flash_fwd o", o, o_p),
-                          "lse": compare("flash_fwd lse", lse, lse_p, LSE_TOL)},
-            "flash_bwd_dq": {"dq": compare("flash_bwd_dq", dq, dq_p)},
-            "flash_bwd_dkv": {"dk": compare("flash_bwd_dkv dk", dk, dk_p),
-                              "dv": compare("flash_bwd_dkv dv", dv, dv_p)}}
+    o_p, lse_p = fwd_p(q, k, v, *args)
+    dq_p = dq_p_fn(q, k, v, do, lse, delta, *args)
+    dk_p, dv_p = dkv_p_fn(q, k, v, do, lse, delta, *args)
+    errs = {n_fwd: {"o": compare(f"{n_fwd} o", o, o_p),
+                    "lse": compare(f"{n_fwd} lse", lse, lse_p, LSE_TOL)},
+            n_dq: {"dq": compare(n_dq, dq, dq_p)},
+            n_dkv: {"dk": compare(f"{n_dkv} dk", dk, dk_p),
+                    "dv": compare(f"{n_dkv} dv", dv, dv_p)}}
     late = torch.ones(tp, 1, device="cuda")
     late[tp // 2:] = 1.1
     wrong = {}
@@ -170,9 +233,10 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed):
             raise AssertionError(f"the limits {TOL} pass a {what} that is "
                                  f"10% wrong on the late half of the rows")
         wrong[what] = {f: err[f] for f in ("rel_norm_err", "atol_needed")}
-    bnd = bounds(bh, tp, d, causal, kv_len, *peaks)
+    bnd = bounds(b * h, kv_len, d, causal, *peaks,
+                 suffix="_packed" if lay.packed else "")
     result = {}
-    for name, _ in KERNELS:
+    for name in lay.names:
         result[name] = {
             "max_abs_err": max(e["max_abs_err"] for e in errs[name].values()),
             "max_rel_err": max(e["max_rel_err"] for e in errs[name].values()),
@@ -182,23 +246,23 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed):
                         for k, e in errs[name].items()},
             **bnd[name]}
     if timed:
-        args = (scale, causal, kv_len)
-        result["flash_fwd"]["ms"] = cuda_ms(lambda: fa.flash_fwd(q, k, v, *args))
-        result["flash_fwd"]["plain_ms"] = cuda_ms(
-            lambda: fa.flash_fwd_plain(q, k, v, *args), n=2)
-        result["flash_bwd_dq"]["ms"] = cuda_ms(
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, *args))
-        result["flash_bwd_dq"]["plain_ms"] = cuda_ms(
-            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *args), n=2)
-        result["flash_bwd_dkv"]["ms"] = cuda_ms(
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args))
-        result["flash_bwd_dkv"]["plain_ms"] = cuda_ms(
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *args), n=2)
-        # the library yardstick: one SDPA call on the same tensors (a free
-        # [1, BH, T, D] view); it computes K1's function. No single library
-        # call computes K2's or K3's alone, so theirs stay null; SDPA's
-        # whole backward is timed beside the sum of ours instead.
-        q4, k4, v4, do4 = (x.view(1, bh, tp, d) for x in (q, k, v, do))
+        result[n_fwd]["ms"] = cuda_ms(lambda: fwd_k(q, k, v, *args))
+        result[n_fwd]["plain_ms"] = cuda_ms(lambda: fwd_p(q, k, v, *args),
+                                            n=2)
+        result[n_dq]["ms"] = cuda_ms(
+            lambda: dq_k(q, k, v, do, lse, delta, *args))
+        result[n_dq]["plain_ms"] = cuda_ms(
+            lambda: dq_p_fn(q, k, v, do, lse, delta, *args), n=2)
+        result[n_dkv]["ms"] = cuda_ms(
+            lambda: dkv_k(q, k, v, do, lse, delta, *args))
+        result[n_dkv]["plain_ms"] = cuda_ms(
+            lambda: dkv_p_fn(q, k, v, do, lse, delta, *args), n=2)
+        # the library yardstick: one SDPA call on free [B, H, T, D] views
+        # of the same tensors; it computes the forward kernel's function.
+        # No single library call computes the dQ or dK/dV kernel alone, so
+        # theirs stay null; SDPA's whole backward is timed beside the sum
+        # of ours instead.
+        q4, k4, v4, do4 = (lay.heads4(x) for x in (q, k, v, do))
         mask = None
         if kv_len != tp or not causal:
             keep = torch.arange(tp, device="cuda")[None, :] < kv_len
@@ -220,16 +284,15 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed):
             out.backward(do4)
 
         fwd_ms = cuda_ms(sdpa)
-        result["flash_fwd"]["library_ms"] = fwd_ms
-        result["flash_bwd_dq"]["library_ms"] = None
-        result["flash_bwd_dkv"]["library_ms"] = None
+        result[n_fwd]["library_ms"] = fwd_ms
+        result[n_dq]["library_ms"] = None
+        result[n_dkv]["library_ms"] = None
         result["sdpa_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
         result["sdpa_bwd_ms"] = result["sdpa_fwd_bwd_ms"] - fwd_ms
-        result["ours_bwd_ms"] = (result["flash_bwd_dq"]["ms"]
-                                 + result["flash_bwd_dkv"]["ms"])
-    emit({"phase": "kernels", "shape": label,
-          "b": b, "h": h, "t": t, "t_padded": tp, "d": d, "causal": causal,
-          "tolerance": TOL, "lse_tolerance": LSE_TOL,
+        result["ours_bwd_ms"] = result[n_dq]["ms"] + result[n_dkv]["ms"]
+    emit({"phase": "kernels_packed" if lay.packed else "kernels",
+          "shape": label, "b": b, "h": h, "t": t, "t_padded": tp, "d": d,
+          "causal": causal, "tolerance": TOL, "lse_tolerance": LSE_TOL,
           "rejected_late_10pct_wrong": wrong, **result})
     return result
 
@@ -246,6 +309,7 @@ def main() -> int:
     from kubeoperator_tpu_torch.workloads import flash_attention as fa
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+    from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
     from kubeoperator_tpu_torch.workloads.train import (
         peak_flops_per_chip, peak_hbm_bytes_per_chip)
 
@@ -269,6 +333,12 @@ def main() -> int:
     peaks = (peak_flops_per_chip(), peak_hbm_bytes_per_chip())
     path = kernel_phase(fa, peaks, "path", 8, 16, 2048, 128, True, timed=True)
     kernel_phase(fa, peaks, "ragged", 2, 4, 196, 64, False, timed=False)
+    # K4-K6 at ViT-B/16's path shape, then causal at D=128 (the hi/lo loop
+    # bounds on the packed addressing)
+    vit_path = kernel_phase(fa, peaks, "vit_path", 128, 12, 196, 64, False,
+                            timed=True, layout="packed")
+    kernel_phase(fa, peaks, "causal_d128", 2, 4, 512, 128, True,
+                 timed=False, layout="packed")
 
     # -- 4. main path: train -------------------------------------------------
     steps, warmup, repeats = 3, 2, 3
@@ -301,7 +371,7 @@ def main() -> int:
     if rc != 0:
         raise AssertionError(f"jobs llm returned {rc}")
     jobs_launches = dict(fa.LAUNCHES)
-    if min(jobs_launches.values()) == 0:
+    if min(jobs_launches[kname] for kname, _ in KERNELS) == 0:
         raise AssertionError(f"jobs llm: a kernel never launched: "
                              f"{jobs_launches}")
 
@@ -350,16 +420,73 @@ def main() -> int:
           "exact_first_tokens": sum(f["token"] == f["full_forward_argmax"]
                                     for f in first)})
 
+    # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
+    vcfg = ViTConfig()
+    v_steps, v_warmup, v_repeats, per_call, v_batch = 4, 2, 3, 8, 128
+    fa.reset_launches()
+    vm = ViTTrainer(vcfg).measure(batch=v_batch, steps=v_steps,
+                                  warmup=v_warmup, steps_per_call=per_call,
+                                  repeats=v_repeats)
+    vit_launches = dict(fa.LAUNCHES)
+    v_total = (v_warmup + v_steps * v_repeats) * per_call
+    enc = vcfg.encoder
+    emit({"phase": "vit_train",
+          "config": {"num_classes": vcfg.num_classes,
+                     "image_size": vcfg.image_size, "patch": vcfg.patch,
+                     "encoder": {**dataclasses.asdict(enc),
+                                 "dtype": str(enc.dtype)}},
+          "batch": v_batch, "steps_per_call": per_call, "steps_run": v_total,
+          "launches": vit_launches, "nvidia_smi": smi,
+          **{k: v for k, v in vm.items() if k != "step_stats"},
+          "step_stats": vm["step_stats"]})
+    if not math.isfinite(vm["final_loss"]):
+        raise AssertionError(f"vit_train: loss not finite "
+                             f"({vm['final_loss']})")
+    for kname, _ in PACKED_KERNELS:
+        if vit_launches[kname] < enc.n_layers * v_total:
+            raise AssertionError(f"vit_train: {kname} launched "
+                                 f"{vit_launches[kname]} times, expected "
+                                 f">= {enc.n_layers * v_total}")
+    for kname, _ in KERNELS:
+        if vit_launches[kname]:
+            raise AssertionError(f"vit_train: {kname} launched "
+                                 f"{vit_launches[kname]} times; the packed "
+                                 f"route launches none of K1-K3")
+
+    # -- 7. the vit entry point at its default width --------------------------
+    fa.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = jobs.main(["vit", "--steps", "2", "--batch-per-chip", "64"])
+    print(out.getvalue(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"jobs vit returned {rc}")
+    records = [json.loads(line) for line in out.getvalue().splitlines()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"jobs vit: losses {losses}")
+    if not records[-1].get("done"):
+        raise AssertionError("jobs vit: no done record")
+    vit_job_launches = dict(fa.LAUNCHES)
+    if any(vit_job_launches.values()):
+        raise AssertionError(f"jobs vit: auto attention at 196 patches is "
+                             f"dense, yet flash kernels launched: "
+                             f"{vit_job_launches}")
+    emit({"phase": "vit_job", "losses": losses,
+          "img_per_sec": records[-1]["img_per_sec"],
+          "launches": vit_job_launches})
+
     # -- the kernels line and the device line --------------------------------
+    # each kernel with its own main path's launches and its own path shape
+    main_runs = ([(k, w, train_launches, path[k]) for k, w in KERNELS]
+                 + [(k, w, vit_launches, vit_path[k])
+                    for k, w in PACKED_KERNELS])
     emit({"kernels": [
         {"name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
-         "launches": train_launches[kname],
-         "max_abs_err": path[kname]["max_abs_err"], "ms": path[kname]["ms"],
-         "plain_ms": path[kname]["plain_ms"],
-         "bound_ms": path[kname]["bound_ms"],
-         "bound_by": path[kname]["bound_by"],
-         "library_ms": path[kname]["library_ms"]}
-        for kname, where in KERNELS]})
+         "launches": launches[kname], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for kname, where, launches, r in main_runs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

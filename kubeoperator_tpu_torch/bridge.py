@@ -1,5 +1,6 @@
-"""Parameters from the JAX package's flax ``Transformer`` to the port's
-``Transformer`` state dict.
+"""Parameters from the JAX package's flax models to the port's state dicts:
+``params_from_jax`` for the ``Transformer``, ``vit_params_from_jax`` for
+the ``VisionTransformer``.
 
 The port keeps the flax layouts, so the bridge is a copy: it walks the
 (``nn.unbox``-ed, numpy) param tree and names each leaf the way the port's
@@ -34,15 +35,12 @@ def _layer_tree(layers: Mapping, i: int, stacked: bool) -> Mapping:
     return pick(layers)
 
 
-def params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
-    """State dict for ``kubeoperator_tpu_torch.workloads.transformer.
-    Transformer(cfg)`` from a flax ``Transformer`` param tree (the
-    ``"params"`` collection, unboxed, leaves as numpy or jax arrays)."""
-    layers = params["layers"]
+def _blocks_from_jax(layers: Mapping, n_layers: int) -> dict[str, torch.Tensor]:
+    """``layers.{i}.*`` entries of the port's ``Block`` stack from a flax
+    ``layers`` tree, stacked or unrolled."""
     stacked = not any(str(k).startswith("layers_") for k in layers)
-    sd = {"embedding": _tensor(params["embedding"]),
-          "ln_f.scale": _tensor(params["ln_f"]["scale"])}
-    for i in range(cfg.n_layers):
+    sd = {}
+    for i in range(n_layers):
         lp = _layer_tree(layers, i, stacked)
         if "moe" in lp:
             raise NotImplementedError("MoE params are not ported yet "
@@ -56,4 +54,25 @@ def params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
             sd[pre + f"mlp.{name}"] = _tensor(lp["mlp"][name]["kernel"])
         sd[pre + "ln1.scale"] = _tensor(lp["ln1"]["scale"])
         sd[pre + "ln2.scale"] = _tensor(lp["ln2"]["scale"])
+    return sd
+
+
+def params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """State dict for ``kubeoperator_tpu_torch.workloads.transformer.
+    Transformer(cfg)`` from a flax ``Transformer`` param tree (the
+    ``"params"`` collection, unboxed, leaves as numpy or jax arrays)."""
+    return {"embedding": _tensor(params["embedding"]),
+            "ln_f.scale": _tensor(params["ln_f"]["scale"]),
+            **_blocks_from_jax(params["layers"], cfg.n_layers)}
+
+
+def vit_params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """State dict for ``kubeoperator_tpu_torch.workloads.vit.
+    VisionTransformer(cfg)`` from a flax ``VisionTransformer`` param tree:
+    the patch conv (HWIO kernel and bias), the encoder blocks, ``ln_f``
+    and the head (kernel and bias)."""
+    sd = {f"{name}.{leaf}": _tensor(params[name][leaf])
+          for name in ("patch_embed", "head") for leaf in ("kernel", "bias")}
+    sd["ln_f.scale"] = _tensor(params["ln_f"]["scale"])
+    sd.update(_blocks_from_jax(params["layers"], cfg.encoder.n_layers))
     return sd

@@ -1,22 +1,41 @@
-// Flash attention for Hopper (sm_90a): forward, dQ backward, dK/dV backward.
+// Flash attention for Hopper (sm_90a): forward, dQ backward, dK/dV backward,
+// on two memory layouts.
 //
-// Replaces the three Pallas TPU kernels of the JAX package's
+// Replaces six Pallas TPU kernels of the JAX package's
 // kubeoperator_tpu/workloads/flash_attention.py:
-//   flash_fwd_kernel     <- _fwd / _fwd_kernel            (K1)
-//   flash_bwd_dq_kernel  <- _bwd / _bwd_dq_kernel         (K2)
-//   flash_bwd_dkv_kernel <- _bwd / _bwd_dkv_kernel        (K3)
+//   flash_fwd_kernel<D, false>     <- _fwd / _fwd_kernel                  (K1)
+//   flash_bwd_dq_kernel<D, false>  <- _bwd / _bwd_dq_kernel               (K2)
+//   flash_bwd_dkv_kernel<D, false> <- _bwd / _bwd_dkv_kernel              (K3)
+//   flash_fwd_kernel<D, true>      <- _fwd_packed / _fwd_packed_kernel    (K4)
+//   flash_bwd_dq_kernel<D, true>   <- _bwd_packed / _bwd_dq_packed_kernel (K5)
+//   flash_bwd_dkv_kernel<D, true>  <- _bwd_packed / _bwd_dkv_packed_kernel
+//                                                                         (K6)
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, T, D] bf16, contiguous;
-// lse and delta are [BH, T] f32 (the TPU kernels stored [BH, 8, T] only to
-// satisfy Mosaic's (8, 128) tiling). T is a multiple of the 64-row tile
-// (the Python wrapper pads), D is 64 or 128. Keys at or past kv_len are
-// masked to -1e30, causal masks row < col the same way, and the causal loop
-// bounds equal the JAX kernels' `hi` and `lo`.
+// Layout: q, k, v, o, do, dq, dk, dv are bf16, contiguous, either
+// [BH, T, D] (the "bh" layout, PACKED = false) or [B, T, nh*D] (the
+// "packed" layout, PACKED = true: the attention projections' [B, T, H, D]
+// output read in place, with no transpose). One block works on one head:
+// blockIdx.y = b*nh + h, the head's rows start at b*T*nh*D + h*D and are
+// nh*D apart; the bh layout is that with nh = 1. lse and delta are
+// [B*nh, T] f32 in both (the TPU kernels stored [.., 8, T] only to satisfy
+// Mosaic's (8, 128) tiling). T is a multiple of the 64-row tile (the
+// Python wrapper pads), D is 64 or 128. Keys at or past kv_len are masked
+// to -1e30, causal masks row < col the same way, and the causal loop
+// bounds equal the JAX kernels' `hi` and `lo`. A head's row is D*2 = 128
+// or 256 bytes at a multiple of that offset, so the 16-byte vector loads
+// stay aligned in both layouts. The TPU packed kernels also walked several
+// batch rows and every head in one program (`_bb_packed`), a VMEM tuning
+// with no counterpart here: a block per (tile, head) already fills the 132
+// SMs at the ViT shape (4 tiles x 1536 heads).
 //
 // What bounds them on the H100: at the LM's path shape (BH=128, T=2048,
 // D=128, causal) each kernel does 2-4 matrix products of T x T x D per head
 // and moves only O(T*D) bytes, so all three are bound by tensor-core
-// operations (989 TFLOP/s bf16 dense), not by the 3.35 TB/s of HBM.
+// operations (989 TFLOP/s bf16 dense), not by the 3.35 TB/s of HBM. At
+// ViT-B/16's shape (B=128, H=12, T=196 padded to 256, D=64, non-causal)
+// the sequence is short, and the same kernels are bound by the bytes they
+// must move (about 0.06-0.09 ms at 3.35 TB/s against 0.02-0.03 ms of
+// tensor-core work).
 //
 // What the design does about it: every product runs on the tensor cores as
 // mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
@@ -101,16 +120,28 @@ __device__ __forceinline__ void load_bt2(uint32_t* b, const bf16* m, int k0,
       : "r"(addr));
 }
 
-// copy a [64][D] bf16 tile from global (row stride D) into shared memory
-// (row stride LD), 16 bytes per thread per step
+// copy a [64][D] bf16 tile from global (row stride ld elements) into
+// shared memory (row stride LD), 16 bytes per thread per step
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld) {
   constexpr int LD = Ld<D>::H, VEC = D / 8;
   for (int idx = threadIdx.x; idx < 64 * VEC; idx += NTHREADS) {
     const int r = idx / VEC, c = idx % VEC;
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
+        *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c * 8);
   }
+}
+
+// where a block's head starts (blockIdx.y is b*nh + h); each kernel's
+// global row stride is PACKED ? nh*D : D. The bh layout is a compile-time
+// case so that its stride is the constant D: that keeps K1-K3's address
+// arithmetic (and K3's 255 registers at D = 128) as they were before the
+// packed layout existed; a runtime stride there cost K3 8% on an H100.
+template <int D, bool PACKED>
+__device__ __forceinline__ size_t head_base(int t, int nh) {
+  if (!PACKED) return (size_t)blockIdx.y * t * D;
+  const int b = blockIdx.y / nh, h = blockIdx.y % nh;
+  return ((size_t)b * t * nh + h) * D;
 }
 
 // accumulator element e of an m16n8 tile sits at row g + 8*(e >> 1),
@@ -135,15 +166,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward. One block per (q-tile, bh). Replaces the JAX package's
-// workloads/flash_attention.py::_fwd_kernel (launched by _fwd).
+// K1/K4: forward. One block per (q-tile, head). Replaces the JAX package's
+// workloads/flash_attention.py::_fwd_kernel (launched by _fwd) and, on the
+// packed layout, ::_fwd_packed_kernel (launched by _fwd_packed).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int t, float scale, int causal,
-                 int kv_len) {
+                 float* __restrict__ lse, int t, int nh, float scale,
+                 int causal, int kv_len) {
   constexpr int LD = Ld<D>::H;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -153,10 +185,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const size_t base = (size_t)bh * t * D;
+  const size_t base = head_base<D, PACKED>(t, nh);
+  const int ld = PACKED ? nh * D : D;         // global row stride
   const int row0 = qt * BQ + warp * 16 + g;   // rows of elements 0,1; +8: 2,3
 
-  load_tile<D>(sQ, q + base + (size_t)qt * BQ * D);
+  load_tile<D>(sQ, q + base + (size_t)qt * BQ * ld, ld);
   __syncthreads();
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -173,8 +206,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
   for (int j = 0; j < hi; ++j) {
     __syncthreads();                           // previous tile consumed
-    load_tile<D>(sK, k + base + (size_t)j * BK * D);
-    load_tile<D>(sV, v + base + (size_t)j * BK * D);
+    load_tile<D>(sK, k + base + (size_t)j * BK * ld, ld);
+    load_tile<D>(sV, v + base + (size_t)j * BK * ld, ld);
     __syncthreads();
 
     float s[BK / 8][4];
@@ -252,11 +285,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (l[i] == 0.0f) l[i] = 1.0f;
     inv[i] = 1.0f / l[i];
   }
-  bf16* o0 = o + base + (size_t)row0 * D + 2 * tq;
+  bf16* o0 = o + base + (size_t)row0 * ld + 2 * tq;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<uint32_t*>(o0 + n * 8) = pack(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(o0 + 8 * D + n * 8) =
+    *reinterpret_cast<uint32_t*>(o0 + 8 * ld + n * 8) =
         pack(acc[n][2] * inv[1], acc[n][3] * inv[1]);
   }
   if (tq == 0) {
@@ -266,17 +299,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ. One block per (q-tile, bh); loops over K/V tiles up to the
+// K2/K5: dQ. One block per (q-tile, head); loops over K/V tiles up to the
 // diagonal. P and dS stay in registers; dQ accumulates in registers.
-// Replaces workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd).
+// Replaces workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd)
+// and ::_bwd_dq_packed_kernel (launched by _bwd_packed).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int t, float scale, int causal, int kv_len) {
+                    int t, int nh, float scale, int causal, int kv_len) {
   constexpr int LD = Ld<D>::H;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -287,11 +321,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = blockIdx.x, bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const size_t base = (size_t)bh * t * D;
+  const size_t base = head_base<D, PACKED>(t, nh);
+  const int ld = PACKED ? nh * D : D;         // global row stride
   const int row0 = qt * BQ + warp * 16 + g;
 
-  load_tile<D>(sQ, q + base + (size_t)qt * BQ * D);
-  load_tile<D>(sDO, dout + base + (size_t)qt * BQ * D);
+  load_tile<D>(sQ, q + base + (size_t)qt * BQ * ld, ld);
+  load_tile<D>(sDO, dout + base + (size_t)qt * BQ * ld, ld);
   const float lse_r[2] = {lse[(size_t)bh * t + row0], lse[(size_t)bh * t + row0 + 8]};
   const float delta_r[2] = {delta[(size_t)bh * t + row0],
                             delta[(size_t)bh * t + row0 + 8]};
@@ -305,8 +340,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
   for (int j = 0; j < hi; ++j) {
     __syncthreads();
-    load_tile<D>(sK, k + base + (size_t)j * BK * D);
-    load_tile<D>(sV, v + base + (size_t)j * BK * D);
+    load_tile<D>(sK, k + base + (size_t)j * BK * ld, ld);
+    load_tile<D>(sV, v + base + (size_t)j * BK * ld, ld);
     __syncthreads();
 
     float s[BK / 8][4], dp[BK / 8][4];
@@ -357,30 +392,31 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  bf16* d0 = dq + base + (size_t)row0 * D + 2 * tq;
+  bf16* d0 = dq + base + (size_t)row0 * ld + 2 * tq;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<uint32_t*>(d0 + n * 8) = pack(acc[n][0] * scale, acc[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(d0 + 8 * D + n * 8) =
+    *reinterpret_cast<uint32_t*>(d0 + 8 * ld + n * 8) =
         pack(acc[n][2] * scale, acc[n][3] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV, replacing workloads/flash_attention.py::_bwd_dkv_kernel
-// (launched by _bwd). One block per (k-tile, bh); loops over Q tiles from the
+// K3/K6: dK and dV, replacing workloads/flash_attention.py::_bwd_dkv_kernel
+// (launched by _bwd) and ::_bwd_dkv_packed_kernel (launched by _bwd_packed).
+// One block per (k-tile, head); loops over Q tiles from the
 // JAX kernel's `lo`. Works on transposed scores S^T = K.Q^T so that each
 // warp owns 16 key rows and keeps their dK/dV in registers; each Q tile is
 // taken in two 32-row halves to bound the live score registers.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int t, float scale, int causal,
-                     int kv_len) {
+                     bf16* __restrict__ dv, int t, int nh, float scale,
+                     int causal, int kv_len) {
   constexpr int LD = Ld<D>::H, QH = 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -393,11 +429,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt = blockIdx.x, bh = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const size_t base = (size_t)bh * t * D;
+  const size_t base = head_base<D, PACKED>(t, nh);
+  const int ld = PACKED ? nh * D : D;         // global row stride
   const int key0 = kt * BK + warp * 16 + g;   // keys of elements 0,1; +8: 2,3
 
-  load_tile<D>(sK, k + base + (size_t)kt * BK * D);
-  load_tile<D>(sV, v + base + (size_t)kt * BK * D);
+  load_tile<D>(sK, k + base + (size_t)kt * BK * ld, ld);
+  load_tile<D>(sV, v + base + (size_t)kt * BK * ld, ld);
 
   float acc_dk[D / 8][4], acc_dv[D / 8][4];
 #pragma unroll
@@ -410,8 +447,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lo = causal ? (kt * BK) / BQ : 0;
   for (int i = lo; i < n_q; ++i) {
     __syncthreads();
-    load_tile<D>(sQ, q + base + (size_t)i * BQ * D);
-    load_tile<D>(sDO, dout + base + (size_t)i * BQ * D);
+    load_tile<D>(sQ, q + base + (size_t)i * BQ * ld, ld);
+    load_tile<D>(sDO, dout + base + (size_t)i * BQ * ld, ld);
     for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
       sL[r] = lse[(size_t)bh * t + i * BQ + r];
       sD[r] = delta[(size_t)bh * t + i * BQ + r];
@@ -475,16 +512,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // the TPU kernel pre-scaled Q; here dK = (dS^T . Q) * scale, once
-  bf16* k0p = dk + base + (size_t)key0 * D + 2 * tq;
-  bf16* v0p = dv + base + (size_t)key0 * D + 2 * tq;
+  bf16* k0p = dk + base + (size_t)key0 * ld + 2 * tq;
+  bf16* v0p = dv + base + (size_t)key0 * ld + 2 * tq;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<uint32_t*>(k0p + n * 8) =
         pack(acc_dk[n][0] * scale, acc_dk[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(k0p + 8 * D + n * 8) =
+    *reinterpret_cast<uint32_t*>(k0p + 8 * ld + n * 8) =
         pack(acc_dk[n][2] * scale, acc_dk[n][3] * scale);
     *reinterpret_cast<uint32_t*>(v0p + n * 8) = pack(acc_dv[n][0], acc_dv[n][1]);
-    *reinterpret_cast<uint32_t*>(v0p + 8 * D + n * 8) = pack(acc_dv[n][2], acc_dv[n][3]);
+    *reinterpret_cast<uint32_t*>(v0p + 8 * ld + n * 8) = pack(acc_dv[n][2], acc_dv[n][3]);
   }
 }
 
@@ -501,50 +538,92 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int D>
+// grid: one block per (64-row tile, head); blockIdx.y = b*nh + h
+template <int D, bool PACKED>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int t, float scale, int causal,
-                       int kv_len, cudaStream_t stream) {
+                       void* lse, int b, int nh, int t, float scale,
+                       int causal, int kv_len, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, PACKED>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / BQ, bh);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(t / BQ, b * nh);
+  flash_fwd_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, t,
-      scale, causal, kv_len);
+      nh, scale, causal, kv_len);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PACKED>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int t, float scale, int causal,
+                      void* dq, int b, int nh, int t, float scale, int causal,
                       int kv_len, cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, PACKED>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / BQ, bh);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(t / BQ, b * nh);
+  flash_bwd_dq_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, t, scale, causal,
+      (const float*)lse, (const float*)delta, (bf16*)dq, t, nh, scale, causal,
       kv_len);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PACKED>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int t, float scale,
+                       void* dk, void* dv, int b, int nh, int t, float scale,
                        int causal, int kv_len, cudaStream_t stream) {
   const size_t smem = dkv_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, PACKED>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / BK, bh);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(t / BK, b * nh);
+  flash_bwd_dkv_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, t, scale,
-      causal, kv_len);
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, t, nh,
+      scale, causal, kv_len);
   return cudaGetLastError();
+}
+
+// shapes the kernels take: T a positive multiple of the tile, b*nh blocks
+// within the grid's y limit
+bool bad_shape(int b, int nh, int t) {
+  return t % BQ != 0 || t <= 0 || b <= 0 || nh <= 0 ||
+         (long long)b * nh > 65535;
+}
+
+template <bool PACKED>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int b, int nh, int t, int d, float scale, int causal, int kv_len,
+        void* stream) {
+  if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_fwd<64, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_fwd<128, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool PACKED>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int b, int nh, int t,
+           int d, float scale, int causal, int kv_len, void* stream) {
+  if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_dq<64, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dq<128, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool PACKED>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, int b,
+            int nh, int t, int d, float scale, int causal, int kv_len,
+            void* stream) {
+  if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_dkv<64, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dkv<128, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -552,39 +631,57 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a shape it does not take.
+// ko_flash_*: the bh layout [BH, T, D] (K1-K3); ko_flash_*_packed: the
+// packed layout [B, T, H*D] with the head count h (K4-K6).
 // ---------------------------------------------------------------------------
 extern "C" {
 
 int ko_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int t, int d, float scale, int causal,
                  int kv_len, void* stream) {
-  if (t % BQ != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_fwd<64>(q, k, v, o, lse, bh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_fwd<128>(q, k, v, o, lse, bh, t, scale, causal, kv_len, s);
-  return (int)cudaErrorInvalidValue;
+  return fwd<false>(q, k, v, o, lse, bh, 1, t, d, scale, causal, kv_len,
+                    stream);
 }
 
 int ko_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int bh, int t, int d, float scale, int causal,
                     int kv_len, void* stream) {
-  if (t % BQ != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, t, scale, causal, kv_len, s);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dq<false>(q, k, v, dout, lse, delta, dq, bh, 1, t, d, scale,
+                       causal, kv_len, stream);
 }
 
 int ko_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int bh, int t, int d, float scale,
                      int causal, int kv_len, void* stream) {
-  if (t % BK != 0 || t <= 0 || bh <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, scale, causal, kv_len, s);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dkv<false>(q, k, v, dout, lse, delta, dk, dv, bh, 1, t, d,
+                        scale, causal, kv_len, stream);
+}
+
+int ko_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int b, int t, int h, int d, float scale,
+                        int causal, int kv_len, void* stream) {
+  return fwd<true>(q, k, v, o, lse, b, h, t, d, scale, causal, kv_len,
+                   stream);
+}
+
+int ko_flash_bwd_dq_packed(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int b, int t, int h,
+                           int d, float scale, int causal, int kv_len,
+                           void* stream) {
+  return bwd_dq<true>(q, k, v, dout, lse, delta, dq, b, h, t, d, scale,
+                      causal, kv_len, stream);
+}
+
+int ko_flash_bwd_dkv_packed(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int b,
+                            int t, int h, int d, float scale, int causal,
+                            int kv_len, void* stream) {
+  return bwd_dkv<true>(q, k, v, dout, lse, delta, dk, dv, b, h, t, d, scale,
+                       causal, kv_len, stream);
 }
 
 }  // extern "C"

@@ -34,6 +34,13 @@ SIGNATURES = {
                             _I, _P],
         "ko_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                              _I, _I, _P],
+        # the packed layout [B, T, H·D]: (b, t, h, d) where bh had (bh, t, d)
+        "ko_flash_fwd_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                _I, _P],
+        "ko_flash_bwd_dq_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _F, _I, _I, _P],
+        "ko_flash_bwd_dkv_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _F, _I, _I, _P],
     },
 }
 

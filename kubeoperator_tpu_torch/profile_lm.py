@@ -1,12 +1,14 @@
-"""Where the LM train step's time goes on the card.
+"""Where a train step's time goes on the card.
 
     python -m kubeoperator_tpu_torch.profile_lm [--steps 3] [--top 15]
+    python -m kubeoperator_tpu_torch.profile_lm --model vit [--batch 128]
 
 Trains the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048,
-batch 8, bf16, remat dots+attn, bf16 logits) for a few warm steps, then
-traces ``--steps`` more with ``torch.profiler`` and prints one JSON line:
-the window's wall time, the device's busy and idle share, the device time
-by class (the port's flash kernels, cuBLAS GEMMs, the rest) and the
+batch 8, bf16, remat dots+attn, bf16 logits), or with ``--model vit``
+ViT-B/16 (``ViTConfig()``, batch 128), for a few warm steps, then traces
+``--steps`` more with ``torch.profiler`` and prints one JSON line: the
+window's wall time, the device's busy and idle share, the device time by
+class (the port's flash kernels, cuBLAS GEMMs, the rest) and the
 ``--top`` kernels by device time. Needs the card.
 """
 
@@ -48,19 +50,30 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--model", choices=("lm", "vit"), default="lm")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 8 for the LM, 128 for the ViT")
     args = ap.parse_args(argv)
 
-    lt = LMTrainer(BENCH_LM)
-    state = lt.init_state()
-    tokens = lt.synthetic_batch(args.batch, BENCH_LM.max_seq_len)
+    if args.model == "lm":
+        args.batch = args.batch or 8
+        tr = LMTrainer(BENCH_LM)
+        inputs = (tr.synthetic_batch(args.batch, BENCH_LM.max_seq_len),)
+        seq_len = BENCH_LM.max_seq_len
+    else:
+        from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
+        args.batch = args.batch or 128
+        tr = ViTTrainer(ViTConfig())
+        inputs = tr.synthetic_batch(args.batch)
+        seq_len = tr.cfg.seq_len
+    state = tr.init_state()
     for _ in range(3):
-        state, _ = lt.train_step(state, tokens)
+        state, _ = tr.train_step(state, *inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            state, metrics = lt.train_step(state, tokens)
+            state, metrics = tr.train_step(state, *inputs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     loss = float(metrics["loss"])
@@ -86,8 +99,9 @@ def main(argv: list[str] | None = None) -> int:
         cls = kernel_class(name)
         classes[cls] = classes.get(cls, 0.0) + ms
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": args.steps,
-        "batch": args.batch, "seq_len": BENCH_LM.max_seq_len, "loss": loss,
+        "device": torch.cuda.get_device_name(0), "model": args.model,
+        "steps": args.steps, "batch": args.batch, "seq_len": seq_len,
+        "loss": loss,
         "wall_ms_per_step": wall_ms / args.steps,
         "device_ms_per_step": device_ms / args.steps,
         "device_busy_share": device_ms / wall_ms,

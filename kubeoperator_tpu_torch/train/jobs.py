@@ -1,10 +1,16 @@
-"""Job entry point of the PyTorch port: ``llm`` (train the transformer LM,
-then optionally sample from it). The counterpart of ``cmd_llm`` in
-``kubeoperator_tpu/train/jobs.py``, with the same flags plus ``--device``.
+"""Job entry points of the PyTorch port: ``llm`` (train the transformer
+LM, then optionally sample from it) and ``vit`` (train the Vision
+Transformer classifier on a synthetic image stream). The counterparts of
+``cmd_llm`` and ``cmd_vit`` in ``kubeoperator_tpu/train/jobs.py``, with
+the same flags plus ``--device``.
 
     python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16
     python -m kubeoperator_tpu_torch.train.jobs llm --device cpu --steps 2 \\
         --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256
+    python -m kubeoperator_tpu_torch.train.jobs vit --steps 2
+    python -m kubeoperator_tpu_torch.train.jobs vit --device cpu --steps 2 \\
+        --batch-per-chip 2 --image-size 32 --patch 8 --d-model 64 --heads 4 \\
+        --layers 2 --classes 10
 
 Each record is one JSON line on stdout. Runs on the card unless
 ``--device cpu`` is given.
@@ -15,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import torch
 
@@ -35,13 +42,19 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise for a flag of ``NOT_PORTED`` that the command has and that is
+    set away from its default."""
+    for flag, (default, what) in NOT_PORTED.items():
+        if getattr(args, flag, default) != default:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet: {what}")
+
+
 def cmd_llm(args: argparse.Namespace) -> int:
     """Train the transformer LM for ``--steps`` on a synthetic batch, then
     sample ``--sample`` tokens from the trained model."""
-    for flag, (default, what) in NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: {what}")
+    refuse_unported(args)
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
     from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
@@ -68,6 +81,44 @@ def cmd_llm(args: argparse.Namespace) -> int:
         emit({"job": "llm", "sampled_tokens": sampled[0].tolist()})
     emit({"job": "llm", "done": True, "steps": state["step"], "chips": 1,
           "device": str(lt.device), "seq_len": args.seq_len})
+    return 0
+
+
+def cmd_vit(args: argparse.Namespace) -> int:
+    """Vision Transformer classification for ``--steps`` on the synthetic
+    image stream, copied to the device with prefetch. The encoder is built
+    as the JAX job builds it: ``TransformerConfig`` defaults (attention
+    ``auto``, remat ``dots``) with d_ff = 4·d_model, non-causal; at 196
+    patches ``auto`` takes the dense attention path."""
+    refuse_unported(args)
+    from kubeoperator_tpu_torch.workloads.data import (
+        prefetch_to_device, synthetic_image_batches,
+    )
+    from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
+    from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
+
+    enc = TransformerConfig(
+        d_model=args.d_model, n_heads=args.heads, n_layers=args.layers,
+        d_ff=args.d_model * 4, causal=False,
+        max_seq_len=(args.image_size // args.patch) ** 2)
+    cfg = ViTConfig(num_classes=args.classes, image_size=args.image_size,
+                    patch=args.patch, encoder=enc)
+    tr = ViTTrainer(cfg, device=args.device)
+    state = tr.init_state()
+    batch = args.batch_per_chip
+    source = synthetic_image_batches(batch, args.image_size, args.classes,
+                                     seed=0, steps=args.steps)
+    t0 = time.perf_counter()
+    for images, labels in prefetch_to_device(source, tr.device):
+        state, metrics = tr.train_step(state, images, labels)
+        step = state["step"]
+        if step % max(1, args.steps // 5) == 0 or step == args.steps:
+            emit({"job": "vit", "step": step,
+                  "loss": round(float(metrics["loss"]), 4)})
+    dt = time.perf_counter() - t0
+    emit({"job": "vit", "done": True, "steps": args.steps, "chips": 1,
+          "device": str(tr.device),
+          "img_per_sec": round(batch * args.steps / dt, 1)})
     return 0
 
 
@@ -103,10 +154,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported: must stay unset")
     lm.add_argument("--ckpt-every", type=int, default=50)
     lm.add_argument("--ckpt-keep", type=int, default=3)
+
+    vt = sub.add_parser("vit", help="Vision Transformer classification "
+                                    "(one device)")
+    vt.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    vt.add_argument("--steps", type=int, default=50)
+    vt.add_argument("--batch-per-chip", type=int, default=64)
+    vt.add_argument("--image-size", type=int, default=224)
+    vt.add_argument("--patch", type=int, default=16)
+    vt.add_argument("--d-model", type=int, default=768)
+    vt.add_argument("--heads", type=int, default=12)
+    vt.add_argument("--layers", type=int, default=12)
+    vt.add_argument("--classes", type=int, default=1000)
+    vt.add_argument("--mesh", type=str, default=None,
+                    help="not ported: must stay unset")
     return p
 
 
-COMMANDS = {"llm": cmd_llm}
+COMMANDS = {"llm": cmd_llm, "vit": cmd_vit}
 
 
 def main(argv: list[str] | None = None) -> int:

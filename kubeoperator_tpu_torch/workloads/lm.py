@@ -41,6 +41,15 @@ class MeshSpec:
                 ("ep", self.ep), ("tp", self.tp), ("sp", self.sp))
 
 
+def refuse_mesh(spec: MeshSpec | None) -> None:
+    """Raise for a mesh with any axis above 1: the port's trainers run on
+    one device until the multi-device slice."""
+    if spec is not None and any(s > 1 for _, s in spec.sizes()):
+        raise NotImplementedError(
+            f"mesh {dict(spec.sizes())}: the port trains on one device "
+            f"until ROADMAP queue 1's multi-device item")
+
+
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token loss with the JAX trainer's roll + mask: targets are the
     tokens rolled left by one and the last position is masked out. The sum
@@ -58,10 +67,7 @@ class LMTrainer:
                  device: str | torch.device | None = None,
                  learning_rate: float = 3e-4):
         self.device = resolve_device(device)
-        if spec is not None and any(s > 1 for _, s in spec.sizes()):
-            raise NotImplementedError(
-                f"mesh {dict(spec.sizes())}: the port trains on one device "
-                f"until ROADMAP queue 1's multi-device item")
+        refuse_mesh(spec)
         self.cfg = cfg
         self.learning_rate = learning_rate
         self.last_metrics: dict = {}

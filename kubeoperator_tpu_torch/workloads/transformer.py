@@ -29,7 +29,7 @@ from torch.utils.checkpoint import (
 
 from kubeoperator_tpu_torch.workloads import ring_attention as ra
 from kubeoperator_tpu_torch.workloads.flash_attention import (
-    DEFAULT_BLOCK, FLASH_OP, flash_attention,
+    DEFAULT_BLOCK, FLASH_OP, FLASH_PACKED_OP, flash_attention,
 )
 
 
@@ -56,7 +56,7 @@ class TransformerConfig:
     remat_policy: str = "dots"  # dots | dots+attn | attn | all
     fused_qkv: bool = False
     flash_block: int = 0        # 0 = auto; sets the padded length only
-    flash_layout: str = "bh"    # "packed" is the ViT slice's (not ported)
+    flash_layout: str = "bh"    # bh (K1-K3) | packed (K4-K6, the ViT's)
     scan_layers: bool = True    # layout of the JAX param tree; the port
                                 # always holds one module per layer
 
@@ -279,7 +279,7 @@ class Block(nn.Module):
 # backward. "dots" is jax's checkpoint_dots_with_no_batch_dims: the
 # projection matmuls are aten.mm, attention's batched products are not.
 _DOTS = (torch.ops.aten.mm.default,)
-_ATTN = (FLASH_OP, ATTN_OUT_OP)
+_ATTN = (FLASH_OP, FLASH_PACKED_OP, ATTN_OUT_OP)
 REMAT_SAVES = {"dots": _DOTS, "dots+attn": _DOTS + _ATTN, "attn": _ATTN,
                "all": ()}
 
@@ -295,6 +295,23 @@ def remat_context_fn(policy: str):
     saved = REMAT_SAVES[policy]
     return partial(create_selective_checkpoint_contexts,
                    partial(_policy, saved))
+
+
+def run_blocks(layers: nn.ModuleList, x: torch.Tensor,
+               positions: torch.Tensor, remat: bool, context_fn,
+               caches: list | None = None) -> torch.Tensor:
+    """The layer loop shared by the LM and the ViT encoder: each block
+    with its decode cache, under selective checkpointing (``context_fn``
+    from ``remat_context_fn``), or plain."""
+    for i, blk in enumerate(layers):
+        if caches is not None:
+            x = blk(x, positions, caches[i])
+        elif remat:
+            x = checkpoint(blk, x, positions, use_reentrant=False,
+                           context_fn=context_fn)
+        else:
+            x = blk(x, positions)
+    return x
 
 
 class Transformer(nn.Module):
@@ -336,14 +353,8 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
-        for i, blk in enumerate(self.layers):
-            if caches is not None:
-                x = blk(x, positions, caches[i])
-            elif remat:
-                x = checkpoint(blk, x, positions, use_reentrant=False,
-                               context_fn=self._remat_ctx)
-            else:
-                x = blk(x, positions)
+        x = run_blocks(self.layers, x, positions, remat, self._remat_ctx,
+                       caches)
         return tied_logits(cfg, self.ln_f(x), self.embedding)
 
 

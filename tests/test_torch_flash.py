@@ -110,8 +110,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tfa.reset_launches()
     arrays = qkv(b=1, t=128, h=2, d=64)
     port_grads(arrays, True, 64)
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+    assert set(tfa.LAUNCHES) >= {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert tfa.LAUNCHES == dict.fromkeys(tfa.LAUNCHES, 0)
 
 
 def test_padded_len_covers_block_and_tile():
@@ -120,8 +120,3 @@ def test_padded_len_covers_block_and_tile():
     assert tfa.padded_len(100, 64, 64) == 128
     assert tfa.padded_len(100, 96, 64) == 192       # 192 = 2·96, tile-aligned
 
-
-def test_packed_layout_is_not_ported():
-    q, k, v = (torch.from_numpy(x) for x in qkv(b=1, t=128))
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tfa.flash_attention(q, k, v, layout="packed")

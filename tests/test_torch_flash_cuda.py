@@ -1,5 +1,5 @@
-"""Each CUDA flash-attention kernel against its plain PyTorch version, on
-the card. Imports no JAX, so it runs where the kernels build:
+"""Each CUDA flash-attention kernel (K1-K3 on [BH, T, D], K4-K6 on the
+packed [B, T, H·D]) against its plain PyTorch version, on the card. Imports no JAX, so it runs where the kernels build:
 
     python -m pytest --noconftest -m gpu tests/test_torch_flash_cuda.py
 
@@ -25,7 +25,7 @@ def test_cuda_kernels_match_plain(bh, t, d, causal, kv_len):
     scale = d ** -0.5
     o, lse = tfa.flash_fwd(q, k, v, scale, causal, kv_len)
     o_p, lse_p = tfa.flash_fwd_plain(q, k, v, scale, causal, kv_len)
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    delta = tfa.bh_delta(do, o)
     dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, kv_len)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, kv_len)
     dq_p = tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, kv_len)
@@ -40,4 +40,32 @@ def test_cuda_kernels_match_plain(bh, t, d, causal, kv_len):
         torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
         assert float((got - want).norm() / want.norm()) <= 1e-2
     torch.testing.assert_close(lse[:, :kv_len], lse_p[:, :kv_len],
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,causal,kv_len", [
+    (128, 12, 256, 64, False, 196),     # ViT-B/16: 196 patches padded to 256
+    (2, 4, 512, 128, True, 512)])
+def test_cuda_packed_kernels_match_plain(b, h, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    args = (h, d ** -0.5, causal, kv_len)
+    o, lse = tfa.flash_fwd_packed(q, k, v, *args)
+    o_p, lse_p = tfa.flash_fwd_packed_plain(q, k, v, *args)
+    delta = tfa.packed_delta(do, o, h)
+    dq = tfa.flash_bwd_dq_packed(q, k, v, do, lse, delta, *args)
+    dk, dv = tfa.flash_bwd_dkv_packed(q, k, v, do, lse, delta, *args)
+    dq_p = tfa.flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, *args)
+    dk_p, dv_p = tfa.flash_bwd_dkv_packed_plain(q, k, v, do, lse, delta,
+                                                *args)
+    torch.cuda.synchronize()
+    for got, want in ((o, o_p), (dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        got, want = got[:, :kv_len].float(), want[:, :kv_len].float()
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+    torch.testing.assert_close(lse[..., :kv_len], lse_p[..., :kv_len],
                                atol=1e-4, rtol=1e-5)

@@ -13,6 +13,7 @@ from kubeoperator_tpu_torch.train import jobs
 from kubeoperator_tpu_torch.workloads import generate as tgen
 from kubeoperator_tpu_torch.workloads import lm as tlm
 from kubeoperator_tpu_torch.workloads import transformer as ttr
+from kubeoperator_tpu_torch.workloads import vit as tvit
 
 torch.set_num_threads(2)
 
@@ -40,6 +41,10 @@ def port_files() -> list[Path]:
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = port_files()
     assert len(files) >= 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"kubeoperator_tpu_torch/workloads/vit.py",
+            "kubeoperator_tpu_torch/workloads/data.py",
+            "chip_smoke.py"} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -77,3 +82,18 @@ def test_jobs_default_to_cuda():
         jobs.main(["llm", "--steps", "1", "--d-model", "32", "--heads", "4",
                    "--layers", "1", "--d-ff", "64", "--seq-len", "8",
                    "--vocab", "64"])
+
+
+def test_vit_trainer_defaults_to_cuda():
+    cfg = tvit.ViTConfig(num_classes=4, image_size=16, patch=8,
+                         encoder=TINY)
+    _expect_cuda_default(lambda: tvit.ViTTrainer(cfg).device)
+
+
+def test_vit_job_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default run is the full job")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jobs.main(["vit", "--steps", "1", "--batch-per-chip", "1",
+                   "--image-size", "16", "--patch", "8", "--d-model", "32",
+                   "--heads", "4", "--layers", "1", "--classes", "4"])
