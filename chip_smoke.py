@@ -34,6 +34,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 7. vit_job: the ``vit`` entry point at its default width, 2 steps of 64
    images; it builds its encoder as the JAX job does (auto attention,
    dense at 196 patches), so it must launch no flash kernel.
+8. kernels_conv: K7 (``conv1x1_bwd_dx``, ``conv1x1_bwd_dw``) at three
+   ResNet-50 sites, K8 (``bn_bwd_stats``, ``bn_bwd_dx``, ``bn_bwd_dw``)
+   with relu at stage 1's 401,408 rows and without at 100,352, and K9
+   (``channel_sum``) at its probe shape, each against its plain version
+   within ``CONV_TOL``/``F32_TOL``, with the rejection of outputs 10%
+   wrong on the late half of the rows; kernel, plain and library times
+   and the bounds.
+9. resnet_train: the ResNet main path, ``Trainer(RESNET_K7_K8).measure``
+   at ResNet-50's full width and depth (224², batch 128, 8 steps per
+   call), launch counts reset before and read after: each K7 kernel at
+   least 24 and each K8 kernel at least 9 launches per step, no flash
+   kernel.
+10. resnet_job: the ``resnet50`` entry point at its defaults (no K7/K8, as
+    the JAX job), 2 steps of 64 images: finite losses, no K7/K8 launch.
+11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
+    library, by K9 on the channels-last output, and by K9 after a layout
+    copy.
 
 Then the ``kernels`` line, and last the device line the harness reads.
 """
@@ -45,7 +62,6 @@ import dataclasses
 import io
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -55,6 +71,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from kubeoperator_tpu_torch.workloads.train import cuda_ms  # noqa: E402
 # A kernel output must meet both limits. The kernels round P and dS to bf16
 # before their products and write bf16, so on an H100 a right kernel is off
 # by about 0.25% in norm, and elementwise by a few bf16 steps where many
@@ -77,28 +96,26 @@ PACKED_KERNELS = (
      "kubeoperator_tpu/workloads/flash_attention.py:366"),
 )
 SOURCE = "kubeoperator_tpu_torch/csrc/flash_attention.cu"
+CONV_SOURCE = "kubeoperator_tpu_torch/csrc/conv_bwd.cu"
+K7_AT = "kubeoperator_tpu/workloads/conv_vjp.py:103"
+K8_AT = "kubeoperator_tpu/workloads/bn_fused.py:47"
+CONV_KERNELS = (("conv1x1_bwd_dx", K7_AT), ("conv1x1_bwd_dw", K7_AT),
+                ("bn_bwd_stats", K8_AT), ("bn_bwd_dx", K8_AT),
+                ("bn_bwd_dw", K8_AT))
+K9 = ("channel_sum", "scripts/perf_bitcast_probe.py:36")
+# dx (bf16): a right K7/K8 rounds the same f32 sums, taken in another
+# order, to bf16, so it is off by a bf16 step here and there (on an H100:
+# at most 7.2e-5 in norm and an atol of 4.6e-4 at rtol 2e-2 at the path
+# shapes). dW, dγ, dβ and K9's sums are f32 sums over up to 401,408 rows:
+# at most 6.5e-6 in norm and an atol of 0.0093 at rtol 1e-3, with values
+# up to 2,300. Each norm limit is more than ten times the measured error;
+# outputs 10% wrong on the late half of the rows are about 0.07 off in norm.
+CONV_TOL = {"atol": 1e-2, "rtol": 2e-2, "rel_norm": 1e-3}
+F32_TOL = {"atol": 5e-2, "rtol": 1e-3, "rel_norm": 1e-4}
 
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
-
-
-def cuda_ms(fn, n: int = 5, repeats: int = 3) -> float:
-    """Median over ``repeats`` of the mean time of ``n`` back-to-back
-    calls, by CUDA events, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
 
 
 def errors(got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict:
@@ -297,12 +314,186 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
     return result
 
 
+def late_wrong(want: torch.Tensor) -> torch.Tensor:
+    """``want`` made 10% wrong on the late half of its rows."""
+    scale = torch.ones(want.shape[0], *([1] * (want.dim() - 1)),
+                       device=want.device)
+    scale[want.shape[0] // 2:] = 1.1
+    return want * scale
+
+
+def conv_bounds(n: int, ci: int, co: int, peak_flops: float,
+                hbm_bytes_per_s: float) -> dict:
+    """Least time for each K7/K8 kernel and for K7 and K8 whole: bytes
+    (each input read once, each output written once) over the HBM rate
+    against tensor-core FLOPs over the bf16 peak. x [n, ci], g and y
+    [n, co], dx bf16, w bf16, dW f32, vectors f32."""
+    x, g, w = 2 * n * ci, 2 * n * co, 2 * ci * co
+    dw, vec, prod = 4 * ci * co, 4 * co, 2 * n * ci * co
+    work = {"conv1x1_bwd_dx": (prod, g + w + x),
+            "conv1x1_bwd_dw": (prod, x + g + dw),
+            "K7": (2 * prod, x + g + w + x + dw),
+            "bn_bwd_stats": (0, 2 * g + 4 * vec + 2 * vec),
+            "bn_bwd_dx": (prod, 2 * g + w + 6 * vec + x),
+            "bn_bwd_dw": (prod, x + 2 * g + 6 * vec + dw),
+            "K8": (2 * prod, x + 2 * g + w + 4 * vec + x + dw + 2 * vec)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / peak_flops * 1e3
+        t_bytes = nbytes / hbm_bytes_per_s * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "flops": flops, "bytes": nbytes}
+    return out
+
+
+def conv_kernel_phase(peaks) -> dict:
+    """K7 at three ResNet-50 sites, K8 at two, K9 at its probe shape, each
+    CUDA kernel against its plain version; returns each kernel's record at
+    its path shape (K7: 25,088 rows 256→1024, the site that runs 6 times a
+    step; K8: 401,408 rows 64→256 with relu; K9: the probe's)."""
+    from kubeoperator_tpu_torch import bitcast_probe as bp
+    from kubeoperator_tpu_torch.workloads import bn_fused as bn
+    from kubeoperator_tpu_torch.workloads import conv_vjp as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(torch.bfloat16)
+
+    def check(name, got, want, tol):
+        err = compare(name, got, want, tol)
+        bad = errors(late_wrong(want), want, tol)
+        if bad["within"]:
+            raise AssertionError(f"the limits {tol} pass a {name} that is "
+                                 f"10% wrong on the late half of the rows")
+        return {**{f: err[f] for f in ("max_abs_err", "rel_norm_err",
+                                       "atol_needed", "median_abs_want")},
+                "late_10pct_wrong_rel_norm": bad["rel_norm_err"]}
+
+    records, path = [], {}
+    for n, ci, co in ((25088, 256, 1024), (6272, 2048, 512),
+                      (100352, 512, 256)):
+        x, g, w = rnd(n, ci), rnd(n, co), rnd(ci, co, scale=ci ** -0.5)
+        dx, dw = cv.conv1x1_bwd_dx(g, w), cv.conv1x1_bwd_dw(x, g)
+        torch.cuda.synchronize()
+        bnd = conv_bounds(n, ci, co, *peaks)
+        rec = {"kernel": "K7", "n": n, "ci": ci, "co": co,
+               "conv1x1_bwd_dx": {**check("conv1x1_bwd_dx", dx,
+                                          cv.conv1x1_bwd_dx_plain(g, w),
+                                          CONV_TOL),
+                                  **bnd["conv1x1_bwd_dx"]},
+               "conv1x1_bwd_dw": {**check("conv1x1_bwd_dw", dw,
+                                          cv.conv1x1_bwd_dw_plain(x, g),
+                                          F32_TOL),
+                                  **bnd["conv1x1_bwd_dw"]},
+               "K7": bnd["K7"],
+               "same_bits_twice": bool(torch.equal(
+                   dw, cv.conv1x1_bwd_dw(x, g)))}
+        if not rec["same_bits_twice"]:
+            raise AssertionError("conv1x1_bwd_dw: two runs differ")
+        rec["conv1x1_bwd_dx"]["ms"] = cuda_ms(lambda: cv.conv1x1_bwd_dx(g, w))
+        rec["conv1x1_bwd_dx"]["plain_ms"] = cuda_ms(
+            lambda: cv.conv1x1_bwd_dx_plain(g, w), n=2)
+        rec["conv1x1_bwd_dw"]["ms"] = cuda_ms(lambda: cv.conv1x1_bwd_dw(x, g))
+        rec["conv1x1_bwd_dw"]["plain_ms"] = cuda_ms(
+            lambda: cv.conv1x1_bwd_dw_plain(x, g), n=2)
+        rec["K7"]["ms"] = cuda_ms(lambda: cv.conv1x1_bwd(x, g, w))
+        # no one library call computes K7; the two cuBLAS products are its
+        # yardstick, as SDPA's whole backward is for K2 + K3
+        rec["K7"]["cublas_pair_ms"] = cuda_ms(lambda: (g @ w.t(), x.t() @ g))
+        for k in ("conv1x1_bwd_dx", "conv1x1_bwd_dw"):
+            rec[k]["library_ms"] = None
+        emit({"phase": "kernels_conv", **rec})
+        records.append(rec)
+        if n == 25088:
+            path.update({k: rec[k] for k in ("conv1x1_bwd_dx",
+                                             "conv1x1_bwd_dw")})
+
+    for n, ci, co, relu in ((401408, 64, 256, True),
+                            (100352, 128, 512, False)):
+        x, g, w = rnd(n, ci), rnd(n, co), rnd(ci, co, scale=ci ** -0.5)
+        y = (x.float() @ w.float()).to(torch.bfloat16)
+        yf = y.float()
+        mu = yf.mean(0)
+        inv = torch.rsqrt((yf * yf).mean(0) - mu * mu + 1e-5)
+        gamma = torch.linspace(0.5, 1.5, co, device="cuda")
+        beta = torch.linspace(-0.3, 0.3, co, device="cuda")
+        vecs = (gamma, beta, mu, inv)
+        sums = bn.bn_bwd_stats(g, y, *vecs, relu)
+        sums_p = bn.bn_bwd_stats_plain(g, y, *vecs, relu)
+        dx = bn.bn_bwd_dx(g, y, w, *vecs, sums_p, relu)
+        dw = bn.bn_bwd_dw(x, g, y, *vecs, sums_p, relu)
+        torch.cuda.synchronize()
+        bnd = conv_bounds(n, ci, co, *peaks)
+        # phase 1 is held against its plain version on the same sums, so
+        # that the check sees the products and not the sums' order
+        rec = {"kernel": "K8", "n": n, "ci": ci, "co": co, "relu": relu,
+               "bn_bwd_stats": {**check("bn_bwd_stats", sums.t(),
+                                        sums_p.t(), F32_TOL),
+                                **bnd["bn_bwd_stats"]},
+               "bn_bwd_dx": {**check("bn_bwd_dx", dx, bn.bn_bwd_dx_plain(
+                   g, y, w, *vecs, sums_p, relu), CONV_TOL),
+                   **bnd["bn_bwd_dx"]},
+               "bn_bwd_dw": {**check("bn_bwd_dw", dw, bn.bn_bwd_dw_plain(
+                   x, g, y, *vecs, sums_p, relu), F32_TOL),
+                   **bnd["bn_bwd_dw"]},
+               "K8": bnd["K8"]}
+        rec["bn_bwd_stats"]["ms"] = cuda_ms(
+            lambda: bn.bn_bwd_stats(g, y, *vecs, relu))
+        rec["bn_bwd_stats"]["plain_ms"] = cuda_ms(
+            lambda: bn.bn_bwd_stats_plain(g, y, *vecs, relu), n=2)
+        rec["bn_bwd_dx"]["ms"] = cuda_ms(
+            lambda: bn.bn_bwd_dx(g, y, w, *vecs, sums, relu))
+        rec["bn_bwd_dx"]["plain_ms"] = cuda_ms(
+            lambda: bn.bn_bwd_dx_plain(g, y, w, *vecs, sums, relu), n=2)
+        rec["bn_bwd_dw"]["ms"] = cuda_ms(
+            lambda: bn.bn_bwd_dw(x, g, y, *vecs, sums, relu))
+        rec["bn_bwd_dw"]["plain_ms"] = cuda_ms(
+            lambda: bn.bn_bwd_dw_plain(x, g, y, *vecs, sums, relu), n=2)
+        rec["K8"]["ms"] = cuda_ms(
+            lambda: bn.conv_bn_relu_bwd(x, g, y, w, *vecs, relu))
+        # the unfused composition is K8's plain version; no library call
+        # computes it
+        rec["K8"]["plain_ms"] = cuda_ms(
+            lambda: bn.conv_bn_relu_bwd_plain(x, g, y, w, *vecs, relu), n=2)
+        # two phases read g and y twice: the least a two-phase design needs
+        rec["K8"]["two_phase_bound_ms"] = (
+            rec["K8"]["bytes"] + 2 * 2 * n * co) / peaks[1] * 1e3
+        for k in ("bn_bwd_stats", "bn_bwd_dx", "bn_bwd_dw"):
+            rec[k]["library_ms"] = None
+        emit({"phase": "kernels_conv", **rec})
+        records.append(rec)
+        if n == 401408:
+            path.update({k: rec[k] for k in ("bn_bwd_stats", "bn_bwd_dx",
+                                             "bn_bwd_dw")})
+
+    b, h, wd, _, co = bp.SHAPE
+    n = b * h * wd
+    y = rnd(n, co)
+    got = bp.channel_sum(y)
+    torch.cuda.synchronize()
+    t_bytes = (2 * n * co + 4 * co) / peaks[1] * 1e3
+    rec = {**check("channel_sum", got[:, None],
+                   bp.channel_sum_plain(y)[:, None], F32_TOL),
+           "bound_ms": t_bytes, "bound_by": "bytes",
+           "ms": cuda_ms(lambda: bp.channel_sum(y)),
+           "plain_ms": cuda_ms(lambda: bp.channel_sum_plain(y), n=2),
+           "library_ms": cuda_ms(
+               lambda: y.view(b, h, wd, co).sum((0, 1, 2),
+                                                dtype=torch.float32))}
+    emit({"phase": "kernels_conv", "kernel": "K9", "n": n, "c": co,
+          "channel_sum": rec, "tolerance": CONV_TOL, "f32_tolerance": F32_TOL})
+    path["channel_sum"] = rec
+    return path
+
+
 def main() -> int:
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
                          "the port on the card and has no CPU mode")
-    sys.path.insert(0, str(ROOT))
     from kubeoperator_tpu_torch import kernels
     from kubeoperator_tpu_torch.profile_lm import BENCH_LM as cfg
     from kubeoperator_tpu_torch.train import jobs
@@ -476,17 +667,100 @@ def main() -> int:
           "img_per_sec": records[-1]["img_per_sec"],
           "launches": vit_job_launches})
 
+    # -- 8. K7, K8 and K9 against their plain versions ---------------------
+    from kubeoperator_tpu_torch import bitcast_probe as bp
+    from kubeoperator_tpu_torch.profile_lm import RESNET_K7_K8 as rcfg
+    from kubeoperator_tpu_torch.workloads import bn_fused, conv_vjp
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    conv_path = conv_kernel_phase(peaks)
+
+    def conv_launches():
+        return {**conv_vjp.LAUNCHES, **bn_fused.LAUNCHES}
+
+    def reset_conv():
+        conv_vjp.reset_launches()
+        bn_fused.reset_launches()
+
+    # -- 9. main path: ResNet-50 training on K7 and K8 ----------------------
+    r_steps, r_warmup, r_repeats, r_per_call = 4, 2, 3, 8
+    fa.reset_launches()
+    reset_conv()
+    trainer = Trainer(rcfg)
+    rm = trainer.measure(batch=rcfg.batch_size, steps=r_steps,
+                         warmup=r_warmup, steps_per_call=r_per_call,
+                         repeats=r_repeats)
+    resnet_launches = conv_launches()
+    r_total = (r_warmup + r_steps * r_repeats) * r_per_call
+    emit({"phase": "resnet_train",
+          "config": {**dataclasses.asdict(rcfg), "dtype": str(rcfg.dtype)},
+          "flops_per_step": trainer.flops_per_step(),
+          "steps_per_call": r_per_call,
+          "steps_run": r_total, "launches": resnet_launches,
+          "flash_launches": dict(fa.LAUNCHES), "nvidia_smi": smi,
+          **{k: v for k, v in rm.items() if k != "step_stats"},
+          "step_stats": rm["step_stats"]})
+    if not math.isfinite(rm["final_loss"]):
+        raise AssertionError(f"resnet_train: loss not finite "
+                             f"({rm['final_loss']})")
+    per_step = {"conv1x1_bwd_dx": 24, "conv1x1_bwd_dw": 24,
+                "bn_bwd_stats": 9, "bn_bwd_dx": 9, "bn_bwd_dw": 9}
+    for kname, want in per_step.items():
+        if resnet_launches[kname] < want * r_total:
+            raise AssertionError(f"resnet_train: {kname} launched "
+                                 f"{resnet_launches[kname]} times, expected "
+                                 f">= {want * r_total}")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"resnet_train: flash kernels launched: "
+                             f"{fa.LAUNCHES}")
+
+    # -- 10. the resnet50 entry point at its defaults -----------------------
+    reset_conv()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = jobs.main(["resnet50", "--steps", "2", "--batch-per-chip", "64"])
+    print(out.getvalue(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"jobs resnet50 returned {rc}")
+    records = [json.loads(line) for line in out.getvalue().splitlines()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"jobs resnet50: losses {losses}")
+    if not records[-1].get("done"):
+        raise AssertionError("jobs resnet50: no done record")
+    job_launches = conv_launches()
+    if any(job_launches.values()):
+        raise AssertionError(f"jobs resnet50: the JAX job's config runs no "
+                             f"K7/K8, yet they launched: {job_launches}")
+    emit({"phase": "resnet_job", "losses": losses,
+          "img_per_sec": records[-1]["img_per_sec"],
+          "launches": job_launches})
+
+    # -- 11. K9's probe -----------------------------------------------------
+    bp.reset_launches()
+    probe = bp.probe()
+    probe_launches = dict(bp.LAUNCHES)
+    emit({"phase": "bitcast_probe", **probe, "launches": probe_launches})
+    for variant in ("kernel_nhwc", "kernel_after_copy", "library"):
+        err = probe[variant]
+        if not err["max_abs_err"] <= 1e-5 * err["max_abs_want"] + 1e-2:
+            raise AssertionError(f"bitcast_probe {variant}: {err}")
+
     # -- the kernels line and the device line --------------------------------
     # each kernel with its own main path's launches and its own path shape
-    main_runs = ([(k, w, train_launches, path[k]) for k, w in KERNELS]
-                 + [(k, w, vit_launches, vit_path[k])
-                    for k, w in PACKED_KERNELS])
+    main_runs = ([(k, w, SOURCE, train_launches, path[k]) for k, w in KERNELS]
+                 + [(k, w, SOURCE, vit_launches, vit_path[k])
+                    for k, w in PACKED_KERNELS]
+                 + [(k, w, CONV_SOURCE, resnet_launches, conv_path[k])
+                    for k, w in CONV_KERNELS]
+                 + [(K9[0], K9[1], CONV_SOURCE, probe_launches,
+                     conv_path[K9[0]])])
     emit({"kernels": [
-        {"name": kname, "route": "cuda", "source": SOURCE, "replaces": where,
+        {"name": kname, "route": "cuda", "source": source, "replaces": where,
          "launches": launches[kname], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for kname, where, launches, r in main_runs]})
+        for kname, where, source, launches, r in main_runs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

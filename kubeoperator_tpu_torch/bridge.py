@@ -1,6 +1,7 @@
 """Parameters from the JAX package's flax models to the port's state dicts:
 ``params_from_jax`` for the ``Transformer``, ``vit_params_from_jax`` for
-the ``VisionTransformer``.
+the ``VisionTransformer``, ``resnet_params_from_jax`` for the ``ResNet``
+(params and batch stats).
 
 The port keeps the flax layouts, so the bridge is a copy: it walks the
 (``nn.unbox``-ed, numpy) param tree and names each leaf the way the port's
@@ -75,4 +76,48 @@ def vit_params_from_jax(params: Mapping, cfg) -> dict[str, torch.Tensor]:
           for name in ("patch_embed", "head") for leaf in ("kernel", "bias")}
     sd["ln_f.scale"] = _tensor(params["ln_f"]["scale"])
     sd.update(_blocks_from_jax(params["layers"], cfg.encoder.n_layers))
+    return sd
+
+
+# flax's auto-names inside a ResNet block -> the port's module names; the
+# projections keep their explicit names (proj_conv, proj_bn, proj_fused)
+_BLOCK_NAMES = {
+    "BottleneckBlock": {"Conv_0": "conv1", "BatchNorm_0": "bn1",
+                        "Conv_1": "conv2", "BatchNorm_1": "bn2",
+                        "Conv_2": "conv3", "BatchNorm_2": "bn3"},
+    # a fused block: FusedConvBN units around the 3x3 conv, which is then
+    # the block's first Conv (conv_vjp.Conv and nn.Conv share the counter)
+    "FusedBottleneckBlock": {"FusedConvBN_0": "fused1", "Conv_0": "conv2",
+                             "BatchNorm_0": "bn2", "FusedConvBN_1": "fused3"},
+    "BasicBlock": {"Conv_0": "conv1", "BatchNorm_0": "bn1",
+                   "Conv_1": "conv2", "BatchNorm_1": "bn2"},
+}
+
+
+def resnet_params_from_jax(variables: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """State dict for ``kubeoperator_tpu_torch.workloads.resnet.ResNet``
+    (built from ``cfg``, a ``TrainConfig`` or anything with ``depth``) from
+    flax ``ResNet`` variables: ``{"params": ..., "batch_stats": ...}``,
+    leaves as numpy or jax arrays. Blocks are ``{Bottleneck,Basic}Block_i``
+    numbered in creation order (the dict lists them sorted as text); a
+    block holding ``FusedConvBN_0`` is a fused one."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    kind = "BottleneckBlock" if cfg.depth >= 50 else "BasicBlock"
+    sd: dict[str, torch.Tensor] = {}
+
+    def copy(prefix: str, p: Mapping, s: Mapping) -> None:
+        for leaf, value in {**p, **s}.items():
+            sd[f"{prefix}.{leaf}"] = _tensor(value)
+
+    for name, tree in params.items():
+        if not name.startswith(kind + "_"):
+            copy(name, tree, stats.get(name, {}))
+            continue
+        i = int(name[len(kind) + 1:])
+        table = _BLOCK_NAMES[("Fused" + kind) if "FusedConvBN_0" in tree
+                             else kind]
+        for sub, leaves in tree.items():
+            copy(f"blocks.{i}.{table.get(sub, sub)}", leaves,
+                 stats.get(name, {}).get(sub, {}))
     return sd

@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -42,6 +43,17 @@ SIGNATURES = {
         "ko_flash_bwd_dkv_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _F, _I, _I, _P],
     },
+    "conv_bwd": {
+        "ko_conv1x1_bwd_dx": [_P, _P, _P, _I, _I, _I, _P],
+        "ko_conv1x1_bwd_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "ko_bn_bwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _P],
+        "ko_bn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
+        "ko_bn_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _P],
+        "ko_channel_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -65,8 +77,12 @@ def _source(name: str) -> Path:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256(_source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed on its source, the shared headers and
+    the flags."""
+    text = _source(name).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -93,10 +109,10 @@ def build(name: str) -> Path:
 
 
 def build_all() -> dict[str, dict]:
-    """Build every library (one source so far; start one ``nvcc`` per
-    source in parallel once there are more)."""
-    for name in SIGNATURES:
-        build(name)
+    """Build every library, one ``nvcc`` per source, all started
+    together."""
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        list(pool.map(build, SIGNATURES))
     return dict(build_log)
 
 

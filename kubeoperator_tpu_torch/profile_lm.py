@@ -2,13 +2,16 @@
 
     python -m kubeoperator_tpu_torch.profile_lm [--steps 3] [--top 15]
     python -m kubeoperator_tpu_torch.profile_lm --model vit [--batch 128]
+    python -m kubeoperator_tpu_torch.profile_lm --model resnet [--batch 128]
 
 Trains the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048,
-batch 8, bf16, remat dots+attn, bf16 logits), or with ``--model vit``
-ViT-B/16 (``ViTConfig()``, batch 128), for a few warm steps, then traces
+batch 8, bf16, remat dots+attn, bf16 logits), with ``--model vit``
+ViT-B/16 (``ViTConfig()``, batch 128), or with ``--model resnet``
+ResNet-50 at 224² in the configuration that runs K7 and K8
+(``RESNET_K7_K8``, batch 128), for a few warm steps, then traces
 ``--steps`` more with ``torch.profiler`` and prints one JSON line: the
 window's wall time, the device's busy and idle share, the device time by
-class (the port's flash kernels, cuBLAS GEMMs, the rest) and the
+class (the port's kernels, cuDNN convs, cuBLAS GEMMs, the rest) and the
 ``--top`` kernels by device time. Needs the card.
 """
 
@@ -22,6 +25,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+from kubeoperator_tpu_torch.workloads.train import TrainConfig
 from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
 
 BENCH_LM = TransformerConfig(vocab_size=32_000, d_model=2048, n_heads=16,
@@ -29,17 +33,28 @@ BENCH_LM = TransformerConfig(vocab_size=32_000, d_model=2048, n_heads=16,
                              dtype=torch.bfloat16, remat=True,
                              attention="auto", logits_bf16=True,
                              remat_policy="dots+attn")
+# ResNet-50 as bench.py:112-113 measures it, with the two kernel modes on:
+# every 1x1 conv takes make_conv's backward (dw_dot_max_k=1), K7 on the
+# stride-1 ones, and the 56x56 neighbourhoods are fused units (K8)
+RESNET_K7_K8 = TrainConfig(batch_size=128, image_size=224,
+                           stem="space_to_depth", dw_dot_max_k=1,
+                           conv_bwd="pallas", fused_bn=True)
 
 
 def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_" in low and "kernel" in low:
         return "flash (port)"
+    if any(k in low for k in ("gemm_dx_kernel", "gemm_dw_kernel",
+                              "colsum_kernel", "reduce_chunks_kernel")):
+        return "conv backward K7/K8 (port)"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "conv (cuDNN)"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "gemm (cuBLAS)"
     if "softmax" in low or "nll_loss" in low:
         return "cross-entropy"
-    if "multi_tensor_apply" in low or "adam" in low:
+    if "multi_tensor_apply" in low or "adam" in low or "sgd" in low:
         return "optimizer"
     if "copy_kernel" in low:
         return "casts and copies"
@@ -50,9 +65,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--model", choices=("lm", "vit"), default="lm")
+    ap.add_argument("--model", choices=("lm", "vit", "resnet"), default="lm")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 for the LM, 128 for the ViT")
+                    help="default 8 for the LM, 128 for the ViT and ResNet")
     args = ap.parse_args(argv)
 
     if args.model == "lm":
@@ -60,12 +75,18 @@ def main(argv: list[str] | None = None) -> int:
         tr = LMTrainer(BENCH_LM)
         inputs = (tr.synthetic_batch(args.batch, BENCH_LM.max_seq_len),)
         seq_len = BENCH_LM.max_seq_len
-    else:
+    elif args.model == "vit":
         from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
         args.batch = args.batch or 128
         tr = ViTTrainer(ViTConfig())
         inputs = tr.synthetic_batch(args.batch)
         seq_len = tr.cfg.seq_len
+    else:
+        from kubeoperator_tpu_torch.workloads.train import Trainer
+        args.batch = args.batch or 128
+        tr = Trainer(RESNET_K7_K8)
+        inputs = tr.synthetic_batch(args.batch)
+        seq_len = None
     state = tr.init_state()
     for _ in range(3):
         state, _ = tr.train_step(state, *inputs)

@@ -1,12 +1,16 @@
 """Job entry points of the PyTorch port: ``llm`` (train the transformer
-LM, then optionally sample from it) and ``vit`` (train the Vision
-Transformer classifier on a synthetic image stream). The counterparts of
-``cmd_llm`` and ``cmd_vit`` in ``kubeoperator_tpu/train/jobs.py``, with
-the same flags plus ``--device``.
+LM, then optionally sample from it), ``resnet50`` (train a ResNet on a
+synthetic image stream or an ``.npy`` dataset) and ``vit`` (train the
+Vision Transformer classifier on a synthetic image stream). The
+counterparts of ``cmd_llm``, ``cmd_resnet50`` and ``cmd_vit`` in
+``kubeoperator_tpu/train/jobs.py``, with the same flags plus ``--device``.
 
     python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16
     python -m kubeoperator_tpu_torch.train.jobs llm --device cpu --steps 2 \\
         --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256
+    python -m kubeoperator_tpu_torch.train.jobs resnet50 --steps 2
+    python -m kubeoperator_tpu_torch.train.jobs resnet50 --device cpu \\
+        --steps 2 --batch-per-chip 2 --image-size 32 --depth 18
     python -m kubeoperator_tpu_torch.train.jobs vit --steps 2
     python -m kubeoperator_tpu_torch.train.jobs vit --device cpu --steps 2 \\
         --batch-per-chip 2 --image-size 32 --patch 8 --d-model 64 --heads 4 \\
@@ -84,6 +88,47 @@ def cmd_llm(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_resnet50(args: argparse.Namespace) -> int:
+    """ResNet classification for ``--steps`` on the synthetic image stream
+    or ``--data-dir``, copied to the device with prefetch. The config is
+    the JAX job's: ``TrainConfig`` defaults (so no K7/K8 backward), the
+    s2d stem for even images of at least 64, warmup min(100, steps)."""
+    refuse_unported(args)
+    from kubeoperator_tpu_torch.workloads import data as data_pipe
+    from kubeoperator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    s2d_ok = args.image_size >= 64 and args.image_size % 2 == 0
+    cfg = TrainConfig(batch_size=args.batch_per_chip,
+                      image_size=args.image_size, depth=args.depth,
+                      total_steps=args.steps,
+                      warmup_steps=min(100, args.steps),
+                      stem="space_to_depth" if s2d_ok else "conv")
+    tr = Trainer(cfg, device=args.device)
+    state = tr.init_state()
+    if args.data_dir:
+        source = data_pipe.NpyDataset(args.data_dir).batches(
+            cfg.batch_size, seed=0)
+    else:
+        source = data_pipe.synthetic_image_batches(
+            cfg.batch_size, cfg.image_size, cfg.num_classes, seed=0,
+            steps=args.steps)
+    t0 = time.perf_counter()
+    for images, labels in data_pipe.prefetch_to_device(source, tr.device):
+        if state["step"] >= args.steps:
+            break
+        state, metrics = tr.train_step(state, images, labels)
+        step = state["step"]
+        if step % max(1, args.steps // 10) == 0 or step == args.steps:
+            emit({"job": "resnet50", "step": step,
+                  "loss": round(float(metrics["loss"]), 4)})
+    dt = time.perf_counter() - t0
+    img_s = cfg.batch_size * state["step"] / dt if dt > 0 else 0.0
+    emit({"job": "resnet50", "done": True, "steps": state["step"],
+          "chips": 1, "device": str(tr.device), "img_per_sec": round(img_s, 1),
+          "img_per_sec_per_chip": round(img_s, 1)})
+    return 0
+
+
 def cmd_vit(args: argparse.Namespace) -> int:
     """Vision Transformer classification for ``--steps`` on the synthetic
     image stream, copied to the device with prefetch. The encoder is built
@@ -155,6 +200,25 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--ckpt-every", type=int, default=50)
     lm.add_argument("--ckpt-keep", type=int, default=3)
 
+    rn = sub.add_parser("resnet50", help="ResNet classification (one "
+                                         "device)")
+    rn.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    rn.add_argument("--steps", type=int, default=200)
+    rn.add_argument("--batch-per-chip", type=int, default=256)
+    rn.add_argument("--image-size", type=int, default=224)
+    rn.add_argument("--depth", type=int, default=50,
+                    help="ResNet depth (18/34/50/101/152)")
+    rn.add_argument("--mesh", type=str, default=None,
+                    help="not ported: must stay unset")
+    rn.add_argument("--ckpt-dir", type=str, default=None,
+                    help="not ported: must stay unset")
+    rn.add_argument("--ckpt-every", type=int, default=50)
+    rn.add_argument("--ckpt-keep", type=int, default=3)
+    rn.add_argument("--data-dir", type=str, default=None,
+                    help="npy dataset dir (images.npy+labels.npy); "
+                         "default: synthetic stream")
+
     vt = sub.add_parser("vit", help="Vision Transformer classification "
                                     "(one device)")
     vt.add_argument("--device", type=str, default=None,
@@ -172,7 +236,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-COMMANDS = {"llm": cmd_llm, "vit": cmd_vit}
+COMMANDS = {"llm": cmd_llm, "resnet50": cmd_resnet50, "vit": cmd_vit}
 
 
 def main(argv: list[str] | None = None) -> int:

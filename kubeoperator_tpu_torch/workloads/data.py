@@ -1,6 +1,7 @@
 """Input pipeline of the port: host numpy batches to device tensors, with
 prefetch. The port's own copy of what its jobs need from
-``kubeoperator_tpu/workloads/data.py``.
+``kubeoperator_tpu/workloads/data.py``: the synthetic image stream, the
+``.npy`` dataset, and the prefetch to the device.
 
 Sources are plain iterators of host numpy batches; ``prefetch_to_device``
 keeps ``depth`` batches ahead of the consumer, each copied from pinned host
@@ -14,6 +15,7 @@ beside them.
 from __future__ import annotations
 
 import collections
+import os
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -36,6 +38,50 @@ def synthetic_image_batches(batch: int, image_size: int, num_classes: int,
         labels = rng.integers(0, num_classes, (batch,), dtype=np.int32)
         yield images, labels
         i += 1
+
+
+class NpyDataset:
+    """Memmapped ``.npy`` pair (``images.npy`` + ``labels.npy``) with
+    shuffled epochs, as the JAX package reads it."""
+
+    def __init__(self, directory: str, images: str = "images.npy",
+                 labels: str = "labels.npy"):
+        self.images = np.load(os.path.join(directory, images), mmap_mode="r")
+        self.labels = np.load(os.path.join(directory, labels), mmap_mode="r")
+        if len(self.images) != len(self.labels):
+            raise ValueError(f"images ({len(self.images)}) and labels "
+                             f"({len(self.labels)}) disagree")
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def batches(self, batch: int, seed: int = 0, epochs: int | None = None,
+                shard_id: int = 0, num_shards: int = 1,
+                skip_batches: int = 0) -> Iterator[tuple]:
+        """Shuffled epochs of (images, labels); incomplete trailing batches
+        are dropped. Every shard passes the same seed with its own
+        ``shard_id``: all share one permutation per epoch and take disjoint
+        strided slices of it, truncated to one length. ``skip_batches``
+        fast-forwards the stream (the shuffle is position-derived)."""
+        n = len(self)
+        shard_len = n // num_shards
+        if batch > shard_len:
+            raise ValueError(
+                f"batch {batch} exceeds shard size {shard_len} "
+                f"({n} samples / {num_shards} shards) — the loader would "
+                "never yield")
+        per_epoch = shard_len // batch
+        epoch = skip_batches // per_epoch
+        offset = skip_batches % per_epoch
+        while epochs is None or epoch < epochs:
+            order = np.random.default_rng(seed + epoch).permutation(n)
+            shard = order[shard_id::num_shards][:shard_len]
+            for b_i in range(offset, per_epoch):
+                idx = np.sort(shard[b_i * batch:(b_i + 1) * batch])
+                yield (np.asarray(self.images[idx]),
+                       np.asarray(self.labels[idx]))
+            offset = 0
+            epoch += 1
 
 
 def to_device(batch: Any, device: torch.device) -> Any:

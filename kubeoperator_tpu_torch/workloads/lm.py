@@ -11,43 +11,17 @@ optax.adamw's settings, updating the model and optimizer state in place
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from kubeoperator_tpu_torch.workloads.train import (
-    peak_flops_per_chip, resolve_device, step_stats, timed_steps,
+    MeshSpec, peak_flops_per_chip, refuse_mesh, resolve_device, step_stats,
+    timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
     Transformer, TransformerConfig, flops_per_token,
 )
-
-
-@dataclass(frozen=True)
-class MeshSpec:
-    """Parallelism degrees, as the JAX package names them. The port runs
-    one device: every degree must be 1 until the multi-device slice."""
-    dp: int = 1
-    fsdp: int = 1
-    pp: int = 1
-    ep: int = 1
-    tp: int = 1
-    sp: int = 1
-
-    def sizes(self) -> tuple[tuple[str, int], ...]:
-        return (("dp", self.dp), ("fsdp", self.fsdp), ("pp", self.pp),
-                ("ep", self.ep), ("tp", self.tp), ("sp", self.sp))
-
-
-def refuse_mesh(spec: MeshSpec | None) -> None:
-    """Raise for a mesh with any axis above 1: the port's trainers run on
-    one device until the multi-device slice."""
-    if spec is not None and any(s > 1 for _, s in spec.sizes()):
-        raise NotImplementedError(
-            f"mesh {dict(spec.sizes())}: the port trains on one device "
-            f"until ROADMAP queue 1's multi-device item")
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

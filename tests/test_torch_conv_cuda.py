@@ -1,0 +1,109 @@
+"""K7 (1×1 conv backward), K8 (conv → BN → relu backward) and K9
+(per-channel sum) against their plain PyTorch versions, on the card, at
+small shapes and at ragged ones (N not a multiple of the kernels' 64-row
+tile or of their row chunks). Imports no JAX, so it runs where the
+kernels build:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_conv_cuda.py
+
+Without a card every test skips."""
+
+import pytest
+import torch
+
+from kubeoperator_tpu_torch import bitcast_probe as tbp
+from kubeoperator_tpu_torch.workloads import bn_fused as tbn
+from kubeoperator_tpu_torch.workloads import conv_vjp as tcv
+
+torch.set_num_threads(2)
+
+# dx is bf16: a right kernel and its plain version round the same f32 sums
+# (taken in another order) to bf16, so they differ by a bf16 step here and
+# there. dW and the channel sums are f32 sums of up to N products. The
+# relative-norm limits reject an output 10% wrong on half its rows (about
+# 0.07 off in norm).
+DX_TOL = {"atol": 1e-2, "rtol": 2e-2, "rel_norm": 1e-2}
+F32_TOL = {"atol": 1e-3, "rtol": 1e-3, "rel_norm": 1e-4}
+
+
+def close(got, want, tol, what):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    assert bool(torch.isfinite(got).all()), what
+    assert float((diff - tol["rtol"] * want.abs()).max()) <= tol["atol"], what
+    rel = float(diff.norm() / want.norm().clamp_min(1e-30))
+    assert rel <= tol["rel_norm"], f"{what}: rel norm {rel}"
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def randn(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, device="cuda", generator=gen)
+            * scale).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co", [(128, 64, 128), (1000, 128, 64),
+                                     (6272, 256, 192), (300, 64, 64)])
+def test_conv1x1_bwd_matches_plain(n, ci, co):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, g, w = randn(gen, n, ci), randn(gen, n, co), randn(gen, ci, co,
+                                                            scale=0.05)
+    dx, dw = tcv.conv1x1_bwd(x, g, w)
+    dx_p, dw_p = tcv.conv1x1_bwd_plain(x, g, w)
+    torch.cuda.synchronize()
+    close(dx, dx_p, DX_TOL, "dx")
+    close(dw, dw_p, F32_TOL, "dw")
+    again = tcv.conv1x1_bwd(x, g, w)[1]
+    assert torch.equal(dw, again), "dW is not the same bits run to run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co,relu", [(128, 64, 128, True),
+                                          (512, 128, 64, False),
+                                          (1000, 64, 256, True),
+                                          (4100, 192, 128, False)])
+def test_conv_bn_relu_bwd_matches_plain(n, ci, co, relu):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, g, w = randn(gen, n, ci), randn(gen, n, co), randn(gen, ci, co,
+                                                            scale=0.1)
+    y = (x.float() @ w.float()).to(torch.bfloat16)
+    yf = y.float()
+    mu = yf.mean(0)
+    inv = torch.rsqrt((yf * yf).mean(0) - mu * mu + 1e-5)
+    gamma = torch.linspace(0.5, 1.5, co, device="cuda")
+    beta = torch.linspace(-0.3, 0.3, co, device="cuda")
+    got = tbn.conv_bn_relu_bwd(x, g, y, w, gamma, beta, mu, inv, relu)
+    want = tbn.conv_bn_relu_bwd_plain(x, g, y, w, gamma, beta, mu, inv, relu)
+    torch.cuda.synchronize()
+    close(got[0], want[0], DX_TOL, "dx")
+    for what, a, b in zip(("dw", "dgamma", "dbeta"), got[1:], want[1:]):
+        close(a, b, F32_TOL, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(128, 256), (1000, 64), (50000, 200)])
+def test_channel_sum_matches_plain(n, c):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    y = randn(gen, n, c)
+    got = tbp.channel_sum(y)
+    torch.cuda.synchronize()
+    close(got, tbp.channel_sum_plain(y), F32_TOL, "sum")
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_they_do_not_take():
+    need_card()
+    x = torch.zeros(128, 48, device="cuda", dtype=torch.bfloat16)
+    g = torch.zeros(128, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tcv.conv1x1_bwd(x, g, torch.zeros(48, 64, device="cuda",
+                                          dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="expected"):
+        tcv.conv1x1_bwd(g.float(), g, torch.zeros(64, 64, device="cuda"))

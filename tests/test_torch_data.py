@@ -1,6 +1,7 @@
-"""The port's input pipeline: the synthetic image stream equals the JAX
-package's for the same seed, and ``prefetch_to_device`` hands over every
-batch, in order, as tensors on the device, however deep it prefetches."""
+"""The port's input pipeline: the synthetic image stream and the ``.npy``
+dataset equal the JAX package's for the same seed, and
+``prefetch_to_device`` hands over every batch, in order, as tensors on the
+device, however deep it prefetches."""
 
 import numpy as np
 import pytest
@@ -62,3 +63,34 @@ def test_prefetch_reads_ahead_by_depth():
 def test_prefetch_refuses_depth_zero():
     with pytest.raises(ValueError, match="depth"):
         next(tdata.prefetch_to_device(iter([np.zeros(1)]), "cpu", depth=0))
+
+
+@pytest.fixture
+def npy_dir(tmp_path):
+    rng = np.random.default_rng(7)
+    np.save(tmp_path / "images.npy",
+            rng.integers(0, 255, (23, 4, 4, 3), dtype=np.uint8))
+    np.save(tmp_path / "labels.npy", rng.integers(0, 10, 23, dtype=np.int32))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch=4, seed=0, epochs=2),
+    dict(batch=3, seed=5, epochs=1, shard_id=1, num_shards=2),
+    dict(batch=5, seed=2, epochs=3, skip_batches=6)])
+def test_npy_dataset_batches_equal_jax(npy_dir, kw):
+    got = list(tdata.NpyDataset(npy_dir).batches(**kw))
+    want = list(jdata.NpyDataset(npy_dir).batches(**kw))
+    assert len(got) == len(want) > 0
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert gx.dtype == wx.dtype and gy.dtype == wy.dtype
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
+
+
+def test_npy_dataset_refuses_bad_inputs(npy_dir, tmp_path):
+    with pytest.raises(ValueError, match="never yield"):
+        next(tdata.NpyDataset(npy_dir).batches(30))
+    np.save(tmp_path / "labels.npy", np.zeros(5, np.int32))
+    with pytest.raises(ValueError, match="disagree"):
+        tdata.NpyDataset(str(tmp_path))

@@ -12,6 +12,7 @@ import torch
 from kubeoperator_tpu_torch.train import jobs
 from kubeoperator_tpu_torch.workloads import generate as tgen
 from kubeoperator_tpu_torch.workloads import lm as tlm
+from kubeoperator_tpu_torch.workloads import train as ttrain
 from kubeoperator_tpu_torch.workloads import transformer as ttr
 from kubeoperator_tpu_torch.workloads import vit as tvit
 
@@ -44,6 +45,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"kubeoperator_tpu_torch/workloads/vit.py",
             "kubeoperator_tpu_torch/workloads/data.py",
+            "kubeoperator_tpu_torch/workloads/conv_vjp.py",
+            "kubeoperator_tpu_torch/workloads/bn_fused.py",
+            "kubeoperator_tpu_torch/workloads/resnet.py",
+            "kubeoperator_tpu_torch/bitcast_probe.py",
             "chip_smoke.py"} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -97,3 +102,28 @@ def test_vit_job_defaults_to_cuda():
         jobs.main(["vit", "--steps", "1", "--batch-per-chip", "1",
                    "--image-size", "16", "--patch", "8", "--d-model", "32",
                    "--heads", "4", "--layers", "1", "--classes", "4"])
+
+
+def test_resnet_trainer_defaults_to_cuda():
+    cfg = ttrain.TrainConfig(batch_size=1, image_size=32, depth=18)
+    _expect_cuda_default(lambda: ttrain.Trainer(cfg).device)
+
+
+def test_resnet50_job_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default run is the full job")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jobs.main(["resnet50", "--steps", "1", "--batch-per-chip", "1",
+                   "--image-size", "32", "--depth", "18"])
+
+
+def test_kernel_sources_are_built_from_the_checkout():
+    """Both CUDA libraries have their C signatures and a source under
+    csrc/; a library's path changes with its source and the shared
+    header."""
+    from kubeoperator_tpu_torch import kernels
+    assert set(kernels.SIGNATURES) == {"flash_attention", "conv_bwd"}
+    for name in kernels.SIGNATURES:
+        assert (kernels.CSRC / f"{name}.cu").exists()
+        assert kernels.lib_path(name).parent == kernels.BUILD_DIR
+    assert (kernels.CSRC / "mma.cuh").exists()
