@@ -34,18 +34,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 7. vit_job: the ``vit`` entry point at its default width, 2 steps of 64
    images; it builds its encoder as the JAX job does (auto attention,
    dense at 196 patches), so it must launch no flash kernel.
-8. kernels_conv: K7 (``conv1x1_bwd_dx``, ``conv1x1_bwd_dw``) at three
-   ResNet-50 sites, K8 (``bn_bwd_stats``, ``bn_bwd_dx``, ``bn_bwd_dw``)
-   with relu at stage 1's 401,408 rows and without at 100,352, and K9
+8. kernels_conv: K7 (``conv1x1_bwd_dx``, ``conv1x1_bwd_dw``) at all
+   eight of its ResNet-50 sites (``K7_SITES``) with their launches a step
+   and the launch-weighted sum, K8 (``bn_bwd_stats``, ``bn_bwd_dx``,
+   ``bn_bwd_dw``) with relu at stage 1's 401,408 rows and without at
+   100,352, and K9
    (``channel_sum``) at its probe shape, each against its plain version
    within ``CONV_TOL``/``F32_TOL``, with the rejection of outputs 10%
    wrong on the late half of the rows; kernel, plain and library times
-   and the bounds.
+   (for K7 one cuBLAS call per product) and the bounds.
 9. resnet_train: the ResNet main path, ``Trainer(RESNET_K7_K8).measure``
    at ResNet-50's full width and depth (224², batch 128, 8 steps per
    call), launch counts reset before and read after: each K7 kernel at
    least 24 and each K8 kernel at least 9 launches per step, no flash
-   kernel.
+   kernel; then one more step records K7's shapes, which must be
+   ``K7_SITES``.
 10. resnet_job: the ``resnet50`` entry point at its defaults (no K7/K8, as
     the JAX job), 2 steps of 64 images: finite losses, no K7/K8 launch.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
@@ -57,6 +60,7 @@ Then the ``kernels`` line, and last the device line the harness reads.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -103,6 +107,15 @@ CONV_KERNELS = (("conv1x1_bwd_dx", K7_AT), ("conv1x1_bwd_dw", K7_AT),
                 ("bn_bwd_stats", K8_AT), ("bn_bwd_dx", K8_AT),
                 ("bn_bwd_dw", K8_AT))
 K9 = ("channel_sum", "scripts/perf_bitcast_probe.py:36")
+# K7's sites in a ResNet-50 step at batch 128, 224² (n = B·H·W, ci → co,
+# launches a step): stage 1 blocks 1-3 conv1 and conv3, stage 2 block 0
+# conv1, blocks 1-5 conv1, conv3, stage 3 block 0 conv1, blocks 1-2 conv1,
+# conv3. The kernels line reports the site that runs 6 times.
+K7_SITES = ((100352, 512, 128, 3), (100352, 128, 512, 3),
+            (100352, 512, 256, 1), (25088, 1024, 256, 5),
+            (25088, 256, 1024, 6), (25088, 1024, 512, 1),
+            (6272, 2048, 512, 2), (6272, 512, 2048, 3))
+K7_PATH = (25088, 256, 1024)
 # dx (bf16): a right K7/K8 rounds the same f32 sums, taken in another
 # order, to bf16, so it is off by a bf16 step here and there (on an H100:
 # at most 7.2e-5 in norm and an atol of 4.6e-4 at rtol 2e-2 at the path
@@ -348,10 +361,10 @@ def conv_bounds(n: int, ci: int, co: int, peak_flops: float,
 
 
 def conv_kernel_phase(peaks) -> dict:
-    """K7 at three ResNet-50 sites, K8 at two, K9 at its probe shape, each
-    CUDA kernel against its plain version; returns each kernel's record at
-    its path shape (K7: 25,088 rows 256→1024, the site that runs 6 times a
-    step; K8: 401,408 rows 64→256 with relu; K9: the probe's)."""
+    """K7 at its eight ResNet-50 sites, K8 at two, K9 at its probe shape,
+    each CUDA kernel against its plain version; returns each kernel's
+    record at its path shape (K7: 25,088 rows 256→1024, the site that runs
+    6 times a step; K8: 401,408 rows 64→256 with relu; K9: the probe's)."""
     from kubeoperator_tpu_torch import bitcast_probe as bp
     from kubeoperator_tpu_torch.workloads import bn_fused as bn
     from kubeoperator_tpu_torch.workloads import conv_vjp as cv
@@ -372,14 +385,14 @@ def conv_kernel_phase(peaks) -> dict:
                                        "atol_needed", "median_abs_want")},
                 "late_10pct_wrong_rel_norm": bad["rel_norm_err"]}
 
-    records, path = [], {}
-    for n, ci, co in ((25088, 256, 1024), (6272, 2048, 512),
-                      (100352, 512, 256)):
+    k7, path = [], {}
+    for n, ci, co, per_step in K7_SITES:
         x, g, w = rnd(n, ci), rnd(n, co), rnd(ci, co, scale=ci ** -0.5)
         dx, dw = cv.conv1x1_bwd_dx(g, w), cv.conv1x1_bwd_dw(x, g)
         torch.cuda.synchronize()
         bnd = conv_bounds(n, ci, co, *peaks)
         rec = {"kernel": "K7", "n": n, "ci": ci, "co": co,
+               "launches_per_step": per_step,
                "conv1x1_bwd_dx": {**check("conv1x1_bwd_dx", dx,
                                           cv.conv1x1_bwd_dx_plain(g, w),
                                           CONV_TOL),
@@ -400,16 +413,29 @@ def conv_kernel_phase(peaks) -> dict:
         rec["conv1x1_bwd_dw"]["plain_ms"] = cuda_ms(
             lambda: cv.conv1x1_bwd_dw_plain(x, g), n=2)
         rec["K7"]["ms"] = cuda_ms(lambda: cv.conv1x1_bwd(x, g, w))
-        # no one library call computes K7; the two cuBLAS products are its
-        # yardstick, as SDPA's whole backward is for K2 + K3
+        # one cuBLAS call each: dx's g·wᵀ is the same function; dW's xᵀ·g
+        # returns bf16 where the kernel returns f32. No one call computes
+        # K7 whole; the pair is its yardstick, as SDPA's whole backward is
+        # for K2 + K3
+        rec["conv1x1_bwd_dx"]["library_ms"] = cuda_ms(lambda: g @ w.t())
+        rec["conv1x1_bwd_dw"]["library_ms"] = cuda_ms(lambda: x.t() @ g)
+        rec["conv1x1_bwd_dw"]["library_returns"] = "bf16"
         rec["K7"]["cublas_pair_ms"] = cuda_ms(lambda: (g @ w.t(), x.t() @ g))
-        for k in ("conv1x1_bwd_dx", "conv1x1_bwd_dw"):
-            rec[k]["library_ms"] = None
         emit({"phase": "kernels_conv", **rec})
-        records.append(rec)
-        if n == 25088:
+        k7.append(rec)
+        if (n, ci, co) == K7_PATH:
             path.update({k: rec[k] for k in ("conv1x1_bwd_dx",
                                              "conv1x1_bwd_dw")})
+    # K7's device time a ResNet-50 step, from the eight sites and their
+    # launches a step, beside the bound and cuBLAS's pair at the same sites
+    weighted = {key: sum(r["launches_per_step"] * f(r) for r in k7)
+                for key, f in (
+                    ("ms", lambda r: r["conv1x1_bwd_dx"]["ms"]
+                     + r["conv1x1_bwd_dw"]["ms"]),
+                    ("bound_ms", lambda r: r["K7"]["bound_ms"]),
+                    ("cublas_pair_ms", lambda r: r["K7"]["cublas_pair_ms"]))}
+    emit({"phase": "kernels_conv", "kernel": "K7", "per_step": weighted,
+          "launches_per_step": sum(r["launches_per_step"] for r in k7)})
 
     for n, ci, co, relu in ((401408, 64, 256, True),
                             (100352, 128, 512, False)):
@@ -464,7 +490,6 @@ def conv_kernel_phase(peaks) -> dict:
         for k in ("bn_bwd_stats", "bn_bwd_dx", "bn_bwd_dw"):
             rec[k]["library_ms"] = None
         emit({"phase": "kernels_conv", **rec})
-        records.append(rec)
         if n == 401408:
             path.update({k: rec[k] for k in ("bn_bwd_stats", "bn_bwd_dx",
                                              "bn_bwd_dw")})
@@ -713,6 +738,27 @@ def main() -> int:
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"resnet_train: flash kernels launched: "
                              f"{fa.LAUNCHES}")
+    # K7's shapes in one more step, against the sites kernels_conv times
+    sites = collections.Counter()
+    k7_call = conv_vjp.conv1x1_bwd
+
+    def recording(x2, g2, w):
+        sites[(x2.shape[0], x2.shape[1], g2.shape[1])] += 1
+        return k7_call(x2, g2, w)
+
+    conv_vjp.conv1x1_bwd = recording
+    try:
+        trainer.train_step(trainer.init_state(),
+                           *trainer.synthetic_batch(rcfg.batch_size))
+        torch.cuda.synchronize()
+    finally:
+        conv_vjp.conv1x1_bwd = k7_call
+    want_sites = {(n, ci, co): k for n, ci, co, k in K7_SITES}
+    emit({"phase": "resnet_k7_sites",
+          "sites": [[*key, k] for key, k in sorted(sites.items())]})
+    if dict(sites) != want_sites:
+        raise AssertionError(f"resnet_train: K7 ran at {dict(sites)}, not "
+                             f"at the sites kernels_conv times")
 
     # -- 10. the resnet50 entry point at its defaults -----------------------
     reset_conv()

@@ -3,7 +3,7 @@
 //
 // Replaces six Pallas TPU kernels of the JAX package's
 // kubeoperator_tpu/workloads/flash_attention.py:
-//   flash_fwd_kernel<D, false>     <- _fwd / _fwd_kernel                  (K1)
+//   flash_fwd_wgmma_kernel<D>      <- _fwd / _fwd_kernel                  (K1)
 //   flash_bwd_dq_kernel<D, false>  <- _bwd / _bwd_dq_kernel               (K2)
 //   flash_bwd_dkv_kernel<D, false> <- _bwd / _bwd_dkv_kernel              (K3)
 //   flash_fwd_kernel<D, true>      <- _fwd_packed / _fwd_packed_kernel    (K4)
@@ -37,7 +37,11 @@
 // must move (about 0.06-0.09 ms at 3.35 TB/s against 0.02-0.03 ms of
 // tensor-core work).
 //
-// What the design does about it: every product runs on the tensor cores as
+// What the design does about it. K1 runs on Hopper's warpgroup MMA
+// (flash_fwd_wgmma_kernel, described above it): 128-row Q tiles over two
+// consumer warpgroups, K and V through a 3-stage TMA ring of 64-key tiles
+// under mbarriers, S = Q.K^T as wgmma from shared memory, and P kept in
+// registers as the A operand of O += P.V. K2-K6 run on
 // mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
 // accumulators in registers. One block of 4 warps owns a 64-row tile and
 // each warp owns 16 rows of it, so a row's softmax statistics live in the
@@ -47,12 +51,17 @@
 // (about 52-70 KB a block at D=128), so several blocks share an SM and
 // hide each other's loads. As in the TPU kernels, the dQ kernel and the
 // dK/dV kernel are separate, so no block reduces across another (no
-// atomics). Left for later: wgmma, TMA and a pipelined load ring; the
-// probabilities are rounded to bf16 before the P.V-type products.
+// atomics). In all six the probabilities are rounded to bf16 before the
+// P.V-type products. K4 shares K2-K6's generation (mma.sync, unpipelined
+// loads); moving it onto K1's kernel is a tensor map over [B, T, H*D] with
+// the head at column h*D.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -484,6 +493,265 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// K1 on wgmma: the bh-layout forward. Replaces the JAX package's
+// workloads/flash_attention.py::_fwd_kernel (launched by _fwd). One block per
+// (128-row Q tile, head), blockIdx.x the tile taken from the end and
+// blockIdx.y the head: a head's tiles run side by side, so its K and V are
+// read from HBM about once and then from L2 (with the head fastest, each
+// block would read them from HBM again: ~1.1 GB at the LM's shape), and
+// within a head the heavy causal tiles start first. Two consumer warpgroups own 64 rows of the
+// tile each; one producer thread loads Q once and K and V through a ring of
+// F_STAGES 64-key tiles, by TMA (3-D tensor maps over [BH, T, D], so rows
+// past T arrive as zeros) with full/empty mbarriers. Per key tile a
+// consumer runs S = Q.K^T as wgmma m64n64k16 from shared memory (both
+// K-major), the online softmax in registers on the accumulator layout (a
+// row's values sit in the 4 lanes of a quad), rounds P to bf16 in
+// registers and runs O += P.V as wgmma m64nDk16 with P as the register A
+// operand and V MN-major (the transpose flag). Masks only on tiles that
+// cross the diagonal (causal) or reach past kv_len. At the LM's path shape
+// (BH 128, T 2048, D 128, causal: 137 GFLOP, 0.139 ms at 989 TFLOP/s) it is
+// bound by operations. ptxas (CUDA 12.8): 148 registers at D = 128, 117 at
+// D = 64, no spills; 132,200 / 66,664 bytes of dynamic shared memory. An
+// FA3-style schedule (tile j's softmax under tile j-1's P.V, the two
+// warpgroups taking turns by named barriers) measured no faster here, and
+// with 128-key tiles it needs more than the 168 registers a thread that a
+// 3-warpgroup block gets, so this loop stays serial within a warpgroup.
+// ---------------------------------------------------------------------------
+constexpr int F_TILE = 128;                  // query rows per block
+constexpr int F_KEYS = 64;                   // keys per K/V tile
+constexpr int F_STAGES = 3;                  // K/V tiles in flight
+constexpr int F_CONSUMERS = 256;             // 2 warpgroups
+constexpr int F_THREADS = F_CONSUMERS + 32;  // + the producer warp
+constexpr int F_QBOX = F_TILE * 128;         // bytes of a [128][64] Q box
+constexpr int F_KBOX = F_KEYS * 128;         // bytes of a [64][64] K/V box
+
+template <int D>
+struct FwdSmem {
+  static constexpr int QT = D / 64 * F_QBOX;     // the [128][D] Q tile
+  static constexpr int KV = D / 64 * F_KBOX;     // a [64][D] K or V tile
+  static constexpr int Q = 0, K = QT, V = K + F_STAGES * KV;
+  static constexpr int BAR = V + F_STAGES * KV;
+  static constexpr size_t BYTES =
+      (size_t)BAR + (1 + 4 * F_STAGES) * sizeof(uint64_t) + 1024;
+};
+
+// 2^x by the special-function unit (2^-1e30 is 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O += P.V over one k16 step of keys
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_n64<1>(o, a, db);
+  else
+    wgmma_rs_n128<1>(o, a, db);
+}
+
+// The online softmax of one tile of scores sc (element e: the thread's row
+// (e >> 1) & 1, key col0 + 8*(e >> 2) + (e & 1)) in log2 units: keys at or
+// past lim[i] masked for row i, running max m and sum l updated, the
+// factor alpha that rescales what O held, and P = 2^(s - m) left in sc.
+__device__ __forceinline__ void online_softmax(float (&sc)[F_KEYS / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale_log2,
+                                               const int (&lim)[2], int col0) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int e = 0; e < F_KEYS / 2; ++e) {
+    const int i = (e >> 1) & 1, col = col0 + 8 * (e >> 2) + (e & 1);
+    const float x = col < lim[i] ? sc[e] * scale_log2 : NEG_INF;
+    sc[e] = x;
+    mx[i] = fmaxf(mx[i], x);
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    alpha[i] = exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < F_KEYS / 2; ++e) {
+    sc[e] = exp2_approx(sc[e] - m[(e >> 1) & 1]);
+    sum[(e >> 1) & 1] += sc[e];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, float* __restrict__ lse, int t,
+                       float scale_log2, int causal, int kv_len) {
+  using S = FwdSmem<D>;
+  constexpr int BOXES = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* k_full = q_full + 1;               // [F_STAGES] each
+  uint64_t* v_full = k_full + F_STAGES;
+  uint64_t* k_empty = v_full + F_STAGES;
+  uint64_t* v_empty = k_empty + F_STAGES;
+
+  const int bh = blockIdx.y;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int n_kv = (t + F_KEYS - 1) / F_KEYS;
+  // the JAX kernel's `hi`: key tiles past the diagonal are fully masked
+  const int hi = causal ? min(((qt + 1) * F_TILE + F_KEYS - 1) / F_KEYS, n_kv)
+                        : n_kv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], F_CONSUMERS);
+      mbar_init(&v_empty[s], F_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= F_CONSUMERS) {                 // the producer warp
+    if (threadIdx.x == F_CONSUMERS) {
+      mbar_expect_tx(q_full, S::QT);
+      for (int b = 0; b < BOXES; ++b)
+        tma_load_3d(smem + S::Q + b * F_QBOX, &tq, q_full, b * 64,
+                    qt * F_TILE, bh);
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % F_STAGES;
+        const int parity = (j / F_STAGES - 1) & 1;
+        if (j >= F_STAGES) mbar_wait(&k_empty[s], parity);
+        mbar_expect_tx(&k_full[s], S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::K + s * S::KV + b * F_KBOX, &tk, &k_full[s],
+                      b * 64, j * F_KEYS, bh);
+        if (j >= F_STAGES) mbar_wait(&v_empty[s], parity);
+        mbar_expect_tx(&v_full[s], S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::V + s * S::KV + b * F_KBOX, &tv, &v_full[s],
+                      b * 64, j * F_KEYS, bh);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq4 = lane & 3;
+  // rows of accumulator elements with ((e >> 1) & 1) == 0; +8 for the others
+  const int row0 = qt * F_TILE + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + g;
+  const uint32_t q_addr = smem_u32(smem + S::Q) + wg * 64 * 128;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, alpha[2];
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % F_STAGES, parity = (j / F_STAGES) & 1;
+    // the first key each row may not see: kv_len, or row + 1 when causal,
+    // on tiles that cross the diagonal or reach past kv_len
+    const bool masked = (causal && (j + 1) * F_KEYS > qt * F_TILE + 1) ||
+                        (j + 1) * F_KEYS > kv_len;
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = !masked ? INT_MAX
+                       : (causal ? min(kv_len, row0 + 8 * i + 1) : kv_len);
+
+    mbar_wait(&k_full[s], parity);
+    const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV);
+    float sc[F_KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
+      const int col = (kk % 4) * 32;
+      wgmma_ss_n64<0, 0>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(k_addr + (kk / 4) * F_KBOX + col), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(&k_empty[s]);
+
+    online_softmax(sc, m, l, alpha, scale_log2, lim, j * F_KEYS + 2 * tq4);
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    // P as the bf16 A operand of 4 k16 steps: step kk takes keys
+    // 16kk..16kk+15, accumulator blocks 2kk and 2kk+1
+    uint32_t pa[F_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    mbar_wait(&v_full[s], parity);
+    const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+      wgmma_pv<D>(acc, pa[kk], desc_mn(v_addr + kk * 2048, F_KBOX));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&v_empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (l[i] == 0.0f) l[i] = 1.0f;
+    inv[i] = 1.0f / l[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= t) continue;
+    bf16* orow = o + ((size_t)bh * t + row) * D + 2 * tq4;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jb) =
+          pack(acc[4 * jb + 2 * i] * inv[i], acc[4 * jb + 2 * i + 1] * inv[i]);
+    // natural-log units, as the JAX kernel's m + log l
+    if (tq4 == 0)
+      lse[(size_t)bh * t + row] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int bh, int t, float scale,
+                             int causal, int kv_len, cudaStream_t stream) {
+  // [BH, T, D] as a 3-D map (D innermost), boxes [1][rows][64]
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)t * D * 2};
+  const uint32_t qbox[3] = {64, F_TILE, 1}, kbox[3] = {64, F_KEYS, 1};
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_tensor_map(&tq, q, 3, dims, strides, qbox);
+  if (err == cudaSuccess) err = make_tensor_map(&tk, k, 3, dims, strides, kbox);
+  if (err == cudaSuccess) err = make_tensor_map(&tv, v, 3, dims, strides, kbox);
+  if (err != cudaSuccess) return err;
+  const size_t smem = FwdSmem<D>::BYTES;
+  err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
+  flash_fwd_wgmma_kernel<D><<<grid, F_THREADS, smem, stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, t, scale * 1.4426950408889634f,
+      causal, kv_len);
+  return cudaGetLastError();
+}
+
 // grid: one block per (64-row tile, head); blockIdx.y = b*nh + h
 template <int D, bool PACKED>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
@@ -544,8 +812,13 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_fwd<64, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_fwd<128, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+  if constexpr (!PACKED) {     // K1: the wgmma forward
+    if (d == 64) return (int)launch_fwd_wgmma<64>(q, k, v, o, lse, b, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_fwd_wgmma<128>(q, k, v, o, lse, b, t, scale, causal, kv_len, s);
+  } else {                     // K4
+    if (d == 64) return (int)launch_fwd<64, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_fwd<128, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,368 @@
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
+// (conv_bwd.cu's K7, flash_attention.cu's K1): shared-memory matrix
+// descriptors for 128-byte-swizzled tiles, the warpgroup matrix multiply
+// (wgmma) and its fences, mbarriers, named barriers, TMA tile loads and
+// stores, and the host-side encoding of TMA tensor maps.
+//
+// Tiles. Every operand tile in shared memory is one or more TMA boxes of
+// [rows][64] bf16 (128-byte rows) loaded with CU_TENSOR_MAP_SWIZZLE_128B
+// into 1024-byte-aligned memory: 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8), and a group of 8 rows is one 1024-byte swizzle atom. wgmma
+// reads such a box either
+//   K-major  (the 64 columns run along the product's k): desc_k; a k16
+//            step advances the start address by 32 bytes inside the row,
+//            8-row groups of M or N are 1024 bytes apart;
+//   MN-major (the 64 columns run along M or N, the rows along k):
+//            desc_mn; a k16 step advances by 16 rows (2048 bytes), 8-row
+//            k groups are 1024 bytes apart, and the next 64 columns of M
+//            or N are `mn_stride` bytes on (the next box).
+// wgmma's transpose flag is 0 for a K-major operand and 1 for MN-major.
+//
+// Tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint (the runtime API), so the libraries link
+// no libcuda; a kernel takes them as __grid_constant__ parameters.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// device side
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the dynamic shared memory, rounded up to the 1024 bytes a 128-byte
+// swizzle atom needs (launches ask for 1024 bytes more than they use)
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// K-major box: 8-row groups 1024 bytes apart (the leading offset is unused)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major boxes: 64-wide MN blocks mn_stride bytes apart (leading
+// offset), 8-row k groups 1024 bytes apart (stride offset)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t mn_stride) {
+  return sw128_desc(addr, mn_stride, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across a wgmma issue or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// named barrier 1..15 (0 is __syncthreads): waits until `count` threads,
+// its own warp's included, have arrived
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` more of TMA transactions in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+// (phases count from 0; a fresh barrier's "previous" phase, parity 1,
+// counts as complete)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: a box of the tensor map at the given coordinates (innermost first)
+// into shared memory; completion counts its bytes on `bar`. Elements out
+// of the tensor's bounds arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA: a box of shared memory to the tensor map at the given coordinates
+// (elements out of the tensor's bounds are not written), in this thread's
+// bulk-async group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (READ) or are still pending at all
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA, wgmma) accesses
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory;
+// scale_d = 0 overwrites d. TA, TB: 0 for a K-major operand, 1 for MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B from shared memory;
+// scale_d = 0 overwrites d. TA, TB: 0 for a K-major operand, 1 for MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (a warp's 16 rows
+// in the m16n8k16 A-fragment layout), B from shared memory (TB as above)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (a warp's 16 rows
+// in the m16n8k16 A-fragment layout), B from shared memory (TB as above)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (CUDA's tensor-map encoder), looked up once
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return (EncodeTiled)p;
+  }();
+  return fn;
+}
+
+// A tensor map over a bf16 tensor of `rank` (2 or 3) dims, innermost
+// first: dims[i] elements, strides[i - 1] bytes between steps of dim i,
+// boxes of box[i] elements (box[0] * 2 bytes <= 128), 128-byte swizzle,
+// zeros outside the bounds. Returns cudaSuccess or the reason it failed.
+cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      const_cast<void*>(base), (const cuuint64_t*)dims,
+      (const cuuint64_t*)strides, (const cuuint32_t*)box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace

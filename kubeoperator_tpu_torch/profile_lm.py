@@ -46,7 +46,8 @@ def kernel_class(name: str) -> str:
     if "flash_" in low and "kernel" in low:
         return "flash (port)"
     if any(k in low for k in ("gemm_dx_kernel", "gemm_dw_kernel",
-                              "colsum_kernel", "reduce_chunks_kernel")):
+                              "k7_wgmma_kernel", "colsum_kernel",
+                              "reduce_chunks_kernel")):
         return "conv backward K7/K8 (port)"
     if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
         return "conv (cuDNN)"

@@ -23,7 +23,8 @@ masters are cast before the conv), as ``bwd`` does with
 K7's wrapper runs its plain version (two products with f32 accumulation)
 for CPU tensors, and for CUDA tensors launches the kernels of
 ``csrc/conv_bwd.cu`` or raises. ``LAUNCHES`` counts each kernel's launches.
-The dW split below (``dw_chunks``) is shared with ``bn_fused``.
+K7 splits dW's rows by ``k7_dw_chunks``; ``dw_chunks`` is K8's split
+(``bn_fused``).
 """
 
 from __future__ import annotations
@@ -40,9 +41,14 @@ from kubeoperator_tpu_torch.workloads.transformer import _lecun_normal_
 
 LAUNCHES = {"conv1x1_bwd_dx": 0, "conv1x1_bwd_dw": 0}
 
-GEMM_TILE = 64          # the products' 64 x 64 output tile (TM = TN)
-ROW_STEP = 32           # their k-step over rows (TK): a chunk's multiple
-TARGET_BLOCKS = 4 * 132  # dW blocks to aim for: 4 on each of an H100's SMs
+GEMM_TILE = 64          # K8's 64 x 64 output tile (TM = TN); K7 and K8
+                        # take channels in multiples of it
+ROW_STEP = 32           # K8's k-step over rows (TK): a chunk's multiple
+TARGET_BLOCKS = 4 * 132  # K8's dW blocks to aim for: 4 on each of 132 SMs
+K7_TILE = 128           # K7's wgmma output tile (K7_TILE in conv_bwd.cu)
+K7_ROW_STEP = 64        # its k-step over rows (K7_STEP): a chunk's multiple
+K7_MIN_ROWS = 256       # N / this bounds K7's dW chunks
+SMS = 132               # an H100 SXM's SMs: K7's dW aims at one wave
 
 
 def reset_launches() -> None:
@@ -140,6 +146,19 @@ def dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
     return rows, -(-n // rows)
 
 
+def k7_dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of K7's dW split over N: as many chunks as
+    fill one wave of ``SMS`` blocks over the 128 × 128 tiles (never more
+    blocks than that) and as N has ``K7_MIN_ROWS``-row pieces, of whole
+    64-row k-steps. Depends on the shape only, so the fixed-order
+    reduction gives the same bits every run."""
+    tiles = -(-ci // K7_TILE) * -(-co // K7_TILE)
+    want = max(1, min(SMS // tiles, -(-n // K7_MIN_ROWS)))
+    rows = -(-n // want)
+    rows = -(-rows // K7_ROW_STEP) * K7_ROW_STEP
+    return rows, -(-n // rows)
+
+
 def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -200,7 +219,7 @@ def conv1x1_bwd_dw(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     check_cuda("conv1x1_bwd_dw", (x2, (n, ci), bf), (g2, (n, co), bf))
     check_channels("conv1x1_bwd_dw", ci, co)
     dw = torch.empty((ci, co), dtype=torch.float32, device=x2.device)
-    rows, chunks = dw_chunks(n, ci, co)
+    rows, chunks = k7_dw_chunks(n, ci, co)
     ws = torch.empty((chunks, ci, co), dtype=torch.float32, device=x2.device)
     lib = kernels.load("conv_bwd")
     kernels.check(lib.ko_conv1x1_bwd_dw(x2.data_ptr(), g2.data_ptr(),

@@ -1,8 +1,8 @@
 """K7 (1×1 conv backward), K8 (conv → BN → relu backward) and K9
 (per-channel sum) against their plain PyTorch versions, on the card, at
-small shapes and at ragged ones (N not a multiple of the kernels' 64-row
-tile or of their row chunks). Imports no JAX, so it runs where the
-kernels build:
+small shapes and at ragged ones (N not a multiple of the kernels' row
+tiles or of their row chunks, channels not a multiple of K7's 128-wide
+tile). Imports no JAX, so it runs where the kernels build:
 
     python -m pytest --noconftest -m gpu tests/test_torch_conv_cuda.py
 
@@ -45,9 +45,15 @@ def randn(gen, *shape, scale=1.0):
             * scale).to(torch.bfloat16)
 
 
+# K7's wgmma kernels tile 128 x 128 with 64-deep k-steps and split dW's rows
+# by k7_dw_chunks: N off the 128-row tile and off the chunks (1000, 777,
+# 4000, 6300), 64- and 192-channel tails under a 128-wide tile, and one
+# stage-3 site of ResNet-50 (6,272 rows 512 -> 2048)
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,ci,co", [(128, 64, 128), (1000, 128, 64),
-                                     (6272, 256, 192), (300, 64, 64)])
+                                     (6272, 256, 192), (300, 64, 64),
+                                     (777, 64, 192), (4000, 192, 64),
+                                     (6300, 192, 192), (6272, 512, 2048)])
 def test_conv1x1_bwd_matches_plain(n, ci, co):
     need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)

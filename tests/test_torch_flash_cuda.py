@@ -43,6 +43,31 @@ def test_cuda_kernels_match_plain(bh, t, d, causal, kv_len):
                                atol=1e-4, rtol=1e-5)
 
 
+# K1 tiles queries by 128 and keys by 64: T = 192 ends in a half query tile
+# (rows past T arrive as zeros and are not stored), and kv_len < T masks
+# inside and past a key tile
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d,causal,kv_len", [
+    (4, 192, 64, True, 192), (4, 192, 128, True, 192),
+    (4, 192, 64, False, 150), (4, 192, 128, False, 192),
+    (3, 320, 128, True, 300), (2, 384, 64, False, 100)])
+def test_cuda_fwd_tile_edges_match_plain(bh, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, scale, causal, kv_len)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, scale, causal, kv_len)
+    torch.cuda.synchronize()
+    # the limits of chip_smoke.py's TOL and LSE_TOL, over every row
+    got, want = o.float(), o_p.float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= 1e-2
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,causal,kv_len", [
     (128, 12, 256, 64, False, 196),     # ViT-B/16: 196 patches padded to 256
