@@ -8,13 +8,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device: a CUDA card must be present; prints its name and power limit
    (``nvidia-smi``) on a line of its own.
 2. build: compiles the CUDA kernels from ``kubeoperator_tpu_torch/csrc``
-   into ``build/torch_kernels/``.
+   into ``build/torch_kernels/``; records each kernel's registers, spills
+   and ptxas warnings (``kernels.ptxas_report``).
 3. kernels: each flash-attention kernel (K1 forward, K2 dQ, K3 dK/dV)
    against its plain PyTorch version within ``TOL``, at the LM's path
    shape (BH=128, T=2048, D=128, bf16, causal) and at a ragged non-causal
-   shape (B=2, H=4, T=196 padded to 256, D=64); kernel, plain and library
-   (``scaled_dot_product_attention``) times by CUDA events, and the bound
-   at the card's own peak and HBM rate.
+   shape (B=2, H=4, T=196 padded to 256, D=64), the backward kernels run
+   twice and their outputs the same bits; kernel, plain and library
+   (``scaled_dot_product_attention``) times by CUDA events, the backward
+   pair with and without Δ = rowsum(dO ∘ O) beside SDPA's backward, and
+   the bound at the card's own peak and HBM rate.
 4. train: the main path, ``LMTrainer(cfg).measure`` at the full width of
    the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048, batch 8,
    bf16, remat dots+attn, bf16 logits), launch counts reset before and
@@ -221,9 +224,10 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
                  layout="bh"):
     """One layout's three kernels (K1-K3 on [B·H, T, D], or K4-K6 on the
     packed [B, T, H·D]) against their plain versions, on inputs zero-
-    padded to the tile grid when T is ragged, keys past T masked. Also
-    shows that the limits reject the plain outputs made 10% wrong on the
-    late half of the rows."""
+    padded to the tile grid when T is ragged, keys past T masked; the
+    backward kernels twice, to the same bits. Also shows that the limits
+    reject the plain outputs made 10% wrong on the late half of the
+    rows."""
     import torch.nn.functional as F
 
     lay = Layout(fa, layout, b, h, d)
@@ -245,6 +249,14 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
     delta = lay.delta(fa, do, o)
     dq = dq_k(q, k, v, do, lse, delta, *args)
     dk, dv = dkv_k(q, k, v, do, lse, delta, *args)
+    # no kernel reduces across blocks, so a second run gives the same bits
+    dq2 = dq_k(q, k, v, do, lse, delta, *args)
+    dk2, dv2 = dkv_k(q, k, v, do, lse, delta, *args)
+    same_bits = {"dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
+                 "dv": torch.equal(dv, dv2)}
+    if not all(same_bits.values()):
+        raise AssertionError(f"{label}: two runs of the backward kernels "
+                             f"differ: {same_bits}")
     torch.cuda.synchronize()
     o_p, lse_p = fwd_p(q, k, v, *args)
     dq_p = dq_p_fn(q, k, v, do, lse, delta, *args)
@@ -320,9 +332,15 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
         result["sdpa_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
         result["sdpa_bwd_ms"] = result["sdpa_fwd_bwd_ms"] - fwd_ms
         result["ours_bwd_ms"] = result[n_dq]["ms"] + result[n_dkv]["ms"]
+        # SDPA's backward includes its Δ pre-pass; ours runs Δ outside the
+        # kernels, so the like-for-like sum adds it
+        result["delta_ms"] = cuda_ms(lambda: lay.delta(fa, do, o))
+        result["ours_bwd_with_delta_ms"] = (result["ours_bwd_ms"]
+                                            + result["delta_ms"])
     emit({"phase": "kernels_packed" if lay.packed else "kernels",
           "shape": label, "b": b, "h": h, "t": t, "t_padded": tp, "d": d,
           "causal": causal, "tolerance": TOL, "lse_tolerance": LSE_TOL,
+          "same_bits_twice": all(same_bits.values()),
           "rejected_late_10pct_wrong": wrong, **result})
     return result
 
@@ -543,7 +561,9 @@ def main() -> int:
     log = kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: {"seconds": v["seconds"], "cached": v["cached"]}
-                        for n, v in log.items()}})
+                        for n, v in log.items()},
+          "ptxas": {n: kernels.ptxas_report(v["ptxas"])
+                    for n, v in log.items()}})
 
     # -- 3. kernels against their plain versions -----------------------------
     peaks = (peak_flops_per_chip(), peak_hbm_bytes_per_chip())

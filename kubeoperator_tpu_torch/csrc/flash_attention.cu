@@ -4,8 +4,8 @@
 // Replaces six Pallas TPU kernels of the JAX package's
 // kubeoperator_tpu/workloads/flash_attention.py:
 //   flash_fwd_wgmma_kernel<D>      <- _fwd / _fwd_kernel                  (K1)
-//   flash_bwd_dq_kernel<D, false>  <- _bwd / _bwd_dq_kernel               (K2)
-//   flash_bwd_dkv_kernel<D, false> <- _bwd / _bwd_dkv_kernel              (K3)
+//   flash_bwd_dq_wgmma_kernel<D>   <- _bwd / _bwd_dq_kernel               (K2)
+//   flash_bwd_dkv_wgmma_kernel<D>  <- _bwd / _bwd_dkv_kernel              (K3)
 //   flash_fwd_kernel<D, true>      <- _fwd_packed / _fwd_packed_kernel    (K4)
 //   flash_bwd_dq_kernel<D, true>   <- _bwd_packed / _bwd_dq_packed_kernel (K5)
 //   flash_bwd_dkv_kernel<D, true>  <- _bwd_packed / _bwd_dkv_packed_kernel
@@ -37,24 +37,26 @@
 // must move (about 0.06-0.09 ms at 3.35 TB/s against 0.02-0.03 ms of
 // tensor-core work).
 //
-// What the design does about it. K1 runs on Hopper's warpgroup MMA
-// (flash_fwd_wgmma_kernel, described above it): 128-row Q tiles over two
-// consumer warpgroups, K and V through a 3-stage TMA ring of 64-key tiles
-// under mbarriers, S = Q.K^T as wgmma from shared memory, and P kept in
-// registers as the A operand of O += P.V. K2-K6 run on
-// mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
-// accumulators in registers. One block of 4 warps owns a 64-row tile and
+// What the design does about it. K1-K3 run on Hopper's warpgroup MMA
+// (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel, each described where it is defined):
+// 128-row tiles over two consumer warpgroups of 64 rows, the streamed
+// operand through a 3- or 4-stage TMA ring of 64-row tiles under
+// mbarriers, the score-type products (S = Q.K^T, dP = dO.V^T, or their
+// transposes) as wgmma from shared memory, and the probabilities (or dS)
+// kept in registers as the A operand of the next product. K4-K6 alone
+// stay on mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
+// accumulators in registers: one block of 4 warps owns a 64-row tile and
 // each warp owns 16 rows of it, so a row's softmax statistics live in the
-// four lanes that hold it and the T x T scores never leave registers: the
-// probabilities go from the score accumulators straight into the A operand
-// of the next product. Shared memory holds only the bf16 input tiles
-// (about 52-70 KB a block at D=128), so several blocks share an SM and
-// hide each other's loads. As in the TPU kernels, the dQ kernel and the
-// dK/dV kernel are separate, so no block reduces across another (no
-// atomics). In all six the probabilities are rounded to bf16 before the
-// P.V-type products. K4 shares K2-K6's generation (mma.sync, unpipelined
-// loads); moving it onto K1's kernel is a tensor map over [B, T, H*D] with
-// the head at column h*D.
+// four lanes that hold it and the T x T scores never leave registers;
+// shared memory holds only the bf16 input tiles, loaded unpipelined
+// between barriers (about 52-70 KB a block at D=128), so several blocks
+// share an SM and hide each other's loads. As in the TPU kernels, the dQ
+// kernel and the dK/dV kernel are separate, so no block reduces across
+// another (no atomics) and every output is the same bits every run. In
+// all six the probabilities are rounded to bf16 before the P.V-type
+// products. Moving K4-K6 onto the wgmma kernels is a tensor map over
+// [B, T, H*D] with the head at column h*D.
 
 #include <climits>
 
@@ -88,10 +90,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld) {
 }
 
 // where a block's head starts (blockIdx.y is b*nh + h); each kernel's
-// global row stride is PACKED ? nh*D : D. The bh layout is a compile-time
-// case so that its stride is the constant D: that keeps K1-K3's address
-// arithmetic (and K3's 255 registers at D = 128) as they were before the
-// packed layout existed; a runtime stride there cost K3 8% on an H100.
+// global row stride is PACKED ? nh*D : D. The mma.sync kernels now serve
+// the packed layout alone (K4-K6; K1-K3 take the wgmma kernels below), so
+// PACKED is always true where they are launched; the bh case is the one
+// they were written for, with nh = 1 and the constant stride D.
 template <int D, bool PACKED>
 __device__ __forceinline__ size_t head_base(int t, int nh) {
   if (!PACKED) return (size_t)blockIdx.y * t * D;
@@ -511,7 +513,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // operand and V MN-major (the transpose flag). Masks only on tiles that
 // cross the diagonal (causal) or reach past kv_len. At the LM's path shape
 // (BH 128, T 2048, D 128, causal: 137 GFLOP, 0.139 ms at 989 TFLOP/s) it is
-// bound by operations. ptxas (CUDA 12.8): 148 registers at D = 128, 117 at
+// bound by operations. ptxas (CUDA 12.8): 152 registers at D = 128, 117 at
 // D = 64, no spills; 132,200 / 66,664 bytes of dynamic shared memory. An
 // FA3-style schedule (tile j's softmax under tile j-1's P.V, the two
 // warpgroups taking turns by named barriers) measured no faster here, and
@@ -536,6 +538,8 @@ struct FwdSmem {
       (size_t)BAR + (1 + 4 * F_STAGES) * sizeof(uint64_t) + 1024;
 };
 
+constexpr float LOG2E = 1.4426950408889634f;
+
 // 2^x by the special-function unit (2^-1e30 is 0)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -543,14 +547,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// O += P.V over one k16 step of keys
+// d[64 x D] += A.B over one k16 step: A the warpgroup's bf16 register
+// operand, B a [16][D] slice of MN-major boxes in shared memory (O += P.V,
+// dQ += dS.K, dV += P^T.dO, dK += dS^T.Q)
 template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2],
+                                           const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 64)
-    wgmma_rs_n64<1>(o, a, db);
+    wgmma_rs_n64<1>(d, a, db);
   else
-    wgmma_rs_n128<1>(o, a, db);
+    wgmma_rs_n128<1>(d, a, db);
 }
 
 // The online softmax of one tile of scores sc (element e: the thread's row
@@ -701,7 +707,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < F_KEYS / 16; ++kk)
-      wgmma_pv<D>(acc, pa[kk], desc_mn(v_addr + kk * 2048, F_KBOX));
+      wgmma_rs_d<D>(acc, pa[kk], desc_mn(v_addr + kk * 2048, F_KBOX));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -729,26 +735,516 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// [BH, T, D] bf16 as a 3-D tensor map (D innermost), boxes [1][rows][64]
+template <int D>
+cudaError_t bh_map(CUtensorMap* map, const void* x, int bh, int t, int rows) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)t * D * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return make_tensor_map(map, x, 3, dims, strides, box);
+}
+
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int t, float scale,
                              int causal, int kv_len, cudaStream_t stream) {
-  // [BH, T, D] as a 3-D map (D innermost), boxes [1][rows][64]
-  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)bh};
-  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)t * D * 2};
-  const uint32_t qbox[3] = {64, F_TILE, 1}, kbox[3] = {64, F_KEYS, 1};
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_tensor_map(&tq, q, 3, dims, strides, qbox);
-  if (err == cudaSuccess) err = make_tensor_map(&tk, k, 3, dims, strides, kbox);
-  if (err == cudaSuccess) err = make_tensor_map(&tv, v, 3, dims, strides, kbox);
+  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_TILE);
+  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_KEYS);
+  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_KEYS);
   if (err != cudaSuccess) return err;
   const size_t smem = FwdSmem<D>::BYTES;
   err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
   flash_fwd_wgmma_kernel<D><<<grid, F_THREADS, smem, stream>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, t, scale * 1.4426950408889634f,
-      causal, kv_len);
+      tq, tk, tv, (bf16*)o, (float*)lse, t, scale * LOG2E, causal, kv_len);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2 on wgmma: the bh-layout dQ. Replaces the JAX package's
+// workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd). K1's
+// block shape: one block per (128-row Q tile, head), a head's tiles side
+// by side and its heavy causal tiles first; two consumer warpgroups own 64
+// rows each; one producer thread loads Q and dO once and K and V through a
+// ring of B_STAGES 64-key tiles, by TMA with full/empty mbarriers. Per key
+// tile a consumer runs S = Q.K^T and dP = dO.V^T as wgmma m64n64k16 from
+// shared memory (all four operands K-major), in two groups so that it
+// forms P = 2^(S.scale.log2(e) - lse.log2(e)) while dP is in flight;
+// releases V; forms dS = P.(dP - delta), all in registers on the
+// accumulator layout, with lse and delta for the thread's two rows read
+// once from global; rounds dS to bf16 as the register A
+// operand of dQ += dS.K (wgmma m64nDk16, K MN-major: the transpose flag);
+// and releases K. The key loop ends at the JAX kernel's `hi`; masks apply
+// only on tiles that cross the diagonal or reach past kv_len, and a
+// warpgroup skips (but still releases) a tile wholly above the diagonal for
+// its rows, or every tile when its rows all lie past T. dQ is scaled once,
+// at the end. At the LM's path shape (BH 128, T 2048, D 128, causal: 206
+// GFLOP, 0.209 ms at 989 TFLOP/s) it is bound by operations.
+// Registers: dQ 64 + S 32 + dP 32 + dS 16 at D = 128 fit the 168 a thread
+// that ptxas allows K1's 288-thread block, so no register is moved
+// between warpgroups. ptxas (CUDA 12.8): 165 registers at D = 128, 135 at
+// D = 64, no spills; 197,768 / 99,464 bytes of dynamic shared memory (4
+// stages: with 3, both kernels measured slower on an H100).
+// ---------------------------------------------------------------------------
+constexpr int B_STAGES = 4;                  // K/V (K2) or Q/dO (K3) tiles
+                                             // in flight
+
+template <int D>
+struct DqSmem {
+  static constexpr int QT = D / 64 * F_QBOX;     // the [128][D] Q or dO tile
+  static constexpr int KV = D / 64 * F_KBOX;     // a [64][D] K or V tile
+  static constexpr int Q = 0, DO = QT, K = 2 * QT, V = K + B_STAGES * KV;
+  static constexpr int BAR = V + B_STAGES * KV;
+  static constexpr size_t BYTES =
+      (size_t)BAR + (1 + 4 * B_STAGES) * sizeof(uint64_t) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int t, float scale,
+                          int causal, int kv_len) {
+  using S = DqSmem<D>;
+  constexpr int BOXES = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  uint64_t* in_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* k_full = in_full + 1;              // [B_STAGES] each
+  uint64_t* v_full = k_full + B_STAGES;
+  uint64_t* k_empty = v_full + B_STAGES;
+  uint64_t* v_empty = k_empty + B_STAGES;
+
+  const int bh = blockIdx.y;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int n_kv = t / F_KEYS;
+  // the JAX kernel's `hi`: key tiles past the diagonal are fully masked
+  const int hi = causal ? min(((qt + 1) * F_TILE + F_KEYS - 1) / F_KEYS, n_kv)
+                        : n_kv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(in_full, 1);
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], F_CONSUMERS);
+      mbar_init(&v_empty[s], F_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= F_CONSUMERS) {                 // the producer warp
+    if (threadIdx.x == F_CONSUMERS) {
+      mbar_expect_tx(in_full, 2 * S::QT);
+      for (int b = 0; b < BOXES; ++b) {
+        tma_load_3d(smem + S::Q + b * F_QBOX, &tq, in_full, b * 64,
+                    qt * F_TILE, bh);
+        tma_load_3d(smem + S::DO + b * F_QBOX, &tdo, in_full, b * 64,
+                    qt * F_TILE, bh);
+      }
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % B_STAGES;
+        const int parity = (j / B_STAGES - 1) & 1;
+        if (j >= B_STAGES) mbar_wait(&k_empty[s], parity);
+        mbar_expect_tx(&k_full[s], S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::K + s * S::KV + b * F_KBOX, &tk, &k_full[s],
+                      b * 64, j * F_KEYS, bh);
+        if (j >= B_STAGES) mbar_wait(&v_empty[s], parity);
+        mbar_expect_tx(&v_full[s], S::KV);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::V + s * S::KV + b * F_KBOX, &tv, &v_full[s],
+                      b * 64, j * F_KEYS, bh);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq4 = lane & 3;
+  const int first = qt * F_TILE + wg * 64;     // this warpgroup's first row
+  // rows of accumulator elements with ((e >> 1) & 1) == 0; +8 for the others
+  const int row0 = first + ((threadIdx.x / 32) % 4) * 16 + g;
+  const uint32_t q_addr = smem_u32(smem + S::Q) + wg * 64 * 128;
+  const uint32_t do_addr = smem_u32(smem + S::DO) + wg * 64 * 128;
+  const float scale_log2 = scale * LOG2E;
+  // per row: -lse in log2 units, delta, and the first key it may not see
+  float nl[2], dl[2];
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    nl[i] = row < t ? -lse[(size_t)bh * t + row] * LOG2E : 0.0f;
+    dl[i] = row < t ? delta[(size_t)bh * t + row] : 0.0f;
+    lim[i] = causal ? min(kv_len, row + 1) : kv_len;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  mbar_wait(in_full, 0);
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % B_STAGES, parity = (j / B_STAGES) & 1;
+    mbar_wait(&k_full[s], parity);
+    mbar_wait(&v_full[s], parity);
+    if (first >= t || (causal && j * F_KEYS >= first + 64)) {
+      mbar_arrive(&v_empty[s]);
+      mbar_arrive(&k_empty[s]);
+      continue;
+    }
+    const bool masked = (causal && (j + 1) * F_KEYS > first + 1) ||
+                        (j + 1) * F_KEYS > kv_len;
+    const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV);
+    const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV);
+    // S and dP in two groups: P is formed while dP is still in flight
+    float sc[F_KEYS / 2], dp[F_KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
+      const int col = (kk % 4) * 32;
+      wgmma_ss_n64<0, 0>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(k_addr + (kk / 4) * F_KBOX + col), kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = (kk % 4) * 32;
+      wgmma_ss_n64<0, 0>(dp, desc_k(do_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(v_addr + (kk / 4) * F_KBOX + col), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P into sc; element e: the thread's row (e >> 1) & 1, key
+    // j*64 + 8*(e >> 2) + 2*tq4 + (e & 1)
+    const int col0 = j * F_KEYS + 2 * tq4;
+#pragma unroll
+    for (int e = 0; e < F_KEYS / 2; ++e) {
+      const int i = (e >> 1) & 1, col = col0 + 8 * (e >> 2) + (e & 1);
+      sc[e] = !masked || col < lim[i]
+                  ? exp2_approx(fmaf(sc[e], scale_log2, nl[i]))
+                  : 0.0f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    mbar_arrive(&v_empty[s]);
+    // dS into sc
+#pragma unroll
+    for (int e = 0; e < F_KEYS / 2; ++e) sc[e] *= dp[e] - dl[(e >> 1) & 1];
+    // dS as the bf16 A operand of 4 k16 steps (keys 16kk..16kk+15)
+    uint32_t da[F_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+      wgmma_rs_d<D>(acc, da[kk], desc_mn(k_addr + kk * 2048, F_KBOX));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&k_empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= t) continue;
+    bf16* out = dq + ((size_t)bh * t + row) * D + 2 * tq4;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<uint32_t*>(out + 8 * jb) =
+          pack(acc[4 * jb + 2 * i] * scale, acc[4 * jb + 2 * i + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 on wgmma: the bh-layout dK and dV. Replaces the JAX package's
+// workloads/flash_attention.py::_bwd_dkv_kernel (launched by _bwd). One
+// block per (128-key tile, head), a head's tiles side by side, the heavy
+// causal tiles (low keys) first; two consumer warpgroups own 64 keys each.
+// One producer thread loads K and V once and, from the JAX kernel's `lo`,
+// each 64-row query tile's Q, dO, lse and delta through a ring of B_STAGES
+// stages (Q and dO by TMA, lse and delta as 256-byte bulk copies) with
+// full/empty mbarriers. On transposed scores, per query tile: S^T = K.Q^T
+// and dP^T = V.dO^T as wgmma m64n64k16 from shared memory (all K-major);
+// P^T and dS^T in registers, with lse and delta now per column, read from
+// the stage's shared copy; both rounded to bf16 as register A operands of
+// dV += P^T.dO and dK += dS^T.Q (wgmma m64nDk16, dO and Q MN-major). No
+// tile is transposed in shared memory. Masks only on tiles that cross the
+// diagonal or reach past kv_len; a warpgroup skips (but releases) a query
+// tile wholly before its keys, or every tile when its keys all lie past T.
+// dK is scaled once, at the end. Bound by operations at the LM's path
+// shape (275 GFLOP, 0.278 ms at 989 TFLOP/s).
+// Registers: dK 64 + dV 64 + S^T 32 + dP^T 32 = 192 at D = 128 before
+// addresses, over the 168 a thread that ptxas allows a block of two
+// consumer warpgroups and a producer warp (K2's shape: there ptxas
+// spilled 688 bytes of K3 at D = 128). So the producer is a whole
+// warpgroup that gives registers up by setmaxnreg (K3_PRODUCER_REGS) and
+// the consumers take them (K3_CONSUMER_REGS), in one if / else whose
+// branches never rejoin, as ptxas needs to honour it (it reports the 168
+// a thread the block starts with). One consumer warpgroup a block, 64
+// keys, would halve the keys that share a Q/dO load. ptxas (CUDA 12.8): no
+// spills at D = 128 or 64, no C7508 warning; 199,784 / 101,480 bytes of
+// dynamic shared memory. Overlapping P^T with dP^T in flight and dS^T
+// with dV (K2's two groups) needs 208 live registers beside the
+// addresses, spilled at D = 128 and measured slower.
+// ---------------------------------------------------------------------------
+constexpr int K3_THREADS = F_CONSUMERS + 128;   // + the producer warpgroup
+constexpr int K3_PRODUCER_REGS = 40;             // 128 x 40 + 256 x 232
+constexpr int K3_CONSUMER_REGS = 232;            //   = 64,512 of 65,536
+
+template <int D>
+struct DkvSmem {
+  static constexpr int KT = D / 64 * F_QBOX;     // the [128][D] K or V tile
+  static constexpr int QT = D / 64 * F_KBOX;     // a [64][D] Q or dO tile
+  static constexpr int ROWS = F_KEYS * 4;        // a tile's f32 lse or delta
+  static constexpr int K = 0, V = KT, Q = 2 * KT, DO = Q + B_STAGES * QT;
+  static constexpr int L = DO + B_STAGES * QT, DL = L + B_STAGES * ROWS;
+  static constexpr int BAR = DL + B_STAGES * ROWS;
+  static constexpr size_t BYTES =
+      (size_t)BAR + (1 + 3 * B_STAGES) * sizeof(uint64_t) + 1024;
+};
+
+// K3's consumer warpgroups: dK and dV of the warpgroup's 64 keys over the
+// query tiles lo..n_q of the ring
+template <int D>
+__device__ __forceinline__ void dkv_consumer(
+    unsigned char* smem, uint64_t* kv_full, uint64_t* q_full,
+    uint64_t* d_full, uint64_t* empty, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int bh, int kt, int lo, int n_q, int t,
+    float scale, int causal, int kv_len) {
+  using S = DkvSmem<D>;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq4 = lane & 3;
+  const int first = kt * F_TILE + wg * 64;     // this warpgroup's first key
+  // keys of accumulator elements with ((e >> 1) & 1) == 0; +8 for the others
+  const int key0 = first + ((threadIdx.x / 32) % 4) * 16 + g;
+  const uint32_t k_addr = smem_u32(smem + S::K) + wg * 64 * 128;
+  const uint32_t v_addr = smem_u32(smem + S::V) + wg * 64 * 128;
+  const float scale_log2 = scale * LOG2E;
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+
+  mbar_wait(kv_full, 0);
+  for (int i = lo; i < n_q; ++i) {
+    const int it = i - lo, s = it % B_STAGES, parity = (it / B_STAGES) & 1;
+    mbar_wait(&q_full[s], parity);
+    mbar_wait(&d_full[s], parity);
+    if (first >= t || (causal && (i + 1) * F_KEYS <= first)) {
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+    const bool masked = (causal && i * F_KEYS < first + 63) ||
+                        first + 64 > kv_len;
+    const uint32_t q_addr = smem_u32(smem + S::Q + s * S::QT);
+    const uint32_t do_addr = smem_u32(smem + S::DO + s * S::QT);
+    float st[F_KEYS / 2], dpt[F_KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
+      const int col = (kk % 4) * 32;
+      wgmma_ss_n64<0, 0>(st, desc_k(k_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(q_addr + (kk / 4) * F_KBOX + col), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = (kk % 4) * 32;
+      wgmma_ss_n64<0, 0>(dpt, desc_k(v_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(do_addr + (kk / 4) * F_KBOX + col), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T into st and dS^T into dpt; element e: the thread's key
+    // (e >> 1) & 1, query i*64 + 8*(e >> 2) + 2*tq4 + (e & 1)
+    const float* sl = reinterpret_cast<const float*>(smem + S::L + s * S::ROWS);
+    const float* sd = reinterpret_cast<const float*>(smem + S::DL + s * S::ROWS);
+#pragma unroll
+    for (int n = 0; n < F_KEYS / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * n + 2 * tq4);
+      const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * n + 2 * tq4);
+      const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * n + 2 * h + c;
+          const int key = key0 + 8 * h, q = i * F_KEYS + 8 * n + 2 * tq4 + c;
+          const bool keep = !masked || (key < kv_len && (!causal || q >= key));
+          const float p = keep ? exp2_approx(fmaf(st[e], scale_log2, nl[c]))
+                               : 0.0f;
+          st[e] = p;
+          dpt[e] = p * (dpt[e] - dl[c]);
+        }
+    }
+    // P^T and dS^T as bf16 A operands of 4 k16 steps (queries 16kk..+15)
+    uint32_t pa[F_KEYS / 16][4], da[F_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+      wgmma_rs_d<D>(acc_dv, pa[kk], desc_mn(do_addr + kk * 2048, F_KBOX));
+#pragma unroll
+    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+      wgmma_rs_d<D>(acc_dk, da[kk], desc_mn(q_addr + kk * 2048, F_KBOX));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= t) continue;
+    bf16* kout = dk + ((size_t)bh * t + key) * D + 2 * tq4;
+    bf16* vout = dv + ((size_t)bh * t + key) * D + 2 * tq4;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      *reinterpret_cast<uint32_t*>(kout + 8 * jb) =
+          pack(acc_dk[4 * jb + 2 * h] * scale,
+               acc_dk[4 * jb + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vout + 8 * jb) =
+          pack(acc_dv[4 * jb + 2 * h], acc_dv[4 * jb + 2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(K3_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int t, float scale, int causal, int kv_len) {
+  using S = DkvSmem<D>;
+  constexpr int BOXES = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* q_full = kv_full + 1;              // [B_STAGES] each
+  uint64_t* d_full = q_full + B_STAGES;
+  uint64_t* empty = d_full + B_STAGES;
+
+  const int bh = blockIdx.y, kt = blockIdx.x;
+  const int n_q = t / F_KEYS;                  // 64-row query tiles
+  // the JAX kernel's `lo`: query tiles before the diagonal are fully masked
+  const int lo = causal ? kt * F_TILE / F_KEYS : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&d_full[s], 1);
+      mbar_init(&empty[s], F_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one if / else whose branches never rejoin, so that ptxas honours the
+  // register moves
+  if (threadIdx.x >= F_CONSUMERS) {                 // the producer warpgroup
+    regs_dec<K3_PRODUCER_REGS>();
+    if (threadIdx.x == F_CONSUMERS) {
+      mbar_expect_tx(kv_full, 2 * S::KT);
+      for (int b = 0; b < BOXES; ++b) {
+        tma_load_3d(smem + S::K + b * F_QBOX, &tk, kv_full, b * 64,
+                    kt * F_TILE, bh);
+        tma_load_3d(smem + S::V + b * F_QBOX, &tv, kv_full, b * 64,
+                    kt * F_TILE, bh);
+      }
+      for (int i = lo; i < n_q; ++i) {
+        const int it = i - lo, s = it % B_STAGES;
+        if (it >= B_STAGES) mbar_wait(&empty[s], (it / B_STAGES - 1) & 1);
+        const size_t rows = (size_t)bh * t + (size_t)i * F_KEYS;
+        mbar_expect_tx(&q_full[s], S::QT + S::ROWS);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::Q + s * S::QT + b * F_KBOX, &tq, &q_full[s],
+                      b * 64, i * F_KEYS, bh);
+        bulk_load(smem + S::L + s * S::ROWS, lse + rows, S::ROWS, &q_full[s]);
+        mbar_expect_tx(&d_full[s], S::QT + S::ROWS);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_3d(smem + S::DO + s * S::QT + b * F_KBOX, &tdo,
+                      &d_full[s], b * 64, i * F_KEYS, bh);
+        bulk_load(smem + S::DL + s * S::ROWS, delta + rows, S::ROWS,
+                  &d_full[s]);
+      }
+    }
+  } else {
+    regs_inc<K3_CONSUMER_REGS>();
+    dkv_consumer<D>(smem, kv_full, q_full, d_full, empty, dk, dv, bh, kt, lo,
+                    n_q, t, scale, causal, kv_len);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh, int t,
+                            float scale, int causal, int kv_len,
+                            cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_TILE);
+  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_KEYS);
+  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_KEYS);
+  if (err == cudaSuccess) err = bh_map<D>(&tdo, dout, bh, t, F_TILE);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DqSmem<D>::BYTES;
+  err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, F_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, t,
+      scale, causal, kv_len);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int bh,
+                             int t, float scale, int causal, int kv_len,
+                             cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_KEYS);
+  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_TILE);
+  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_TILE);
+  if (err == cudaSuccess) err = bh_map<D>(&tdo, dout, bh, t, F_KEYS);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DkvSmem<D>::BYTES;
+  err = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, K3_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, t, scale, causal, kv_len);
   return cudaGetLastError();
 }
 
@@ -828,8 +1324,13 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            int d, float scale, int causal, int kv_len, void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_dq<64, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_dq<128, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+  if constexpr (!PACKED) {     // K2: the wgmma dQ
+    if (d == 64) return (int)launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, b, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, b, t, scale, causal, kv_len, s);
+  } else {                     // K5
+    if (d == 64) return (int)launch_dq<64, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_dq<128, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -840,8 +1341,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return (int)launch_dkv<64, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
-  if (d == 128) return (int)launch_dkv<128, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  if constexpr (!PACKED) {     // K3: the wgmma dK/dV
+    if (d == 64) return (int)launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, b, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, b, t, scale, causal, kv_len, s);
+  } else {                     // K6
+    if (d == 64) return (int)launch_dkv<64, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+    if (d == 128) return (int)launch_dkv<128, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (conv_bwd.cu's K7, flash_attention.cu's K1): shared-memory matrix
+// (conv_bwd.cu's K7, flash_attention.cu's K1-K3): shared-memory matrix
 // descriptors for 128-byte-swizzled tiles, the warpgroup matrix multiply
-// (wgmma) and its fences, mbarriers, named barriers, TMA tile loads and
-// stores, and the host-side encoding of TMA tensor maps.
+// (wgmma) and its fences, register moves between warpgroups, mbarriers,
+// named barriers, TMA tile loads and stores, bulk copies, and the
+// host-side encoding of TMA tensor maps.
 //
 // Tiles. Every operand tile in shared memory is one or more TMA boxes of
 // [rows][64] bf16 (128-byte rows) loaded with CU_TENSOR_MAP_SWIZZLE_128B
@@ -92,6 +93,20 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// setmaxnreg: the calling warpgroup's threads hold N registers each from
+// here on (all four warps execute it together; N a multiple of 8 in
+// [24, 256]). ptxas honours it only where the warpgroups' branches never
+// rejoin; otherwise it warns (C7508) and ignores it.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(count)
@@ -154,6 +169,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// of contiguous global memory into shared memory; completion counts the
+// bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

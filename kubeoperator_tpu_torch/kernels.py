@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -127,6 +128,48 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_wgmma_kernel<128>`` for a kernel's mangled name: the
+    length-prefixed identifier that ends in ``_kernel`` and opens the
+    template arguments, with their integer values. Anything else is
+    returned as it is."""
+    for m in re.finditer(r"\d+", mangled):
+        # the length may follow a name that ends in digits (_GLOBAL__N_1)
+        for k in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[k:m.end()])]
+            rest = mangled[m.end() + len(name):]
+            if name.endswith("_kernel") and rest.startswith("I"):
+                targs = re.match(r"I((?:L[ib]\d+E)*)", rest).group(1)
+                return f"{name}<{','.join(re.findall(r'[0-9]+', targs))}>"
+    return mangled
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Each kernel's resources from nvcc's ``-Xptxas -v`` output (a
+    library's ``build_log[name]["ptxas"]``), by ``kernel_name``:
+    registers, stack, spill stores and loads in bytes, and the ptxas
+    warnings given while it compiled (C7508 means ``setmaxnreg`` was
+    ignored)."""
+    out: dict[str, dict] = {}
+    kernel = ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+            out.setdefault(kernel, {"warnings": []})
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            out[kernel].update(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[kernel]["registers"] = int(m.group(1))
+        elif "warning" in line:
+            out.setdefault(kernel, {"warnings": []})["warnings"].append(
+                line.strip())
+    return out
 
 
 def check(err: int, what: str) -> None:

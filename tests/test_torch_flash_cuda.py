@@ -68,6 +68,55 @@ def test_cuda_fwd_tile_edges_match_plain(bh, t, d, causal, kv_len):
     torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
 
 
+def _bwd_inputs(bh, t, d, causal, kv_len, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, scale, causal, kv_len)
+    return (q, k, v, do, lse, tfa.bh_delta(do, o), scale, causal, kv_len)
+
+
+# K2 and K3 tile by 128 rows (queries for K2, keys for K3) and stream
+# 64-row tiles of the other side: the forward's tile-edge shapes end in a
+# half 128-row tile, and kv_len < T masks inside and past a 64-row tile
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d,causal,kv_len", [
+    (4, 192, 64, True, 192), (4, 192, 128, True, 192),
+    (4, 192, 64, False, 150), (4, 192, 128, False, 192),
+    (3, 320, 128, True, 300), (2, 384, 64, False, 100)])
+def test_cuda_bwd_tile_edges_match_plain(bh, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args = _bwd_inputs(bh, t, d, causal, kv_len, seed=3)
+    dq = tfa.flash_bwd_dq(*args)
+    dk, dv = tfa.flash_bwd_dkv(*args)
+    dq_p = tfa.flash_bwd_dq_plain(*args)
+    dk_p, dv_p = tfa.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    # the limits of chip_smoke.py's TOL, over every row (keys at or past
+    # kv_len get zero dK and dV in both)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
+        assert float((got - want).norm() / want.norm()) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d,causal,kv_len", [
+    (8, 512, 128, True, 512), (4, 320, 64, False, 300)])
+def test_cuda_bwd_same_bits_twice(bh, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args = _bwd_inputs(bh, t, d, causal, kv_len, seed=4)
+    first = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    second = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    # no block reduces across another: no atomics, no run-to-run order
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,causal,kv_len", [
     (128, 12, 256, 64, False, 196),     # ViT-B/16: 196 patches padded to 256
