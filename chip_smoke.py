@@ -9,7 +9,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (``nvidia-smi``) on a line of its own.
 2. build: compiles the CUDA kernels from ``kubeoperator_tpu_torch/csrc``
    into ``build/torch_kernels/``; records each kernel's registers, spills
-   and ptxas warnings (``kernels.ptxas_report``).
+   and ptxas warnings (``kernels.ptxas_report``), and fails if a kernel of
+   ``NO_SPILLS`` spills or had its ``setmaxnreg`` ignored (C7508).
 3. kernels: each flash-attention kernel (K1 forward, K2 dQ, K3 dK/dV)
    against its plain PyTorch version within ``TOL``, at the LM's path
    shape (BH=128, T=2048, D=128, bf16, causal) and at a ragged non-causal
@@ -25,8 +26,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    kernels_packed: K4-K6 (the same kernels on the packed [B, T, H·D]
    layout) the same way, at ViT-B/16's path shape (B=128, H=12, T=196
    padded to 256, D=64, non-causal) and at a causal one (B=2, H=4, T=512,
-   D=128); the library call is ``scaled_dot_product_attention`` on the
-   [B, H, T, D] transpose views with the key mask.
+   D=128), both timed; the library call is
+   ``scaled_dot_product_attention`` on the [B, H, T, D] transpose views
+   with the key mask.
 5. jobs + generate: the ``llm`` entry point with ``--sample``, then greedy
    ``generate()`` on four right-padded prompts of mixed lengths from
    trained params, checked for repeatability and against a full forward.
@@ -40,8 +42,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 8. kernels_conv: K7 (``conv1x1_bwd_dx``, ``conv1x1_bwd_dw``) at all
    eight of its ResNet-50 sites (``K7_SITES``) with their launches a step
    and the launch-weighted sum, K8 (``bn_bwd_stats``, ``bn_bwd_dx``,
-   ``bn_bwd_dw``) with relu at stage 1's 401,408 rows and without at
-   100,352, and K9
+   ``bn_bwd_dw``) at its path record (``K8_PATH``) and at all five of its
+   sites (``K8_SITES``) with their launches a step and the launch-weighted
+   sum, dW twice to the same bits, and K9
    (``channel_sum``) at its probe shape, each against its plain version
    within ``CONV_TOL``/``F32_TOL``, with the rejection of outputs 10%
    wrong on the late half of the rows; kernel, plain and library times
@@ -58,7 +61,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
 
-Then the ``kernels`` line, and last the device line the harness reads.
+Then the ``kernels`` line (each kernel also with the CUDA kernels behind
+it and where they are defined), and last the device line the harness
+reads.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +116,26 @@ CONV_KERNELS = (("conv1x1_bwd_dx", K7_AT), ("conv1x1_bwd_dw", K7_AT),
                 ("bn_bwd_stats", K8_AT), ("bn_bwd_dx", K8_AT),
                 ("bn_bwd_dw", K8_AT))
 K9 = ("channel_sum", "scripts/perf_bitcast_probe.py:36")
+# the CUDA kernels behind each wrapper at its path shape (the kernels line
+# gives where each is defined)
+CUDA_KERNELS = {
+    "flash_fwd": ["flash_fwd_wgmma_kernel"],
+    "flash_bwd_dq": ["flash_bwd_dq_wgmma_kernel"],
+    "flash_bwd_dkv": ["flash_bwd_dkv_wgmma_kernel"],
+    "flash_fwd_packed": ["flash_fwd_wgmma_kernel"],
+    "flash_bwd_dq_packed": ["flash_bwd_dq_kernel"],
+    "flash_bwd_dkv_packed": ["flash_bwd_dkv_kernel"],
+    "conv1x1_bwd_dx": ["k7_wgmma_kernel"],
+    "conv1x1_bwd_dw": ["k7_wgmma_kernel", "reduce_chunks_kernel"],
+    "bn_bwd_stats": ["colsum_kernel", "reduce_chunks_kernel"],
+    "bn_bwd_dx": ["k8_dx_wgmma_kernel"],
+    "bn_bwd_dw": ["k8_dw_wgmma_kernel", "reduce_chunks_kernel"],
+    "channel_sum": ["colsum_kernel", "reduce_chunks_kernel"],
+}
+# K4's and K8's redesigned kernels: the build must show no spills and no
+# ignored setmaxnreg (C7508) for them
+NO_SPILLS = ("flash_fwd_wgmma_kernel", "k8_dx_wgmma_kernel",
+             "k8_dw_wgmma_kernel")
 # K7's sites in a ResNet-50 step at batch 128, 224² (n = B·H·W, ci → co,
 # launches a step): stage 1 blocks 1-3 conv1 and conv3, stage 2 block 0
 # conv1, blocks 1-5 conv1, conv3, stage 3 block 0 conv1, blocks 1-2 conv1,
@@ -119,6 +145,16 @@ K7_SITES = ((100352, 512, 128, 3), (100352, 128, 512, 3),
             (25088, 256, 1024, 6), (25088, 1024, 512, 1),
             (6272, 2048, 512, 2), (6272, 512, 2048, 3))
 K7_PATH = (25088, 256, 1024)
+# K8's sites in the same step (n, ci → co, relu, launches a step), as
+# ResNet(fused_bn=True) builds its FusedConvBN units where a block's input
+# has H·W ≥ 3136: stage 0 block 0 fused1, blocks 1-2 fused1, fused3 ×3 and
+# block 0's projection, stage 1 block 0 fused1 and fused3. The kernels
+# line keeps K8's earlier record, 401,408 rows 64→256 with relu
+# (K8_PATH), so that its times stay comparable.
+K8_SITES = ((401408, 64, 64, True, 1), (401408, 256, 64, True, 2),
+            (401408, 64, 256, False, 4), (401408, 256, 128, True, 1),
+            (100352, 128, 512, False, 1))
+K8_PATH = (401408, 64, 256, True)
 # dx (bf16): a right K7/K8 rounds the same f32 sums, taken in another
 # order, to bf16, so it is off by a bf16 step here and there (on an H100:
 # at most 7.2e-5 in norm and an atol of 4.6e-4 at rtol 2e-2 at the path
@@ -128,6 +164,15 @@ K7_PATH = (25088, 256, 1024)
 # outputs 10% wrong on the late half of the rows are about 0.07 off in norm.
 CONV_TOL = {"atol": 1e-2, "rtol": 2e-2, "rel_norm": 1e-3}
 F32_TOL = {"atol": 5e-2, "rtol": 1e-3, "rel_norm": 1e-4}
+
+
+def defined_at(source: str, kernel: str) -> str:
+    """``source:line`` of the line that defines ``kernel`` (its name at the
+    start of the line, or after ``__global__ void``)."""
+    pat = re.compile(rf"^(?:__global__ void )?{kernel}\(")
+    lines = (ROOT / source).read_text().splitlines()
+    return next(f"{source}:{i}" for i, line in enumerate(lines, 1)
+                if pat.match(line))
 
 
 def emit(record: dict) -> None:
@@ -379,10 +424,11 @@ def conv_bounds(n: int, ci: int, co: int, peak_flops: float,
 
 
 def conv_kernel_phase(peaks) -> dict:
-    """K7 at its eight ResNet-50 sites, K8 at two, K9 at its probe shape,
-    each CUDA kernel against its plain version; returns each kernel's
-    record at its path shape (K7: 25,088 rows 256→1024, the site that runs
-    6 times a step; K8: 401,408 rows 64→256 with relu; K9: the probe's)."""
+    """K7 at its eight ResNet-50 sites, K8 at its five and at its path
+    record, K9 at its probe shape, each CUDA kernel against its plain
+    version; returns each kernel's record at its path shape (K7: 25,088
+    rows 256→1024, the site that runs 6 times a step; K8: 401,408 rows
+    64→256 with relu; K9: the probe's)."""
     from kubeoperator_tpu_torch import bitcast_probe as bp
     from kubeoperator_tpu_torch.workloads import bn_fused as bn
     from kubeoperator_tpu_torch.workloads import conv_vjp as cv
@@ -455,8 +501,10 @@ def conv_kernel_phase(peaks) -> dict:
     emit({"phase": "kernels_conv", "kernel": "K7", "per_step": weighted,
           "launches_per_step": sum(r["launches_per_step"] for r in k7)})
 
-    for n, ci, co, relu in ((401408, 64, 256, True),
-                            (100352, 128, 512, False)):
+    # K8: its path record (K8_PATH), then the five sites of a ResNet-50
+    # step with their launches
+    k8 = []
+    for n, ci, co, relu, per_step in ((*K8_PATH, 0), *K8_SITES):
         x, g, w = rnd(n, ci), rnd(n, co), rnd(ci, co, scale=ci ** -0.5)
         y = (x.float() @ w.float()).to(torch.bfloat16)
         yf = y.float()
@@ -474,6 +522,7 @@ def conv_kernel_phase(peaks) -> dict:
         # phase 1 is held against its plain version on the same sums, so
         # that the check sees the products and not the sums' order
         rec = {"kernel": "K8", "n": n, "ci": ci, "co": co, "relu": relu,
+               "launches_per_step": per_step,
                "bn_bwd_stats": {**check("bn_bwd_stats", sums.t(),
                                         sums_p.t(), F32_TOL),
                                 **bnd["bn_bwd_stats"]},
@@ -483,34 +532,53 @@ def conv_kernel_phase(peaks) -> dict:
                "bn_bwd_dw": {**check("bn_bwd_dw", dw, bn.bn_bwd_dw_plain(
                    x, g, y, *vecs, sums_p, relu), F32_TOL),
                    **bnd["bn_bwd_dw"]},
-               "K8": bnd["K8"]}
+               "K8": bnd["K8"],
+               "same_bits_twice": bool(torch.equal(
+                   dw, bn.bn_bwd_dw(x, g, y, *vecs, sums_p, relu)))}
+        if not rec["same_bits_twice"]:
+            raise AssertionError("bn_bwd_dw: two runs differ")
         rec["bn_bwd_stats"]["ms"] = cuda_ms(
             lambda: bn.bn_bwd_stats(g, y, *vecs, relu))
-        rec["bn_bwd_stats"]["plain_ms"] = cuda_ms(
-            lambda: bn.bn_bwd_stats_plain(g, y, *vecs, relu), n=2)
         rec["bn_bwd_dx"]["ms"] = cuda_ms(
             lambda: bn.bn_bwd_dx(g, y, w, *vecs, sums, relu))
-        rec["bn_bwd_dx"]["plain_ms"] = cuda_ms(
-            lambda: bn.bn_bwd_dx_plain(g, y, w, *vecs, sums, relu), n=2)
         rec["bn_bwd_dw"]["ms"] = cuda_ms(
             lambda: bn.bn_bwd_dw(x, g, y, *vecs, sums, relu))
-        rec["bn_bwd_dw"]["plain_ms"] = cuda_ms(
-            lambda: bn.bn_bwd_dw_plain(x, g, y, *vecs, sums, relu), n=2)
         rec["K8"]["ms"] = cuda_ms(
             lambda: bn.conv_bn_relu_bwd(x, g, y, w, *vecs, relu))
-        # the unfused composition is K8's plain version; no library call
-        # computes it
-        rec["K8"]["plain_ms"] = cuda_ms(
-            lambda: bn.conv_bn_relu_bwd_plain(x, g, y, w, *vecs, relu), n=2)
         # two phases read g and y twice: the least a two-phase design needs
         rec["K8"]["two_phase_bound_ms"] = (
             rec["K8"]["bytes"] + 2 * 2 * n * co) / peaks[1] * 1e3
-        for k in ("bn_bwd_stats", "bn_bwd_dx", "bn_bwd_dw"):
-            rec[k]["library_ms"] = None
-        emit({"phase": "kernels_conv", **rec})
-        if n == 401408:
+        if not per_step:
+            rec["bn_bwd_stats"]["plain_ms"] = cuda_ms(
+                lambda: bn.bn_bwd_stats_plain(g, y, *vecs, relu), n=2)
+            rec["bn_bwd_dx"]["plain_ms"] = cuda_ms(
+                lambda: bn.bn_bwd_dx_plain(g, y, w, *vecs, sums, relu), n=2)
+            rec["bn_bwd_dw"]["plain_ms"] = cuda_ms(
+                lambda: bn.bn_bwd_dw_plain(x, g, y, *vecs, sums, relu), n=2)
+            # the unfused composition is K8's plain version; no library
+            # call computes it
+            rec["K8"]["plain_ms"] = cuda_ms(
+                lambda: bn.conv_bn_relu_bwd_plain(x, g, y, w, *vecs, relu),
+                n=2)
+            for k in ("bn_bwd_stats", "bn_bwd_dx", "bn_bwd_dw"):
+                rec[k]["library_ms"] = None
             path.update({k: rec[k] for k in ("bn_bwd_stats", "bn_bwd_dx",
                                              "bn_bwd_dw")})
+        else:
+            k8.append(rec)
+        emit({"phase": "kernels_conv", **rec})
+    # K8's device time a ResNet-50 step, from its five sites and their
+    # launches a step, beside the bound
+    weighted = {key: sum(r["launches_per_step"] * f(r) for r in k8)
+                for key, f in (
+                    ("ms", lambda r: r["bn_bwd_dx"]["ms"]
+                     + r["bn_bwd_dw"]["ms"]),
+                    ("bound_ms", lambda r: r["bn_bwd_dx"]["bound_ms"]
+                     + r["bn_bwd_dw"]["bound_ms"]),
+                    ("unit_ms", lambda r: r["K8"]["ms"]),
+                    ("unit_bound_ms", lambda r: r["K8"]["bound_ms"]))}
+    emit({"phase": "kernels_conv", "kernel": "K8", "per_step": weighted,
+          "launches_per_step": sum(r["launches_per_step"] for r in k8)})
 
     b, h, wd, _, co = bp.SHAPE
     n = b * h * wd
@@ -559,11 +627,18 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     log = kernels.build_all()
+    ptxas = {n: kernels.ptxas_report(v["ptxas"]) for n, v in log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: {"seconds": v["seconds"], "cached": v["cached"]}
                         for n, v in log.items()},
-          "ptxas": {n: kernels.ptxas_report(v["ptxas"])
-                    for n, v in log.items()}})
+          "ptxas": ptxas})
+    for kname, rep in ((k, r) for lib in ptxas.values()
+                       for k, r in lib.items()):
+        if kname.split("<")[0] in NO_SPILLS and (
+                rep.get("spill_stores") or rep.get("spill_loads")
+                or any("C7508" in w for w in rep["warnings"])):
+            raise AssertionError(f"build: {kname} spills or ignores "
+                                 f"setmaxnreg: {rep}")
 
     # -- 3. kernels against their plain versions -----------------------------
     peaks = (peak_flops_per_chip(), peak_hbm_bytes_per_chip())
@@ -574,7 +649,7 @@ def main() -> int:
     vit_path = kernel_phase(fa, peaks, "vit_path", 128, 12, 196, 64, False,
                             timed=True, layout="packed")
     kernel_phase(fa, peaks, "causal_d128", 2, 4, 512, 128, True,
-                 timed=False, layout="packed")
+                 timed=True, layout="packed")
 
     # -- 4. main path: train -------------------------------------------------
     steps, warmup, repeats = 3, 2, 3
@@ -825,7 +900,9 @@ def main() -> int:
         {"name": kname, "route": "cuda", "source": source, "replaces": where,
          "launches": launches[kname], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "cuda_kernels": {k: defined_at(source, k)
+                          for k in CUDA_KERNELS[kname]}}
         for kname, where, source, launches, r in main_runs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -9,8 +9,9 @@
 //   K8  workloads/bn_fused.py::conv_bn_relu_bwd (`_bn_bwd_kernel`):
 //         colsum_kernel<true>    phase 0: sum g' and sum g'.xhat per channel
 //                                (ko_bn_bwd_stats)
-//         gemm_dx_kernel<true>   phase 1: dx = dy . w^T  (ko_bn_bwd_dx)
-//         gemm_dw_kernel<true>   phase 1: dW = x^T . dy  (ko_bn_bwd_dw)
+//         k8_dx_wgmma_kernel     phase 1: dx = dy . w^T  (ko_bn_bwd_dx)
+//         k8_dw_wgmma_kernel     phase 1: dW = x^T . dy, f32, then
+//                                reduce_chunks_kernel    (ko_bn_bwd_dw)
 //   K9  scripts/perf_bitcast_probe.py::sum_kernel:
 //         colsum_kernel<false>   f32 sum per channel     (ko_channel_sum)
 //
@@ -29,67 +30,61 @@
 // 256->1024 K7 needs 26.3 GFLOP and 78.7 MB: bound by tensor-core operations
 // (about 0.027 ms at 989 TFLOP/s). Where one channel count is 128 (stage 1,
 // 100,352 rows) a product moves more bytes than the tensor cores need time
-// for: dx of 512->128 writes 103 MB, bound by bytes. At stage 1's 401,408
-// rows and 64->256, K8 moves 514 MB for 26.3 GFLOP: bound by bytes (about
-// 0.153 ms at 3.35 TB/s). K9 reads 205.5 MB: bytes again.
+// for: dx of 512->128 writes 103 MB, bound by bytes. K8 runs where a
+// block's input has H*W >= 3136 (nine launches a ResNet-50 step at batch
+// 128, 401,408 and 100,352 rows, 64 to 512 channels): each of its products
+// reads g and y besides x or w and is bound by bytes (at 401,408 rows and
+// 64->256, 462 MB each: 0.138 ms at 3.35 TB/s). K9 reads 205.5 MB: bytes
+// again.
 //
-// What the design does about it. K7 runs on Hopper's warpgroup MMA: one
-// main loop (k7_wgmma_kernel) serves both products, 128 x 128 output tiles
-// over two consumer warpgroups of 64 rows, wgmma m64n128k16 straight from
-// shared memory, fed by a 4-stage ring of 64-deep k-steps that one
-// producer warp fills by TMA (128-byte swizzle; rows and channels past the
-// edge arrive as zeros) under full/empty mbarriers, with one wgmma group in
-// flight. dx reads g and w K-major; dW reads x and g MN-major (wgmma's
-// transpose flags), so no operand is transposed in memory. Blocks are
-// persistent, one an SM, and the ring runs on from tile to tile, so the
-// next tile's loads overlap this tile's epilogue. dx leaves through shared
-// memory and TMA stores of whole rows: at the stage-1 sites, with 2-4
-// k-steps a tile, storing dx is most of the work, and 4-byte stores from
-// registers had made it twice as slow. ptxas (CUDA 12.8): dx 104
-// registers, dW 94, no spills; 164,928 bytes of dynamic shared memory
-// (4 stages of 32 KB, 32 KB for dx's epilogue). 128 x 128 tiles need
-// 64 FLOP a byte of L2 traffic, so dW at the 25,088- and 6,272-row sites
-// stays 1.1-1.7x behind cuBLAS (larger tiles or clusters are the next
-// step).
-// K8's products run on mma.sync m16n8k16 (bf16 operands, f32 accumulators in
-// registers) over 64x64 output tiles, 4 warps of 32x32, with 32-deep
-// k-steps of bf16 tiles in shared memory. K8's dy is never written to
-// memory: each product's tile loader forms dy = gamma*inv*(g' - sum g'/N -
-// xhat*sum(g'.xhat)/N) from the g and y tiles as it stages them, rounded to
-// bf16 as the TPU kernel rounds it (that loader does not map onto TMA as it
-// is). Blocks run in parallel and in no order, so the dW sum over N, which
-// the TPU kernel carried across its sequential grid in one VMEM block, is
-// split in both: each block sums one chunk of rows into its own f32
-// partial tile, and reduce_chunks_kernel adds the partials in a fixed
+// What the design does about it. K7 and K8's products run on Hopper's
+// warpgroup MMA, fed by a ring of 64-deep k-steps that one producer warp
+// fills by TMA (128-byte swizzle; rows and channels past the edge arrive as
+// zeros) under full/empty mbarriers; blocks are persistent, one an SM, and
+// the ring runs on from tile to tile, so the next tile's loads overlap this
+// tile's epilogue. K7 (k7_wgmma_kernel): 128 x 128 output tiles over two
+// consumer warpgroups of 64 rows, wgmma m64n128k16 straight from shared
+// memory, 4 stages, one wgmma group in flight; dx reads g and w K-major, dW
+// reads x and g MN-major (wgmma's transpose flags), so no operand is
+// transposed in memory. dx leaves through shared memory and TMA stores of
+// whole rows: at the stage-1 sites, with 2-4 k-steps a tile, storing dx is
+// most of the work, and 4-byte stores from registers had made it twice as
+// slow. ptxas (CUDA 12.8): dx 104 registers, dW 94, no spills; 164,928
+// bytes of dynamic shared memory. 128 x 128 tiles need 64 FLOP a byte of
+// L2 traffic, so dW at the 25,088- and 6,272-row sites stays 1.1-1.7x
+// behind cuBLAS (larger tiles or clusters are the next step). K8
+// (k8_dx_wgmma_kernel, k8_dw_wgmma_kernel, described where they are
+// defined) takes g and y through the ring and forms dy on chip: dx in
+// wgmma's register A fragments, dW in shared memory in place of g. dy is
+// rounded to bf16 as the TPU kernel rounds it and never written to global
+// memory. Blocks run in parallel and in no order, so the dW sum over N,
+// which the TPU kernel carried across its sequential grid in one VMEM
+// block, is split in both: each block sums one chunk of rows into its own
+// f32 partial tile, and reduce_chunks_kernel adds the partials in a fixed
 // order. The result does not depend on scheduling: two runs give the same
 // bits. The column sums work the same way (a partial per row chunk, then
 // the fixed-order reduction), and the phase barrier of K8 is launch order
-// on the stream: stats, then dx, then dW. Tiles of w or of dW fit any Ci,
-// Co, so the 2 MB w of the 2048->512 site is streamed tile by tile. dx and
-// dW are separate launches, so K7 reads g twice and K8 reads g and y three
-// times (the TPU kernel read g once, and K8 twice); the second read of g
-// costs K7 at most ~15 us at 25,088 rows, where the resident w and f32 dW
-// of the TPU's one-pass design would not fit a block's shared memory.
-// K8's tile loads are not pipelined (several blocks on an SM hide each
-// other's loads).
+// on the stream: stats, then dx, then dW. dx and dW are separate launches,
+// so K7 reads g twice and K8 reads g and y three times (the TPU kernel
+// read g once, and K8 twice): a one-pass design would need a resident w of
+// up to 128 KB beside an f32 dW accumulator of up to 256 KB at K8's
+// 128->512 site, and one block's 227 KB holds neither.
 
 #include <climits>
 
 #include <cuda_runtime.h>
 
-#include "mma.cuh"
+#include "mma.cuh"   // bf16 and pack
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, TK = 32;   // GEMM block tile and k-step
-constexpr int NTHREADS = 128;               // 4 warps, 2 x 2, 32 x 32 each
-constexpr int LDK = TK + 8;    // row stride of k-contiguous [64][TK] tiles
-constexpr int LDN = TN + 8;    // row stride of [TK][64] tiles
+constexpr int CH = 64;          // the products take channels in multiples
+                                // of one 64-wide TMA box
 constexpr int SUM_THREADS = 256;
 
-// What K8's operand loader needs to form dy from g and y (unused by K7).
-// sums holds [sum g' (= dbeta) | sum g'.xhat (= dgamma)], 2*Co floats.
+// What K8 needs to form dy from g and y (unused by K7). sums holds
+// [sum g' (= dbeta) | sum g'.xhat (= dgamma)], 2*Co floats.
 struct Bn {
   const bf16* y;
   const float *gamma, *beta, *mu, *inv, *sums;
@@ -119,162 +114,30 @@ __device__ __forceinline__ float gate(float g, float yv, float mu, float inv,
   return g;
 }
 
-// 8 channels [c, c+8) of dy from 8 of g and y (K8 phase 1)
-__device__ __forceinline__ uint4 bn_dy8(uint4 gv, uint4 yv, int c,
-                                        const Bn& bn) {
-  float mu[8], inv[8], gm[8], bt[8], sg[8], sgx[8];
-  load8(mu, bn.mu + c);
-  load8(inv, bn.inv + c);
-  load8(gm, bn.gamma + c);
-  load8(bt, bn.beta + c);
-  load8(sg, bn.sums + c);
-  load8(sgx, bn.sums + bn.co + c);
-  const bf16* gh = reinterpret_cast<const bf16*>(&gv);
-  const bf16* yh = reinterpret_cast<const bf16*>(&yv);
-  uint4 out;
-  bf16* oh = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    float xhat;
-    const float gact = gate(__bfloat162float(gh[e]), __bfloat162float(yh[e]),
-                            mu[e], inv[e], gm[e], bt[e], bn.relu, &xhat);
-    const float t = __fsub_rn(__fsub_rn(gact, __fmul_rn(sg[e], bn.inv_n)),
-                              __fmul_rn(xhat, __fmul_rn(sgx[e], bn.inv_n)));
-    oh[e] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(gm[e], inv[e]), t));
-  }
-  return out;
+// K8 phase 1 per channel j: dy = c*(g' - a - xhat*b) with a = sum g'/N,
+// b = sum(g'.xhat)/N and c = gamma*inv, each factor rounded as the TPU
+// kernel rounds it (one f32 operation at a time, no fused multiply-add)
+struct BnChan {
+  float mu, inv, a, b, c, gamma, beta;
+};
+
+__device__ __forceinline__ BnChan bn_chan(const Bn& bn, int j) {
+  BnChan k;
+  k.mu = bn.mu[j];
+  k.inv = bn.inv[j];
+  k.a = __fmul_rn(bn.sums[j], bn.inv_n);
+  k.b = __fmul_rn(bn.sums[bn.co + j], bn.inv_n);
+  k.c = __fmul_rn(bn.gamma[j], k.inv);
+  k.gamma = bn.gamma[j];
+  k.beta = bn.beta[j];
+  return k;
 }
 
-// Stage a [ROWS][COLS] bf16 tile of the row-major [*, ld] matrix m, rows
-// from r0 (rows at or past n read as 0) and columns from c0, into shared
-// memory with row stride LDS, 16 bytes per thread and step. With BN the
-// tile is K8's dy, formed from m = g and bn.y.
-template <bool BN, int ROWS, int COLS, int LDS>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ m,
-                                      int ld, int r0, int c0, int n,
-                                      const Bn& bn) {
-  constexpr int VEC = COLS / 8;
-  for (int idx = threadIdx.x; idx < ROWS * VEC; idx += NTHREADS) {
-    const int r = idx / VEC, c = (idx % VEC) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    const int row = r0 + r;
-    if (row < n) {
-      const size_t off = (size_t)row * ld + c0 + c;
-      v = *reinterpret_cast<const uint4*>(m + off);
-      if (BN) v = bn_dy8(v, *reinterpret_cast<const uint4*>(bn.y + off),
-                         c0 + c, bn);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dx [n, ci] = G [n, co] . w[ci, co]^T, G = g (K7) or dy (K8). One block per
-// 64 x 64 tile of dx; the k loop runs over co.
-// ---------------------------------------------------------------------------
-template <bool BN>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
-               bf16* __restrict__ dx, int n, int ci, int co, Bn bn) {
-  __shared__ __align__(16) bf16 sA[TM * LDK];
-  __shared__ __align__(16) bf16 sB[TN * LDK];
-  const int r0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < co; k0 += TK) {
-    stage<BN, TM, TK, LDK>(sA, g, co, r0, k0, n, bn);
-    stage<false, TN, TK, LDK>(sB, w, co, n0, k0, ci, bn);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        load_a<LDK>(a[mi], sA, wm + mi * 16, kk, gq, tq);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        uint32_t b0, b1;
-        load_b<LDK>(b0, b1, sB, wn + ni * 8, kk, gq, tq);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + wm + mi * 16 + gq + 8 * half;
-      if (row >= n) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(dx + (size_t)row * ci + col) =
-            pack(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// part[chunk] [ci, co] = x[rows of chunk]^T . G[rows of chunk], f32, G = g
-// (K7) or dy (K8). Grid (co/64, ci/64, chunks); chunk z covers rows
-// [z*rows_per_chunk, min(n, (z+1)*rows_per_chunk)).
-// ---------------------------------------------------------------------------
-template <bool BN>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-               float* __restrict__ part, int n, int ci, int co,
-               int rows_per_chunk, Bn bn) {
-  __shared__ __align__(16) bf16 sX[TK * LDN];
-  __shared__ __align__(16) bf16 sG[TK * LDN];
-  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
-  const int rbeg = blockIdx.z * rows_per_chunk;
-  const int rend = min(n, rbeg + rows_per_chunk);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  float acc[2][4][4] = {};
-  for (int k0 = rbeg; k0 < rend; k0 += TK) {
-    stage<false, TK, TM, LDN>(sX, x, ci, k0, m0, rend, bn);
-    stage<BN, TK, TN, LDN>(sG, g, co, k0, n0, rend, bn);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        load_at<LDN>(a[mi], sX, kk, wm + mi * 16, lane);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t b[4];
-        load_bt2<LDN>(b, sG, kk, wn + nj * 16, lane);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          mma(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.z * ci * co;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + gq + 8 * half;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn + ni * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(out + (size_t)row * co + col) =
-            make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-    }
+template <bool RELU>
+__device__ __forceinline__ float bn_dy(float g, float y, const BnChan& k) {
+  float xhat;
+  const float ga = gate(g, y, k.mu, k.inv, k.gamma, k.beta, RELU, &xhat);
+  return __fmul_rn(k.c, __fsub_rn(__fsub_rn(ga, k.a), __fmul_rn(xhat, k.b)));
 }
 
 // ---------------------------------------------------------------------------
@@ -376,8 +239,7 @@ cudaError_t reduce_chunks(const float* part, float* out, int chunks, int m,
 }
 
 bool bad_gemm(int n, int ci, int co) {
-  return n <= 0 || ci <= 0 || co <= 0 || ci % TM || co % TN ||
-         ci / TM > 65535;
+  return n <= 0 || ci <= 0 || co <= 0 || ci % CH || co % CH;
 }
 
 bool bad_chunks(int n, int rows_per_chunk, int chunks, int step) {
@@ -586,14 +448,20 @@ cudaError_t k7_map(CUtensorMap* map, const void* m, int rows, int cols,
   return make_tensor_map(map, m, 2, dims, strides, box);
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 template <bool DW>
 cudaError_t k7_launch(const CUtensorMap& ta, const CUtensorMap& tb,
                       const CUtensorMap& tc, void* out, int n, int ci, int co,
                       int rows_per_chunk, int chunks, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       k7_wgmma_kernel<DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -639,28 +507,445 @@ int k7_dw(const void* x, const void* g, void* dw, void* ws, int n, int ci,
   return (int)reduce_chunks((const float*)ws, (float*)dw, chunks, ci * co, s);
 }
 
-template <bool BN>
-int launch_dx(const void* g, const void* w, void* dx, int n, int ci, int co,
-              const Bn& bn, void* stream) {
-  if (bad_gemm(n, ci, co)) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + TM - 1) / TM, ci / TN);
-  gemm_dx_kernel<BN><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)g, (const bf16*)w, (bf16*)dx, n, ci, co, bn);
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// K8's phase-1 products on wgmma: K7's machinery with dy formed on chip.
+// Both kernels are persistent: one producer warp fills a ring of 64-deep
+// k-steps by TMA (128-byte swizzle; rows past n arrive as zeros) under
+// full/empty mbarriers, and the consumer warpgroups read g and y from the
+// ring and form dy = c*(g' - a - xhat*b) (bn_dy) themselves, so dy is never
+// written to global memory. In a 128-byte-swizzled box the 16-byte chunk c
+// of row r holds channels 8*(c ^ (r % 8)) .. +7: dy keeps the position,
+// and the per-channel constants are read at the unswizzled channel.
+// ---------------------------------------------------------------------------
+constexpr int K8_BOX = 64 * 128;                   // bytes of a [64][64] box
+
+// dx [n, ci] = dy [n, co] . w [ci, co]^T: M = rows, N = ci, k over co. A
+// block tile is 128 rows x TN channels of ci (TN = 128, or 64 where ci is
+// not a multiple of 128, so that no tile is half zeros) over two consumer
+// warpgroups of 64 rows; a stage holds g and y as [128][64] boxes and w as
+// a [TN][64] box, all K-major. Each consumer thread reads its rows' g and
+// y straight into wgmma's register A fragments (the m16n8k16 layout of
+// K1's P: rows quad and quad + 8 of its warp's 16, channels 2tq, 2tq + 1
+// and + 8 of each k16 step), forms dy there, rounds it to bf16 and runs
+// dx += dy.w^T as wgmma m64nTNk16 with w from shared memory: no
+// shared-memory write and no proxy fence between dy and the product. The
+// constants of all co channels sit in a shared-memory table (one array per
+// BnChan field), filled once a block. With co = 64 a tile has one k-step,
+// so only a ring that runs on across tiles overlaps its loads with work.
+// dx leaves as K7's does, through swizzled shared memory and TMA stores.
+// ptxas (CUDA 12.8): 126-128 registers at TN = 64, 157-160 at TN = 128, no
+// spills; up to 195,632 bytes of dynamic shared memory (co = 512).
+template <int TN>
+struct K8Dx {
+  static constexpr int STAGES = TN == 64 ? 4 : 3;
+  static constexpr int G = 2 * K8_BOX;               // a [128][64] g or y box
+  static constexpr int STAGE = 2 * G + TN / 64 * K8_BOX;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int EPI = 2 * TN / 64 * K8_BOX;   // [64][TN] bf16 a
+                                                     // warpgroup
+  static constexpr int BAR = RING + EPI;
+  static constexpr int TAB = BAR + 2 * STAGES * 8;   // [7][co] f32
+  static size_t bytes(int co) { return (size_t)TAB + 7 * 4 * co + 1024; }
+};
+constexpr int K8_DX_CONSUMERS = 256;                // 2 warpgroups
+constexpr int K8_DX_THREADS = K8_DX_CONSUMERS + 32; // + the producer warp
+
+template <int TN>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[TN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (TN == 64)
+    wgmma_rs_n64<0>(d, a, db);
+  else
+    wgmma_rs_n128<0>(d, a, db);
 }
 
-template <bool BN>
-int launch_dw(const void* x, const void* g, void* dw, void* ws, int n,
-              int ci, int co, int rows_per_chunk, int chunks, const Bn& bn,
-              void* stream) {
-  if (bad_gemm(n, ci, co) || bad_chunks(n, rows_per_chunk, chunks, TK))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid(co / TN, ci / TM, chunks);
-  gemm_dw_kernel<BN><<<grid, NTHREADS, 0, s>>>(
-      (const bf16*)x, (const bf16*)g, (float*)ws, n, ci, co, rows_per_chunk,
-      bn);
-  cudaError_t err = cudaGetLastError();
+template <int TN, bool RELU>
+__global__ void __launch_bounds__(K8_DX_THREADS, 1)
+k8_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tg,
+                   const __grid_constant__ CUtensorMap ty,
+                   const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tdx, Bn bn, int ci,
+                   int co, int tiles) {
+  using L = K8Dx<TN>;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + S;
+  float* tab = reinterpret_cast<float*>(smem + L::TAB);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], K8_DX_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  for (int j = threadIdx.x; j < co; j += K8_DX_THREADS) {
+    const BnChan k = bn_chan(bn, j);
+    const float v[7] = {k.mu, k.inv, k.a, k.b, k.c, k.gamma, k.beta};
+#pragma unroll
+    for (int p = 0; p < 7; ++p) tab[p * co + j] = v[p];
+  }
+  __syncthreads();
+
+  // tiles: ci tile fastest, so a row tile's ci tiles share g and y in L2
+  const int tiles_n = ci / TN, steps = co / 64;
+  if (threadIdx.x >= K8_DX_CONSUMERS) {              // the producer warp
+    if (threadIdx.x == K8_DX_CONSUMERS) {
+      int it = 0;                                    // k-steps so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * 128, n0 = tile % tiles_n * TN;
+        for (int step = 0; step < steps; ++step, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+          unsigned char* st = smem + s * L::STAGE;
+          mbar_expect_tx(&full[s], L::STAGE);
+          tma_load_2d(st, &tg, &full[s], step * 64, m0);
+          tma_load_2d(st + L::G, &ty, &full[s], step * 64, m0);
+          tma_load_2d(st + 2 * L::G, &tw, &full[s], step * 64, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int quad = lane / 4, tq = lane % 4;
+  const int r16 = (threadIdx.x / 32 % 4) * 16 + quad;  // row of the WG's 64
+  // byte offset of the thread's first row in a [128][64] box and of its
+  // channel pair in a 16-byte chunk; the second row is 8 on, and both
+  // rows sit at r % 8 == quad
+  const int off0 = (wg * 64 + r16) * 128 + tq * 4;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * 128, n0 = tile % tiles_n * TN;
+    float acc[TN / 2];
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.0f;
+    for (int step = 0; step < steps; ++step, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const unsigned char* st = smem + s * L::STAGE;
+      // A fragment [kk][2h + r]: row r16 + 8r, channels 16kk + 8h + 2tq
+      // and + 1 of the k-step
+      uint32_t af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = step * 64 + 16 * kk + 8 * h + 2 * tq;
+          BnChan k[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            k[e].mu = tab[c + e];
+            k[e].inv = tab[co + c + e];
+            k[e].a = tab[2 * co + c + e];
+            k[e].b = tab[3 * co + c + e];
+            k[e].c = tab[4 * co + c + e];
+            k[e].gamma = RELU ? tab[5 * co + c + e] : 0.0f;
+            k[e].beta = RELU ? tab[6 * co + c + e] : 0.0f;
+          }
+          const int off = off0 + (((2 * kk + h) ^ quad) << 4);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(
+                st + off + r * 8 * 128);
+            const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(
+                st + L::G + off + r * 8 * 128);
+            af[kk][2 * h + r] =
+                pack(bn_dy<RELU>(__low2float(gv), __low2float(yv), k[0]),
+                     bn_dy<RELU>(__high2float(gv), __high2float(yv), k[1]));
+          }
+        }
+      }
+      const uint32_t wb = smem_u32(st + 2 * L::G);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_k<TN>(acc, af[kk], desc_k(wb + kk * 32));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // accumulator element e: row r16 + 8*((e >> 1) & 1), column
+    // 8*(e >> 2) + 2tq + (e & 1); out through swizzled [64][64] boxes
+    unsigned char* epi = smem + L::RING + wg * (L::EPI / 2);
+    const bool leader = threadIdx.x % 128 == 0;
+    if (leader) bulk_wait<0, true>();       // the last store has read epi
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r16 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+        *reinterpret_cast<uint32_t*>(epi + (j / 8) * K8_BOX + r * 128 +
+                                     (((j % 8) ^ (r % 8)) * 16) + tq * 4) =
+            pack(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    if (leader) {
+#pragma unroll
+      for (int b = 0; b < TN / 64; ++b)
+        tma_store_2d(&tdx, epi + b * K8_BOX, n0 + 64 * b, m0 + wg * 64);
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x % 128 == 0) bulk_wait<0, false>();
+}
+
+// dW partial [chunk][ci, co] = x[chunk rows]^T . dy[chunk rows]: M = ci,
+// N = co, k over rows, both operands MN-major (channels contiguous), as
+// K7's dW. dy is wgmma's B operand, so it must sit in shared memory: the
+// consumers form it in place of the stage's g (same box, same swizzle),
+// each issues fence.proxy.async, a named barrier over every consumer
+// thread orders the writes before the wgmma that reads them, and the stage
+// is released only once that wgmma group is done (one group stays in
+// flight while the next stage's dy is formed). A thread forms the same 8
+// channels of every row it takes for the whole tile, so it holds their
+// constants in registers, loaded once a tile. The block tile is
+// [64*MW ci] x [NW*TNW co] over MW*NW consumer warpgroups of 64 x TNW:
+//   MW 2, NW 1 where ci is a multiple of 128 (TNW 128, or 64 where co is
+//     not a multiple of 128): the two warpgroups share one dy;
+//   MW 1, NW 2, TNW 128 where ci is not and co is a multiple of 256
+//     (64 -> 256: x read once, dy formed once);
+//   MW 1, NW 1, TNW 64 otherwise (64 -> 64: one warpgroup a block).
+// The chunk split over rows is k8_dw_chunks (conv_vjp.py); the partials
+// are added by reduce_chunks in a fixed order. ptxas (CUDA 12.8): 118-163
+// registers over the eight instances, no spills; 222,256 bytes of dynamic
+// shared memory at most (64 x 256 tiles, 3 stages).
+template <int MW, int NW, int TNW>
+struct K8Dw {
+  static constexpr int CONSUMERS = 128 * MW * NW;
+  static constexpr int TNB = NW * TNW;                 // the block's co
+  static constexpr int X = MW * K8_BOX;                // MW [64][64] x boxes
+  static constexpr int G = TNB / 64 * K8_BOX;          // g (then dy), y
+  static constexpr int STAGE = X + 2 * G;
+  static constexpr int STAGES = 4 * STAGE <= 196608 ? 4 : 3;
+  static constexpr int BAR = STAGES * STAGE;
+  static constexpr size_t BYTES = (size_t)BAR + 2 * STAGES * 8 + 1024;
+};
+
+template <int TNW>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[TNW / 2], uint64_t da,
+                                            uint64_t db) {
+  if constexpr (TNW == 64)
+    wgmma_ss_n64<1, 1>(d, da, db, 1);
+  else
+    wgmma_ss_n128<1, 1>(d, da, db, 1);
+}
+
+template <int MW, int NW, int TNW, bool RELU>
+__global__ void __launch_bounds__(K8Dw<MW, NW, TNW>::CONSUMERS + 32, 1)
+k8_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tg,
+                   const __grid_constant__ CUtensorMap ty,
+                   float* __restrict__ part, Bn bn, int n, int ci, int co,
+                   int rows_per_chunk, int tiles) {
+  using L = K8Dw<MW, NW, TNW>;
+  constexpr int S = L::STAGES, NT = L::CONSUMERS;
+  constexpr int QN = L::TNB / 8;             // 16-byte chunks of a dy row
+  constexpr int ROWS_AT_ONCE = NT / QN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NT);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tiles: co tile fastest, then ci tile, then row chunk
+  const int tiles_n = co / L::TNB, tiles_m = ci / (64 * MW);
+  if (threadIdx.x >= NT) {                           // the producer warp
+    if (threadIdx.x == NT) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = tile % tiles_n * L::TNB;
+        const int m0 = tile / tiles_n % tiles_m * 64 * MW;
+        const int k0 = tile / (tiles_n * tiles_m) * rows_per_chunk;
+        const int steps = (min(n, k0 + rows_per_chunk) - k0 + 63) / 64;
+        for (int step = 0; step < steps; ++step, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+          unsigned char* st = smem + s * L::STAGE;
+          const int k = k0 + step * 64;
+          mbar_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+          for (int b = 0; b < MW; ++b)
+            tma_load_2d(st + b * K8_BOX, &tx, &full[s], m0 + 64 * b, k);
+#pragma unroll
+          for (int b = 0; b < L::TNB / 64; ++b) {
+            tma_load_2d(st + L::X + b * K8_BOX, &tg, &full[s], n0 + 64 * b,
+                        k);
+            tma_load_2d(st + L::X + L::G + b * K8_BOX, &ty, &full[s],
+                        n0 + 64 * b, k);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int mi = MW == 2 ? wg : 0, ni = NW == 2 ? wg : 0;
+  // the thread forms channels n0 + 8q .. + 7 (box q / 8, chunk q % 8) of
+  // rows row_first, + ROWS_AT_ONCE, ...
+  const int q = threadIdx.x % QN, row_first = threadIdx.x / QN;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile % tiles_n * L::TNB;
+    const int m0 = tile / tiles_n % tiles_m * 64 * MW;
+    const int z = tile / (tiles_n * tiles_m), k0 = z * rows_per_chunk;
+    const int steps = (min(n, k0 + rows_per_chunk) - k0 + 63) / 64;
+    BnChan k[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) k[e] = bn_chan(bn, n0 + 8 * q + e);
+    float acc[TNW / 2];
+#pragma unroll
+    for (int i = 0; i < TNW / 2; ++i) acc[i] = 0.0f;
+    for (int step = 0; step < steps; ++step, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      unsigned char* gs = smem + s * L::STAGE + L::X;
+#pragma unroll
+      for (int i = 0; i < 64 / ROWS_AT_ONCE; ++i) {
+        const int r = row_first + i * ROWS_AT_ONCE;
+        const int off =
+            (q / 8) * K8_BOX + r * 128 + (((q % 8) ^ (r % 8)) << 4);
+        const uint4 gv = *reinterpret_cast<const uint4*>(gs + off);
+        const uint4 yv = *reinterpret_cast<const uint4*>(gs + L::G + off);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
+        uint4 dy;
+        uint32_t* d32 = reinterpret_cast<uint32_t*>(&dy);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d32[e] = pack(
+              bn_dy<RELU>(__low2float(g2[e]), __low2float(y2[e]), k[2 * e]),
+              bn_dy<RELU>(__high2float(g2[e]), __high2float(y2[e]),
+                          k[2 * e + 1]));
+        *reinterpret_cast<uint4*>(gs + off) = dy;
+      }
+      fence_proxy_async();
+      named_sync(1, NT);
+      const uint32_t xa = smem_u32(smem + s * L::STAGE) + mi * K8_BOX;
+      const uint32_t db = smem_u32(gs) + ni * (TNW / 64) * K8_BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_mn<TNW>(acc, desc_mn(xa + kk * 2048, K8_BOX),
+                         desc_mn(db + kk * 2048, K8_BOX));
+      wgmma_commit();
+      wgmma_wait<1>();                  // the previous step's group is done
+      if (step > 0) mbar_arrive(&empty[(it - 1) % S]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[(it - 1) % S]);
+
+    // accumulator element e: row r16 + 8*((e >> 1) & 1), column
+    // 8*(e >> 2) + 2tq + (e & 1); each quad writes a 32-byte sector
+    const int r16 = (threadIdx.x / 32 % 4) * 16 + lane / 4;
+    const int row0 = m0 + mi * 64 + r16;
+    const int col0 = n0 + ni * TNW + 2 * (lane % 4);
+    float* out = part + (size_t)z * ci * co;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int j = 0; j < TNW / 8; ++j)
+        *reinterpret_cast<float2*>(out + (size_t)(row0 + 8 * half) * co +
+                                   col0 + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+}
+
+template <int TN, bool RELU>
+cudaError_t k8_dx_launch(const void* g, const Bn& bn, const void* w, void* dx,
+                         int n, int ci, int co, cudaStream_t s) {
+  CUtensorMap tg, ty, tw, tdx;
+  cudaError_t err = k7_map(&tg, g, n, co, 128);
+  if (err == cudaSuccess) err = k7_map(&ty, bn.y, n, co, 128);
+  if (err == cudaSuccess) err = k7_map(&tw, w, ci, co, TN);
+  if (err == cudaSuccess) err = k7_map(&tdx, dx, n, ci, 64);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  const size_t smem = K8Dx<TN>::bytes(co);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k8_dx_wgmma_kernel<TN, RELU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((n + 127) / 128) * (ci / TN);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  k8_dx_wgmma_kernel<TN, RELU><<<grid, K8_DX_THREADS, smem, s>>>(
+      tg, ty, tw, tdx, bn, ci, co, (int)tiles);
+  return cudaGetLastError();
+}
+
+template <int MW, int NW, int TNW, bool RELU>
+cudaError_t k8_dw_launch(const void* x, const void* g, const Bn& bn,
+                         void* ws, int n, int ci, int co, int rows_per_chunk,
+                         int chunks, cudaStream_t s) {
+  using L = K8Dw<MW, NW, TNW>;
+  CUtensorMap tx, tg, ty;
+  cudaError_t err = k7_map(&tx, x, n, ci, 64);
+  if (err == cudaSuccess) err = k7_map(&tg, g, n, co, 64);
+  if (err == cudaSuccess) err = k7_map(&ty, bn.y, n, co, 64);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k8_dw_wgmma_kernel<MW, NW, TNW, RELU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      (long long)(co / L::TNB) * (ci / (64 * MW)) * chunks;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  k8_dw_wgmma_kernel<MW, NW, TNW, RELU>
+      <<<grid, L::CONSUMERS + 32, L::BYTES, s>>>(
+          tx, tg, ty, (float*)ws, bn, n, ci, co, rows_per_chunk, (int)tiles);
+  return cudaGetLastError();
+}
+
+template <bool RELU>
+int k8_dx(const void* g, const Bn& bn, const void* w, void* dx, int n,
+          int ci, int co, cudaStream_t s) {
+  if (ci % 128 == 0)
+    return (int)k8_dx_launch<128, RELU>(g, bn, w, dx, n, ci, co, s);
+  return (int)k8_dx_launch<64, RELU>(g, bn, w, dx, n, ci, co, s);
+}
+
+// the block tiles of k8_dw_wgmma_kernel (see there); k8_dw_chunks
+// (conv_vjp.py) plans the row chunks on the same choice
+template <bool RELU>
+int k8_dw(const void* x, const void* g, const Bn& bn, void* dw, void* ws,
+          int n, int ci, int co, int rows_per_chunk, int chunks,
+          cudaStream_t s) {
+  cudaError_t err;
+  if (ci % 128 == 0 && co % 128 == 0)
+    err = k8_dw_launch<2, 1, 128, RELU>(x, g, bn, ws, n, ci, co,
+                                        rows_per_chunk, chunks, s);
+  else if (ci % 128 == 0)
+    err = k8_dw_launch<2, 1, 64, RELU>(x, g, bn, ws, n, ci, co,
+                                       rows_per_chunk, chunks, s);
+  else if (co % 256 == 0)
+    err = k8_dw_launch<1, 2, 128, RELU>(x, g, bn, ws, n, ci, co,
+                                        rows_per_chunk, chunks, s);
+  else
+    err = k8_dw_launch<1, 1, 64, RELU>(x, g, bn, ws, n, ci, co,
+                                       rows_per_chunk, chunks, s);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_chunks((const float*)ws, (float*)dw, chunks, ci * co, s);
 }
@@ -688,7 +973,7 @@ int launch_colsum(const void* m, void* out, void* ws, int n, int c,
 // plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after its launches, or cudaErrorInvalidValue for a shape it does not
 // take. ws is f32 scratch of chunks * (products: ci*co; sums: k*c) floats;
-// rows_per_chunk is a multiple of 32 for the products.
+// rows_per_chunk is a multiple of the 64-row k-step for the products.
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -721,7 +1006,10 @@ int ko_bn_bwd_dx(const void* g, const void* y, const void* w,
                  const void* inv, const void* sums, void* dx, int n, int ci,
                  int co, int relu, void* stream) {
   const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n, co, relu);
-  return launch_dx<true>(g, w, dx, n, ci, co, bn, stream);
+  if (bad_gemm(n, ci, co)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return relu ? k8_dx<true>(g, bn, w, dx, n, ci, co, s)
+              : k8_dx<false>(g, bn, w, dx, n, ci, co, s);
 }
 
 // K8 phase 1: dW = x^T . dy (f32)
@@ -731,8 +1019,13 @@ int ko_bn_bwd_dw(const void* x, const void* g, const void* y,
                  int n, int ci, int co, int relu, int rows_per_chunk,
                  int chunks, void* stream) {
   const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n, co, relu);
-  return launch_dw<true>(x, g, dw, ws, n, ci, co, rows_per_chunk, chunks, bn,
-                         stream);
+  if (bad_gemm(n, ci, co) || bad_chunks(n, rows_per_chunk, chunks, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return relu ? k8_dw<true>(x, g, bn, dw, ws, n, ci, co, rows_per_chunk,
+                            chunks, s)
+              : k8_dw<false>(x, g, bn, dw, ws, n, ci, co, rows_per_chunk,
+                             chunks, s);
 }
 
 // K9: out [c] = f32 column sums of m [n, c]

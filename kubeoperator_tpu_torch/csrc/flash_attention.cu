@@ -4,29 +4,26 @@
 // Replaces six Pallas TPU kernels of the JAX package's
 // kubeoperator_tpu/workloads/flash_attention.py:
 //   flash_fwd_wgmma_kernel<D>      <- _fwd / _fwd_kernel                  (K1)
+//                                  <- _fwd_packed / _fwd_packed_kernel    (K4)
 //   flash_bwd_dq_wgmma_kernel<D>   <- _bwd / _bwd_dq_kernel               (K2)
 //   flash_bwd_dkv_wgmma_kernel<D>  <- _bwd / _bwd_dkv_kernel              (K3)
-//   flash_fwd_kernel<D, true>      <- _fwd_packed / _fwd_packed_kernel    (K4)
 //   flash_bwd_dq_kernel<D, true>   <- _bwd_packed / _bwd_dq_packed_kernel (K5)
 //   flash_bwd_dkv_kernel<D, true>  <- _bwd_packed / _bwd_dkv_packed_kernel
 //                                                                         (K6)
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16, contiguous, either
-// [BH, T, D] (the "bh" layout, PACKED = false) or [B, T, nh*D] (the
-// "packed" layout, PACKED = true: the attention projections' [B, T, H, D]
-// output read in place, with no transpose). One block works on one head:
-// blockIdx.y = b*nh + h, the head's rows start at b*T*nh*D + h*D and are
-// nh*D apart; the bh layout is that with nh = 1. lse and delta are
-// [B*nh, T] f32 in both (the TPU kernels stored [.., 8, T] only to satisfy
-// Mosaic's (8, 128) tiling). T is a multiple of the 64-row tile (the
-// Python wrapper pads), D is 64 or 128. Keys at or past kv_len are masked
-// to -1e30, causal masks row < col the same way, and the causal loop
-// bounds equal the JAX kernels' `hi` and `lo`. A head's row is D*2 = 128
-// or 256 bytes at a multiple of that offset, so the 16-byte vector loads
-// stay aligned in both layouts. The TPU packed kernels also walked several
-// batch rows and every head in one program (`_bb_packed`), a VMEM tuning
-// with no counterpart here: a block per (tile, head) already fills the 132
-// SMs at the ViT shape (4 tiles x 1536 heads).
+// [BH, T, D] (the "bh" layout) or [B, T, nh*D] (the "packed" layout: the
+// attention projections' [B, T, H, D] output read in place, with no
+// transpose). One block works on one head: blockIdx.y = b*nh + h, the
+// head's rows start at b*T*nh*D + h*D and are nh*D apart; the bh layout is
+// that with nh = 1. lse and delta are [B*nh, T] f32 in both (the TPU
+// kernels stored [.., 8, T] only to satisfy Mosaic's (8, 128) tiling). T is
+// a multiple of the 64-row tile (the Python wrapper pads), D is 64 or 128.
+// Keys at or past kv_len are masked to -1e30, causal masks row < col the
+// same way, and the causal loop bounds equal the JAX kernels' `hi` and
+// `lo`. The TPU packed kernels also walked several batch rows and every
+// head in one program (`_bb_packed`), a VMEM tuning with no counterpart
+// here: a block per (tile, head) already fills the 132 SMs at the ViT shape.
 //
 // What bounds them on the H100: at the LM's path shape (BH=128, T=2048,
 // D=128, causal) each kernel does 2-4 matrix products of T x T x D per head
@@ -34,29 +31,30 @@
 // operations (989 TFLOP/s bf16 dense), not by the 3.35 TB/s of HBM. At
 // ViT-B/16's shape (B=128, H=12, T=196 padded to 256, D=64, non-causal)
 // the sequence is short, and the same kernels are bound by the bytes they
-// must move (about 0.06-0.09 ms at 3.35 TB/s against 0.02-0.03 ms of
-// tensor-core work).
+// must move (K4: 154 MB of real rows, 0.046 ms at 3.35 TB/s, against
+// 0.02 ms of tensor-core work).
 //
-// What the design does about it. K1-K3 run on Hopper's warpgroup MMA
+// What the design does about it. K1-K4 run on Hopper's warpgroup MMA
 // (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
 // flash_bwd_dkv_wgmma_kernel, each described where it is defined):
 // 128-row tiles over two consumer warpgroups of 64 rows, the streamed
 // operand through a 3- or 4-stage TMA ring of 64-row tiles under
 // mbarriers, the score-type products (S = Q.K^T, dP = dO.V^T, or their
 // transposes) as wgmma from shared memory, and the probabilities (or dS)
-// kept in registers as the A operand of the next product. K4-K6 alone
-// stay on mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
+// kept in registers as the A operand of the next product. The forward
+// takes both layouts through one tensor map over [B, T, nh*D] (the head's
+// box at column h*D); K2 and K3 run on the bh layout. K5 and K6 stay on
+// mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
 // accumulators in registers: one block of 4 warps owns a 64-row tile and
 // each warp owns 16 rows of it, so a row's softmax statistics live in the
 // four lanes that hold it and the T x T scores never leave registers;
 // shared memory holds only the bf16 input tiles, loaded unpipelined
-// between barriers (about 52-70 KB a block at D=128), so several blocks
+// between barriers (about 70 KB a block at D=128), so several blocks
 // share an SM and hide each other's loads. As in the TPU kernels, the dQ
 // kernel and the dK/dV kernel are separate, so no block reduces across
 // another (no atomics) and every output is the same bits every run. In
-// all six the probabilities are rounded to bf16 before the P.V-type
-// products. Moving K4-K6 onto the wgmma kernels is a tensor map over
-// [B, T, H*D] with the head at column h*D.
+// all of them the probabilities are rounded to bf16 before the P.V-type
+// products. Moving K5 and K6 onto the wgmma kernels is the same tensor map.
 
 #include <climits>
 
@@ -91,9 +89,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld) {
 
 // where a block's head starts (blockIdx.y is b*nh + h); each kernel's
 // global row stride is PACKED ? nh*D : D. The mma.sync kernels now serve
-// the packed layout alone (K4-K6; K1-K3 take the wgmma kernels below), so
-// PACKED is always true where they are launched; the bh case is the one
-// they were written for, with nh = 1 and the constant stride D.
+// the packed layout alone (K5-K6; the others take the wgmma kernels
+// below), so PACKED is always true where they are launched; the bh case is
+// the one they were written for, with nh = 1 and the constant stride D.
 template <int D, bool PACKED>
 __device__ __forceinline__ size_t head_base(int t, int nh) {
   if (!PACKED) return (size_t)blockIdx.y * t * D;
@@ -120,139 +118,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ---------------------------------------------------------------------------
-// K1/K4: forward. One block per (q-tile, head). Replaces the JAX package's
-// workloads/flash_attention.py::_fwd_kernel (launched by _fwd) and, on the
-// packed layout, ::_fwd_packed_kernel (launched by _fwd_packed).
-// ---------------------------------------------------------------------------
-template <int D, bool PACKED>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int t, int nh, float scale,
-                 int causal, int kv_len) {
-  constexpr int LD = Ld<D>::H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t base = head_base<D, PACKED>(t, nh);
-  const int ld = PACKED ? nh * D : D;         // global row stride
-  const int row0 = qt * BQ + warp * 16 + g;   // rows of elements 0,1; +8: 2,3
-
-  load_tile<D>(sQ, q + base + (size_t)qt * BQ * ld, ld);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, warp * 16, kk * 16, g, tq);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
-
-  const int n_kv = t / BK;
-  // the JAX kernel's `hi`: K/V tiles past the diagonal are fully masked
-  const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
-  for (int j = 0; j < hi; ++j) {
-    __syncthreads();                           // previous tile consumed
-    load_tile<D>(sK, k + base + (size_t)j * BK * ld, ld);
-    load_tile<D>(sV, v + base + (size_t)j * BK * ld, ld);
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        uint32_t b0, b1;
-        load_b<LD>(b0, b1, sK, n * 8, kk * 16, g, tq);
-        mma(s[n], qf[kk], b0, b1);
-      }
-    }
-
-    // online softmax; each row's statistics are shared by its 4 lanes
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1);
-        const int col = j * BK + n * 8 + 2 * tq + (e & 1);
-        float x = s[n][e] * scale;
-        if (causal && row < col) x = NEG_INF;
-        if (col >= kv_len) x = NEG_INF;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = __expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P . V, P taken from the score registers
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t b[4];
-        load_bt2<LD>(b, sV, kk * 16, n * 8, lane);
-        mma(acc[n], pa, b[0], b[1]);
-        mma(acc[n + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (l[i] == 0.0f) l[i] = 1.0f;
-    inv[i] = 1.0f / l[i];
-  }
-  bf16* o0 = o + base + (size_t)row0 * ld + 2 * tq;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(o0 + n * 8) = pack(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(o0 + 8 * ld + n * 8) =
-        pack(acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
-  if (tq == 0) {
-    lse[(size_t)bh * t + row0] = m[0] + logf(l[0]);
-    lse[(size_t)bh * t + row0 + 8] = m[1] + logf(l[1]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -483,7 +348,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dynamic shared-memory bytes of each kernel (must match the carve-up above)
-template <int D> constexpr size_t fwd_smem() { return (size_t)3 * 64 * Ld<D>::H * 2; }
 template <int D> constexpr size_t dq_smem() { return (size_t)4 * 64 * Ld<D>::H * 2; }
 template <int D> constexpr size_t dkv_smem() {
   return (size_t)4 * 64 * Ld<D>::H * 2 + (size_t)2 * BQ * 4;
@@ -496,26 +360,36 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 on wgmma: the bh-layout forward. Replaces the JAX package's
-// workloads/flash_attention.py::_fwd_kernel (launched by _fwd). One block per
-// (128-row Q tile, head), blockIdx.x the tile taken from the end and
-// blockIdx.y the head: a head's tiles run side by side, so its K and V are
-// read from HBM about once and then from L2 (with the head fastest, each
-// block would read them from HBM again: ~1.1 GB at the LM's shape), and
-// within a head the heavy causal tiles start first. Two consumer warpgroups own 64 rows of the
-// tile each; one producer thread loads Q once and K and V through a ring of
-// F_STAGES 64-key tiles, by TMA (3-D tensor maps over [BH, T, D], so rows
-// past T arrive as zeros) with full/empty mbarriers. Per key tile a
-// consumer runs S = Q.K^T as wgmma m64n64k16 from shared memory (both
-// K-major), the online softmax in registers on the accumulator layout (a
-// row's values sit in the 4 lanes of a quad), rounds P to bf16 in
-// registers and runs O += P.V as wgmma m64nDk16 with P as the register A
-// operand and V MN-major (the transpose flag). Masks only on tiles that
-// cross the diagonal (causal) or reach past kv_len. At the LM's path shape
-// (BH 128, T 2048, D 128, causal: 137 GFLOP, 0.139 ms at 989 TFLOP/s) it is
-// bound by operations. ptxas (CUDA 12.8): 152 registers at D = 128, 117 at
-// D = 64, no spills; 132,200 / 66,664 bytes of dynamic shared memory. An
-// FA3-style schedule (tile j's softmax under tile j-1's P.V, the two
+// K1 and K4 on wgmma: the forward on either layout. Replaces the JAX
+// package's workloads/flash_attention.py::_fwd_kernel (launched by _fwd;
+// the bh layout, nh = 1) and ::_fwd_packed_kernel (launched by
+// _fwd_packed; the packed layout, nh heads). One block per (128-row Q
+// tile, head), blockIdx.x the tile taken from the end and blockIdx.y the
+// head: a head's tiles run side by side, so its K and V are read from HBM
+// about once and then from L2 (with the head fastest, each block would
+// read them from HBM again: ~1.1 GB at the LM's shape), and within a head
+// the heavy causal tiles start first. Two consumer warpgroups own 64 rows
+// of the tile each; one producer thread loads Q once and K and V through a
+// ring of F_STAGES 64-key tiles, by TMA (3-D tensor maps over
+// [B, T, nh*D], so rows past T arrive as zeros) with full/empty mbarriers.
+// Per key tile a consumer runs S = Q.K^T as wgmma m64n64k16 from shared
+// memory (both K-major), the online softmax in registers on the
+// accumulator layout (a row's values sit in the 4 lanes of a quad), rounds
+// P to bf16 in registers and runs O += P.V as wgmma m64nDk16 with P as the
+// register A operand and V MN-major (the transpose flag). Masks only on
+// tiles that cross the diagonal (causal) or reach past kv_len; every row
+// below T, padded rows included, gets O and a finite lse (K5 and K6 read
+// lse there). At the LM's path shape (BH 128, T 2048, D 128, causal: 137
+// GFLOP, 0.139 ms at 989 TFLOP/s) it is bound by operations; at ViT's
+// (B 128, H 12, T 256, D 64, 3,072 blocks of four key tiles) by bytes,
+// where each block's barrier set-up, Q load and epilogue would run exposed
+// with one block an SM (117 registers a thread at D = 64 allow one): so at
+// D = 64 two blocks share an SM (the launch bounds hold a thread to the 96
+// registers that leaves), and each key tile is taken in two 32-key halves,
+// whose scores take 16 registers where 64 keys took 32; with whole tiles
+// the cap spilled. ptxas (CUDA 12.8): 151 registers at D = 128, 93 at
+// D = 64, no spills; 132,200 / 66,664 bytes of dynamic shared memory.
+// An FA3-style schedule (tile j's softmax under tile j-1's P.V, the two
 // warpgroups taking turns by named barriers) measured no faster here, and
 // with 128-key tiles it needs more than the 168 registers a thread that a
 // 3-warpgroup block gets, so this loop stays serial within a warpgroup.
@@ -559,18 +433,19 @@ __device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2],
     wgmma_rs_n128<1>(d, a, db);
 }
 
-// The online softmax of one tile of scores sc (element e: the thread's row
+// The online softmax of SK keys' scores sc (element e: the thread's row
 // (e >> 1) & 1, key col0 + 8*(e >> 2) + (e & 1)) in log2 units: keys at or
 // past lim[i] masked for row i, running max m and sum l updated, the
 // factor alpha that rescales what O held, and P = 2^(s - m) left in sc.
-__device__ __forceinline__ void online_softmax(float (&sc)[F_KEYS / 2],
+template <int SK>
+__device__ __forceinline__ void online_softmax(float (&sc)[SK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2],
                                                float scale_log2,
                                                const int (&lim)[2], int col0) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int e = 0; e < F_KEYS / 2; ++e) {
+  for (int e = 0; e < SK / 2; ++e) {
     const int i = (e >> 1) & 1, col = col0 + 8 * (e >> 2) + (e & 1);
     const float x = col < lim[i] ? sc[e] * scale_log2 : NEG_INF;
     sc[e] = x;
@@ -584,7 +459,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[F_KEYS / 2],
     m[i] = m_new;
   }
 #pragma unroll
-  for (int e = 0; e < F_KEYS / 2; ++e) {
+  for (int e = 0; e < SK / 2; ++e) {
     sc[e] = exp2_approx(sc[e] - m[(e >> 1) & 1]);
     sum[(e >> 1) & 1] += sc[e];
   }
@@ -592,15 +467,25 @@ __device__ __forceinline__ void online_softmax(float (&sc)[F_KEYS / 2],
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
 }
 
+// S = Q.K^T over SK keys (both operands K-major)
+template <int SK>
+__device__ __forceinline__ void wgmma_scores(float (&d)[SK / 2], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (SK == 32)
+    wgmma_ss_n32<0, 0>(d, da, db, scale_d);
+  else
+    wgmma_ss_n64<0, 0>(d, da, db, scale_d);
+}
+
 template <int D>
-__global__ void __launch_bounds__(F_THREADS, 1)
+__global__ void __launch_bounds__(F_THREADS, D == 64 ? 2 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        bf16* __restrict__ o, float* __restrict__ lse, int t,
-                       float scale_log2, int causal, int kv_len) {
+                       int nh, float scale_log2, int causal, int kv_len) {
   using S = FwdSmem<D>;
-  constexpr int BOXES = D / 64;
+  constexpr int BOXES = D / 64, SK = D == 64 ? 32 : 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
@@ -609,7 +494,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* k_empty = v_full + F_STAGES;
   uint64_t* v_empty = k_empty + F_STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y, b = bh / nh, hcol = (bh % nh) * D;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int n_kv = (t + F_KEYS - 1) / F_KEYS;
   // the JAX kernel's `hi`: key tiles past the diagonal are fully masked
@@ -631,22 +516,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= F_CONSUMERS) {                 // the producer warp
     if (threadIdx.x == F_CONSUMERS) {
       mbar_expect_tx(q_full, S::QT);
-      for (int b = 0; b < BOXES; ++b)
-        tma_load_3d(smem + S::Q + b * F_QBOX, &tq, q_full, b * 64,
-                    qt * F_TILE, bh);
+      for (int x = 0; x < BOXES; ++x)
+        tma_load_3d(smem + S::Q + x * F_QBOX, &tq, q_full, hcol + x * 64,
+                    qt * F_TILE, b);
       for (int j = 0; j < hi; ++j) {
         const int s = j % F_STAGES;
         const int parity = (j / F_STAGES - 1) & 1;
         if (j >= F_STAGES) mbar_wait(&k_empty[s], parity);
         mbar_expect_tx(&k_full[s], S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::K + s * S::KV + b * F_KBOX, &tk, &k_full[s],
-                      b * 64, j * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::K + s * S::KV + x * F_KBOX, &tk, &k_full[s],
+                      hcol + x * 64, j * F_KEYS, b);
         if (j >= F_STAGES) mbar_wait(&v_empty[s], parity);
         mbar_expect_tx(&v_full[s], S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::V + s * S::KV + b * F_KBOX, &tv, &v_full[s],
-                      b * 64, j * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::V + s * S::KV + x * F_KBOX, &tv, &v_full[s],
+                      hcol + x * 64, j * F_KEYS, b);
       }
     }
     return;
@@ -677,40 +562,50 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     mbar_wait(&k_full[s], parity);
     const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV);
-    float sc[F_KEYS / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
-      const int col = (kk % 4) * 32;
-      wgmma_ss_n64<0, 0>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
-                         desc_k(k_addr + (kk / 4) * F_KBOX + col), kk);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    mbar_arrive(&k_empty[s]);
-
-    online_softmax(sc, m, l, alpha, scale_log2, lim, j * F_KEYS + 2 * tq4);
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
-    // P as the bf16 A operand of 4 k16 steps: step kk takes keys
-    // 16kk..16kk+15, accumulator blocks 2kk and 2kk+1
-    uint32_t pa[F_KEYS / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < F_KEYS / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-
-    mbar_wait(&v_full[s], parity);
     const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV);
-    wgmma_fence();
+    // the key tile in steps of SK keys (at D = 64 two halves: their scores
+    // take 16 registers, not 32, and O with them fits the 96 registers a
+    // thread that two blocks an SM leave)
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 16; ++kk)
-      wgmma_rs_d<D>(acc, pa[kk], desc_mn(v_addr + kk * 2048, F_KBOX));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
+    for (int h = 0; h < F_KEYS / SK; ++h) {
+      float sc[SK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {    // scale_d 0 at kk = 0
+        const int col = (kk % 4) * 32;
+        wgmma_scores<SK>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(k_addr + h * SK * 128 + (kk / 4) * F_KBOX +
+                                col),
+                         kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (h == F_KEYS / SK - 1) mbar_arrive(&k_empty[s]);
+
+      online_softmax<SK>(sc, m, l, alpha, scale_log2, lim,
+                         j * F_KEYS + h * SK + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+      // P as the bf16 A operand of SK / 16 k16 steps: step kk takes keys
+      // 16kk..16kk+15 of the step, accumulator blocks 2kk and 2kk+1
+      uint32_t pa[SK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      if (h == 0) mbar_wait(&v_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk)
+        wgmma_rs_d<D>(acc, pa[kk],
+                      desc_mn(v_addr + (h * SK / 16 + kk) * 2048, F_KBOX));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
     mbar_arrive(&v_empty[s]);
   }
 
@@ -724,7 +619,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= t) continue;
-    bf16* orow = o + ((size_t)bh * t + row) * D + 2 * tq4;
+    bf16* orow = o + ((size_t)b * t + row) * nh * D + hcol + 2 * tq4;
 #pragma unroll
     for (int jb = 0; jb < D / 8; ++jb)
       *reinterpret_cast<uint32_t*>(orow + 8 * jb) =
@@ -735,30 +630,36 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// [BH, T, D] bf16 as a 3-D tensor map (D innermost), boxes [1][rows][64]
-template <int D>
-cudaError_t bh_map(CUtensorMap* map, const void* x, int bh, int t, int rows) {
-  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)t, (uint64_t)bh};
-  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)t * D * 2};
+// [B, T, nh*D] bf16 as a 3-D tensor map (channels innermost), boxes
+// [1][rows][64]: head h's box x starts at column h*D + 64x. The bh layout
+// [BH, T, D] is the case nh = 1.
+cudaError_t head_map(CUtensorMap* map, const void* x, int b, int t, int nh,
+                     int d, int rows) {
+  const uint64_t width = (uint64_t)nh * d;
+  const uint64_t dims[3] = {width, (uint64_t)t, (uint64_t)b};
+  const uint64_t strides[2] = {width * 2, (uint64_t)t * width * 2};
   const uint32_t box[3] = {64, (uint32_t)rows, 1};
   return make_tensor_map(map, x, 3, dims, strides, box);
 }
 
+// K1 (nh = 1, b = BH) and K4 (the packed layout, nh heads)
 template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int bh, int t, float scale,
-                             int causal, int kv_len, cudaStream_t stream) {
+                             void* o, void* lse, int b, int nh, int t,
+                             float scale, int causal, int kv_len,
+                             cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_TILE);
-  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_KEYS);
-  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_KEYS);
+  cudaError_t err = head_map(&tq, q, b, t, nh, D, F_TILE);
+  if (err == cudaSuccess) err = head_map(&tk, k, b, t, nh, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tv, v, b, t, nh, D, F_KEYS);
   if (err != cudaSuccess) return err;
   const size_t smem = FwdSmem<D>::BYTES;
   err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
+  const dim3 grid((t + F_TILE - 1) / F_TILE, b * nh);
   flash_fwd_wgmma_kernel<D><<<grid, F_THREADS, smem, stream>>>(
-      tq, tk, tv, (bf16*)o, (float*)lse, t, scale * LOG2E, causal, kv_len);
+      tq, tk, tv, (bf16*)o, (float*)lse, t, nh, scale * LOG2E, causal,
+      kv_len);
   return cudaGetLastError();
 }
 
@@ -1211,10 +1112,10 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             float scale, int causal, int kv_len,
                             cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_TILE);
-  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_KEYS);
-  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_KEYS);
-  if (err == cudaSuccess) err = bh_map<D>(&tdo, dout, bh, t, F_TILE);
+  cudaError_t err = head_map(&tq, q, bh, t, 1, D, F_TILE);
+  if (err == cudaSuccess) err = head_map(&tk, k, bh, t, 1, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tv, v, bh, t, 1, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, t, 1, D, F_TILE);
   if (err != cudaSuccess) return err;
   const size_t smem = DqSmem<D>::BYTES;
   err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem);
@@ -1233,10 +1134,10 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              int t, float scale, int causal, int kv_len,
                              cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = bh_map<D>(&tq, q, bh, t, F_KEYS);
-  if (err == cudaSuccess) err = bh_map<D>(&tk, k, bh, t, F_TILE);
-  if (err == cudaSuccess) err = bh_map<D>(&tv, v, bh, t, F_TILE);
-  if (err == cudaSuccess) err = bh_map<D>(&tdo, dout, bh, t, F_KEYS);
+  cudaError_t err = head_map(&tq, q, bh, t, 1, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tk, k, bh, t, 1, D, F_TILE);
+  if (err == cudaSuccess) err = head_map(&tv, v, bh, t, 1, D, F_TILE);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, t, 1, D, F_KEYS);
   if (err != cudaSuccess) return err;
   const size_t smem = DkvSmem<D>::BYTES;
   err = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, smem);
@@ -1245,21 +1146,6 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   flash_bwd_dkv_wgmma_kernel<D><<<grid, K3_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, t, scale, causal, kv_len);
-  return cudaGetLastError();
-}
-
-// grid: one block per (64-row tile, head); blockIdx.y = b*nh + h
-template <int D, bool PACKED>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int b, int nh, int t, float scale,
-                       int causal, int kv_len, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, PACKED>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(t / BQ, b * nh);
-  flash_fwd_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, t,
-      nh, scale, causal, kv_len);
   return cudaGetLastError();
 }
 
@@ -1302,19 +1188,14 @@ bool bad_shape(int b, int nh, int t) {
          (long long)b * nh > 65535;
 }
 
-template <bool PACKED>
+// K1 and K4: the wgmma forward on either layout
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int b, int nh, int t, int d, float scale, int causal, int kv_len,
         void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (!PACKED) {     // K1: the wgmma forward
-    if (d == 64) return (int)launch_fwd_wgmma<64>(q, k, v, o, lse, b, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_fwd_wgmma<128>(q, k, v, o, lse, b, t, scale, causal, kv_len, s);
-  } else {                     // K4
-    if (d == 64) return (int)launch_fwd<64, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_fwd<128, PACKED>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
-  }
+  if (d == 64) return (int)launch_fwd_wgmma<64>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_fwd_wgmma<128>(q, k, v, o, lse, b, nh, t, scale, causal, kv_len, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1364,8 +1245,7 @@ extern "C" {
 int ko_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int t, int d, float scale, int causal,
                  int kv_len, void* stream) {
-  return fwd<false>(q, k, v, o, lse, bh, 1, t, d, scale, causal, kv_len,
-                    stream);
+  return fwd(q, k, v, o, lse, bh, 1, t, d, scale, causal, kv_len, stream);
 }
 
 int ko_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1387,8 +1267,7 @@ int ko_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int ko_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
                         void* lse, int b, int t, int h, int d, float scale,
                         int causal, int kv_len, void* stream) {
-  return fwd<true>(q, k, v, o, lse, b, h, t, d, scale, causal, kv_len,
-                   stream);
+  return fwd(q, k, v, o, lse, b, h, t, d, scale, causal, kv_len, stream);
 }
 
 int ko_flash_bwd_dq_packed(const void* q, const void* k, const void* v,

@@ -45,7 +45,7 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_" in low and "kernel" in low:
         return "flash (port)"
-    if any(k in low for k in ("gemm_dx_kernel", "gemm_dw_kernel",
+    if any(k in low for k in ("k8_dx_wgmma_kernel", "k8_dw_wgmma_kernel",
                               "k7_wgmma_kernel", "colsum_kernel",
                               "reduce_chunks_kernel")):
         return "conv backward K7/K8 (port)"

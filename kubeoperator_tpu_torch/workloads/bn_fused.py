@@ -14,7 +14,7 @@ from the saved x, w, y, γ, β, μ, inv = rsqrt(var + ε):
 Each phase has its wrapper: for CUDA tensors ``bn_bwd_stats``,
 ``bn_bwd_dx`` and ``bn_bwd_dw`` launch ``ko_bn_bwd_stats``,
 ``ko_bn_bwd_dx`` and ``ko_bn_bwd_dw`` in stream order (phase 1 forms dy
-inside the products' tile loads; ``csrc/conv_bwd.cu``) or raise; for CPU
+on chip from the g and y it loads; ``csrc/conv_bwd.cu``) or raise; for CPU
 tensors each runs its plain version. The relu gate is the TPU kernel's:
 (γ·x̂ + β) rounded to the model dtype and compared in f32, which rounds
 differently from the forward's (y − μ)·(γ·inv) + β; both the kernel and
@@ -32,7 +32,7 @@ from torch import nn
 
 from kubeoperator_tpu_torch import kernels
 from kubeoperator_tpu_torch.workloads.conv_vjp import (
-    _lecun_normal_, check_channels, check_cuda, conv2d_nhwc, dw_chunks,
+    _lecun_normal_, check_channels, check_cuda, conv2d_nhwc, k8_dw_chunks,
     stream_of,
 )
 
@@ -180,7 +180,7 @@ def bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool):
               (sums, (2, co), torch.float32))
     check_channels("bn_bwd_dw", ci, co)
     dw = torch.empty((ci, co), dtype=torch.float32, device=x2.device)
-    rows, chunks = dw_chunks(n, ci, co)
+    rows, chunks = k8_dw_chunks(n, ci, co)
     ws = torch.empty((chunks, ci, co), dtype=torch.float32, device=x2.device)
     lib = kernels.load("conv_bwd")
     kernels.check(lib.ko_bn_bwd_dw(

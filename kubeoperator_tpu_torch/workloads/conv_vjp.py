@@ -23,7 +23,7 @@ masters are cast before the conv), as ``bwd`` does with
 K7's wrapper runs its plain version (two products with f32 accumulation)
 for CPU tensors, and for CUDA tensors launches the kernels of
 ``csrc/conv_bwd.cu`` or raises. ``LAUNCHES`` counts each kernel's launches.
-K7 splits dW's rows by ``k7_dw_chunks``; ``dw_chunks`` is K8's split
+K7 splits dW's rows by ``k7_dw_chunks``; ``k8_dw_chunks`` is K8's split
 (``bn_fused``).
 """
 
@@ -41,14 +41,14 @@ from kubeoperator_tpu_torch.workloads.transformer import _lecun_normal_
 
 LAUNCHES = {"conv1x1_bwd_dx": 0, "conv1x1_bwd_dw": 0}
 
-GEMM_TILE = 64          # K8's 64 x 64 output tile (TM = TN); K7 and K8
-                        # take channels in multiples of it
-ROW_STEP = 32           # K8's k-step over rows (TK): a chunk's multiple
-TARGET_BLOCKS = 4 * 132  # K8's dW blocks to aim for: 4 on each of 132 SMs
+CHANNEL_STEP = 64       # K7 and K8 take channels in multiples of one
+                        # 64-wide TMA box (CH in conv_bwd.cu)
 K7_TILE = 128           # K7's wgmma output tile (K7_TILE in conv_bwd.cu)
-K7_ROW_STEP = 64        # its k-step over rows (K7_STEP): a chunk's multiple
-K7_MIN_ROWS = 256       # N / this bounds K7's dW chunks
-SMS = 132               # an H100 SXM's SMs: K7's dW aims at one wave
+K7_ROW_STEP = 64        # the k-step over rows of K7's and K8's dW (K7_STEP):
+                        # a chunk's multiple
+K7_MIN_ROWS = 256       # N / this bounds K7's and K8's dW chunks
+SMS = 132               # an H100 SXM's SMs: K7's and K8's dW aim at one
+                        # wave
 
 
 def reset_launches() -> None:
@@ -134,29 +134,37 @@ def conv1x1_bwd_plain(x2: torch.Tensor, g2: torch.Tensor, w: torch.Tensor):
     return conv1x1_bwd_dx_plain(g2, w), conv1x1_bwd_dw_plain(x2, g2)
 
 
-def dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of a dW product's split over N: about
-    ``TARGET_BLOCKS`` blocks over the 64 × 64 tiles, chunks of whole
-    32-row steps and at least 256 rows. Depends on the shape only, so the
-    fixed-order reduction gives the same bits every run."""
-    tiles = (ci // GEMM_TILE) * (co // GEMM_TILE)
-    want = max(1, min(-(-TARGET_BLOCKS // tiles), -(-n // 256)))
-    rows = -(-n // want)
-    rows = -(-rows // ROW_STEP) * ROW_STEP
-    return rows, -(-n // rows)
-
-
-def k7_dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of K7's dW split over N: as many chunks as
-    fill one wave of ``SMS`` blocks over the 128 × 128 tiles (never more
-    blocks than that) and as N has ``K7_MIN_ROWS``-row pieces, of whole
-    64-row k-steps. Depends on the shape only, so the fixed-order
-    reduction gives the same bits every run."""
-    tiles = -(-ci // K7_TILE) * -(-co // K7_TILE)
+def _row_chunks(n: int, tiles: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of a dW split over N with ``tiles`` output
+    tiles a chunk: as many chunks as fill one wave of ``SMS`` blocks
+    (never more blocks than that) and as N has ``K7_MIN_ROWS``-row pieces,
+    of whole ``K7_ROW_STEP``-row k-steps. Depends on the shape only, so
+    the fixed-order reduction gives the same bits every run."""
     want = max(1, min(SMS // tiles, -(-n // K7_MIN_ROWS)))
     rows = -(-n // want)
     rows = -(-rows // K7_ROW_STEP) * K7_ROW_STEP
     return rows, -(-n // rows)
+
+
+def k7_dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
+    """K7's dW split over N (``_row_chunks``) on its 128 × 128 tiles."""
+    return _row_chunks(n, -(-ci // K7_TILE) * -(-co // K7_TILE))
+
+
+def k8_dw_tile(ci: int, co: int) -> tuple[int, int]:
+    """K8's dW block tile (ci, co), as ``k8_dw`` in conv_bwd.cu picks it:
+    128 ci by 128 or 64 co where ci is a multiple of 128, else 64 ci by
+    256 co where co is a multiple of 256, else 64 by 64."""
+    if ci % 128 == 0:
+        return 128, 128 if co % 128 == 0 else 64
+    return 64, 256 if co % 256 == 0 else 64
+
+
+def k8_dw_chunks(n: int, ci: int, co: int) -> tuple[int, int]:
+    """K8's dW split over N (``_row_chunks``) on its ``k8_dw_tile``
+    tiles."""
+    tm, tn = k8_dw_tile(ci, co)
+    return _row_chunks(n, (ci // tm) * (co // tn))
 
 
 def stream_of(x: torch.Tensor) -> int:
@@ -182,9 +190,9 @@ def check_cuda(name: str, *specs) -> None:
 
 def check_channels(name: str, *channels: int) -> None:
     for c in channels:
-        if c <= 0 or c % GEMM_TILE:
+        if c <= 0 or c % CHANNEL_STEP:
             raise ValueError(f"{name}: {c} channels; the kernels take "
-                             f"multiples of {GEMM_TILE}")
+                             f"multiples of {CHANNEL_STEP}")
 
 
 def conv1x1_bwd_dx(g2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -68,14 +68,9 @@ def test_conv1x1_bwd_matches_plain(n, ci, co):
     assert torch.equal(dw, again), "dW is not the same bits run to run"
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,ci,co,relu", [(128, 64, 128, True),
-                                          (512, 128, 64, False),
-                                          (1000, 64, 256, True),
-                                          (4100, 192, 128, False)])
-def test_conv_bn_relu_bwd_matches_plain(n, ci, co, relu):
-    need_card()
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def bn_inputs(gen, n, ci, co):
+    """x, g, y, w and the [co] f32 vectors (γ, β, μ, inv) of a fused unit
+    with batch statistics."""
     x, g, w = randn(gen, n, ci), randn(gen, n, co), randn(gen, ci, co,
                                                             scale=0.1)
     y = (x.float() @ w.float()).to(torch.bfloat16)
@@ -84,12 +79,55 @@ def test_conv_bn_relu_bwd_matches_plain(n, ci, co, relu):
     inv = torch.rsqrt((yf * yf).mean(0) - mu * mu + 1e-5)
     gamma = torch.linspace(0.5, 1.5, co, device="cuda")
     beta = torch.linspace(-0.3, 0.3, co, device="cuda")
-    got = tbn.conv_bn_relu_bwd(x, g, y, w, gamma, beta, mu, inv, relu)
-    want = tbn.conv_bn_relu_bwd_plain(x, g, y, w, gamma, beta, mu, inv, relu)
+    return x, g, y, w, (gamma, beta, mu, inv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co,relu", [(128, 64, 128, True),
+                                          (512, 128, 64, False),
+                                          (1000, 64, 256, True),
+                                          (4100, 192, 128, False)])
+def test_conv_bn_relu_bwd_matches_plain(n, ci, co, relu):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, g, y, w, vecs = bn_inputs(gen, n, ci, co)
+    got = tbn.conv_bn_relu_bwd(x, g, y, w, *vecs, relu)
+    want = tbn.conv_bn_relu_bwd_plain(x, g, y, w, *vecs, relu)
     torch.cuda.synchronize()
     close(got[0], want[0], DX_TOL, "dx")
     for what, a, b in zip(("dw", "dgamma", "dbeta"), got[1:], want[1:]):
         close(a, b, F32_TOL, what)
+
+
+# K8's wgmma products tile dx by 128 rows (x 64 or 128 ci) and dW by its
+# k8_dw_tile, over 64-row k-steps: N off the row tile, off the k-step and
+# off the chunks (1000, 777, 4100, 6300) at every (ci, co) pair of its
+# ResNet-50 sites, with relu and without. Phase 1 is held against its
+# plain version on the same sums, as chip_smoke.py holds it: with sums of
+# another order a few dy flip a bf16 step, which at these sizes moves dW
+# by more than F32_TOL's atol. Phase 0 is held on its own.
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co,relu", [
+    (1000, 64, 64, True), (777, 64, 64, False), (1000, 256, 64, True),
+    (6300, 256, 64, False), (777, 64, 256, False), (6300, 64, 256, True),
+    (4100, 256, 128, True), (1000, 256, 128, False), (777, 128, 512, False),
+    (4100, 128, 512, True)])
+def test_k8_phases_match_plain_at_the_site_channels(n, ci, co, relu):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, g, y, w, vecs = bn_inputs(gen, n, ci, co)
+    sums_p = tbn.bn_bwd_stats_plain(g, y, *vecs, relu)
+    sums = tbn.bn_bwd_stats(g, y, *vecs, relu)
+    dx = tbn.bn_bwd_dx(g, y, w, *vecs, sums_p, relu)
+    dw = tbn.bn_bwd_dw(x, g, y, *vecs, sums_p, relu)
+    again = tbn.bn_bwd_dw(x, g, y, *vecs, sums_p, relu)
+    torch.cuda.synchronize()
+    close(sums.t(), sums_p.t(), F32_TOL, "sums")
+    close(dx, tbn.bn_bwd_dx_plain(g, y, w, *vecs, sums_p, relu), DX_TOL,
+          "dx")
+    close(dw, tbn.bn_bwd_dw_plain(x, g, y, *vecs, sums_p, relu), F32_TOL,
+          "dw")
+    assert torch.equal(dw, again), "dW is not the same bits run to run"
 
 
 @pytest.mark.gpu

@@ -123,6 +123,6 @@ def test_k7_wrapper_refuses_what_it_does_not_take():
         tcv.check_cuda("k7", (torch.zeros(2, 2), (2, 2), torch.float32))
     with pytest.raises(ValueError, match="multiples of 64"):
         tcv.check_channels("k7", 64, 48)
-    assert tcv.dw_chunks(401408, 64, 256) == (3072, 131)
-    rows, chunks = tcv.dw_chunks(1000, 64, 128)
-    assert rows % 32 == 0 and rows * (chunks - 1) < 1000 <= rows * chunks
+    assert tcv.k8_dw_chunks(401408, 64, 256) == (3072, 131)
+    rows, chunks = tcv.k8_dw_chunks(1000, 64, 128)
+    assert rows % 64 == 0 and rows * (chunks - 1) < 1000 <= rows * chunks

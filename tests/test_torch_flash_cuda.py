@@ -1,5 +1,7 @@
 """Each CUDA flash-attention kernel (K1-K3 on [BH, T, D], K4-K6 on the
-packed [B, T, H·D]) against its plain PyTorch version, on the card. Imports no JAX, so it runs where the kernels build:
+packed [B, T, H·D]) against its plain PyTorch version, on the card, and
+K8's dW (same bits twice, beside the flash backward's). Imports no JAX, so
+it runs where the kernels build:
 
     python -m pytest --noconftest -m gpu tests/test_torch_flash_cuda.py
 
@@ -143,3 +145,83 @@ def test_cuda_packed_kernels_match_plain(b, h, t, d, causal, kv_len):
         assert float((got - want).norm() / want.norm()) <= 1e-2
     torch.testing.assert_close(lse[..., :kv_len], lse_p[..., :kv_len],
                                atol=1e-4, rtol=1e-5)
+
+
+# K4 runs K1's wgmma forward through a tensor map over [B, T, H·D]: T of
+# one and two 64-key tiles under a 128-row query tile, kv_len inside the
+# last key tile, D 64 and 128, one head and twelve. Every row below T,
+# padded ones included, gets O and a finite lse (K5 and K6 read lse there).
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,causal,kv_len", [
+    (3, 1, 64, 64, False, 50), (3, 12, 64, 128, True, 64),
+    (2, 12, 128, 64, False, 100), (2, 1, 128, 128, True, 128),
+    (2, 12, 128, 128, False, 70), (4, 12, 256, 64, False, 196)])
+def test_cuda_packed_fwd_tile_edges_match_plain(b, h, t, d, causal, kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(b, t, h * d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    args = (h, d ** -0.5, causal, kv_len)
+    o, lse = tfa.flash_fwd_packed(q, k, v, *args)
+    o_p, lse_p = tfa.flash_fwd_packed_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(lse).all())
+    got, want = o.float(), o_p.float()
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= 1e-2
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_cuda_packed_fwd_is_the_bh_forward(d, causal):
+    """K4 and K1 are one kernel: the packed output equals the bh output on
+    the transposed input bit for bit, and a second run gives the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    b, h, t, kv_len = 3, 4, 256, 200
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(b, t, h * d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    args = (d ** -0.5, causal, kv_len)
+    o, lse = tfa.flash_fwd_packed(q, k, v, h, *args)
+    o2, lse2 = tfa.flash_fwd_packed(q, k, v, h, *args)
+
+    def bh(x):
+        return (x.view(b, t, h, d).transpose(1, 2).reshape(b * h, t, d)
+                .contiguous())
+
+    o_bh, lse_bh = tfa.flash_fwd(bh(q), bh(k), bh(v), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(bh(o), o_bh)
+    assert torch.equal(lse.reshape(b * h, t), lse_bh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co,relu", [(401408, 64, 256, False),
+                                          (100352, 128, 512, False),
+                                          (6300, 256, 64, True)])
+def test_cuda_k8_dw_same_bits_twice(n, ci, co, relu):
+    """K8's dW is row-chunk partials added in a fixed order (no float
+    atomics): two runs give the same bits, at a path site and off it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from kubeoperator_tpu_torch.workloads import bn_fused as tbn
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, g = (torch.randn(n, c, device="cuda", generator=gen)
+            .to(torch.bfloat16) for c in (ci, co))
+    y = (torch.randn(n, co, device="cuda", generator=gen) * 2 + 0.5
+         ).to(torch.bfloat16)
+    yf = y.float()
+    mu = yf.mean(0)
+    inv = torch.rsqrt((yf * yf).mean(0) - mu * mu + 1e-5)
+    vecs = (torch.linspace(0.5, 1.5, co, device="cuda"),
+            torch.linspace(-0.3, 0.3, co, device="cuda"), mu, inv)
+    sums = tbn.bn_bwd_stats(g, y, *vecs, relu)
+    first = tbn.bn_bwd_dw(x, g, y, *vecs, sums, relu)
+    second = tbn.bn_bwd_dw(x, g, y, *vecs, sums, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

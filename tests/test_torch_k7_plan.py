@@ -2,7 +2,8 @@
 row in exactly one chunk, chunk boundaries on the wgmma kernel's 64-row
 k-step, at most one wave of blocks on an H100's 132 SMs, and a plan that
 depends on the shape alone, so the fixed-order reduction gives the same
-bits every run. K8 keeps its own plan (``dw_chunks``), pinned here."""
+bits every run. K8's dW has its own tile and plan (``k8_dw_tile``,
+``k8_dw_chunks``), held to the same rules here."""
 
 import pytest
 
@@ -53,12 +54,41 @@ def test_k7_plan_is_a_function_of_the_shape(n, ci, co):
         assert tiles * chunks >= 0.96 * tcv.SMS
 
 
-@pytest.mark.parametrize("n,ci,co,plan", [
-    (401408, 64, 256, (3072, 131)), (100352, 128, 512, (3072, 33)),
-    (100352, 64, 256, (768, 131)), (25088, 128, 512, (768, 33)),
-    (1000, 64, 256, (256, 4)), (4100, 192, 128, (256, 17))])
-def test_k8_keeps_its_own_plan(n, ci, co, plan):
-    """K8's mma.sync products still split rows by ``dw_chunks`` on their
-    64 × 64 tile and 32-row step; K7's plan did not change it."""
-    assert tcv.dw_chunks(n, ci, co) == plan
-    assert (tcv.GEMM_TILE, tcv.ROW_STEP) == (64, 32)
+# K8's sites in a ResNet-50 step at batch 128, 224² (chip_smoke.K8_SITES)
+# and the shapes the mma.sync plan was pinned at
+K8_SHAPES = [(401408, 64, 64), (401408, 256, 64), (401408, 64, 256),
+             (401408, 256, 128), (100352, 128, 512),
+             (100352, 64, 256), (25088, 128, 512), (1000, 64, 256),
+             (4100, 192, 128)]
+
+
+@pytest.mark.parametrize("n,ci,co", K8_SHAPES)
+def test_k8_keeps_its_own_plan(n, ci, co):
+    """K8's wgmma dW splits rows by ``k8_dw_chunks`` on its own block tile
+    (``k8_dw_tile``, as conv_bwd.cu's ``k8_dw`` picks it) and K7's 64-row
+    k-step: every row in exactly one chunk, boundaries on the k-step, a
+    plan that depends on the shape alone, and at most one wave of blocks."""
+    plan = tcv.k8_dw_chunks(n, ci, co)
+    assert all(tcv.k8_dw_chunks(n, ci, co) == plan for _ in range(3))
+    rows, chunks = plan
+    assert rows % tcv.K7_ROW_STEP == 0
+    ranges = chunk_ranges(n, rows, chunks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    assert all(b > a for a, b in ranges)
+    tm, tn = tcv.k8_dw_tile(ci, co)
+    assert ci % tm == 0 and co % tn == 0
+    tiles = (ci // tm) * (co // tn)
+    assert tiles * chunks <= max(tcv.SMS, tiles)
+    assert chunks <= -(-n // tcv.K7_MIN_ROWS)
+    if n == 401408:                    # the path fills >= 96% of the wave
+        assert tiles * chunks >= 0.96 * tcv.SMS
+
+
+@pytest.mark.parametrize("ci,co,tile", [
+    (64, 64, (64, 64)), (256, 64, (128, 64)), (64, 256, (64, 256)),
+    (256, 128, (128, 128)), (128, 512, (128, 128)), (192, 128, (64, 64))])
+def test_k8_dw_tile_is_the_kernels(ci, co, tile):
+    """No block tile is half zeros: 64-channel sides take 64-wide tiles,
+    and 64 -> 256 reads x and forms dy once (one 64 x 256 tile)."""
+    assert tcv.k8_dw_tile(ci, co) == tile

@@ -47,6 +47,13 @@ def test_ptxas_report_reads_each_kernel():
      "flash_fwd_wgmma_kernel<64>"),
     ("_ZN12_GLOBAL__N_115k7_wgmma_kernelILb1EEEv14CUtensorMap_stS1_S1_Pviiiii",
      "k7_wgmma_kernel<1>"),
+    # K4 (and K1) with the head count, K8's two products
+    ("_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_"
+     "S1_P13__nv_bfloat16Pfiifii", "flash_fwd_wgmma_kernel<64>"),
+    ("_ZN12_GLOBAL__N_118k8_dx_wgmma_kernelILi128ELb1EEEv14CUtensorMap_stS1_"
+     "S1_S1_NS_2BnEiii", "k8_dx_wgmma_kernel<128,1>"),
+    ("_ZN12_GLOBAL__N_118k8_dw_wgmma_kernelILi1ELi2ELi128ELb0EEEv14CUtensorM"
+     "ap_stS1_S1_PfNS_2BnEiiiii", "k8_dw_wgmma_kernel<1,2,128,0>"),
     ("_Z6kernelPf", "_Z6kernelPf")])
 def test_kernel_name(mangled, name):
     assert kernels.kernel_name(mangled) == name
@@ -55,3 +62,12 @@ def test_kernel_name(mangled, name):
 def test_ptxas_report_of_a_cached_build_is_empty():
     # a library found already built keeps no ptxas output
     assert kernels.ptxas_report("") == {}
+
+
+@pytest.mark.parametrize("name", [
+    "k8_dx_wgmma_kernel<128,1>", "k8_dw_wgmma_kernel<2,1,64,0>",
+    "k7_wgmma_kernel<1>", "colsum_kernel<1>", "reduce_chunks_kernel"])
+def test_profile_counts_the_conv_backward_kernels(name):
+    # profile_lm's device-time classes see K7 and K8 by kernel name
+    from kubeoperator_tpu_torch.profile_lm import kernel_class
+    assert kernel_class(name) == "conv backward K7/K8 (port)"

@@ -6,7 +6,10 @@ padding at odd sizes, whole-model gradients in the configuration that runs
 K7 and K8 (the reference's Pallas kernels running in interpret mode),
 three trainer steps, and the optimizer and schedule against optax."""
 
+import collections
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -364,6 +367,29 @@ def test_fused_units_sit_where_the_jax_model_puts_them():
     assert fused == [0, 1, 2, 3]
     assert model.blocks[0].fused_proj and not model.blocks[3].fused_proj
     assert model.blocks[3].project
+
+
+def test_fused_units_are_chip_smokes_k8_sites():
+    """ResNet-50 at 224² with fused_bn, built and not run: its FusedConvBN
+    units at batch 128, as (rows, ci, co, relu) with their count a step,
+    are the K8 sites that chip_smoke.py times (``K8_SITES``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    model = trn.ResNet(num_classes=10, depth=50, image_size=224, **SLICE)
+    batch, hw = 128, trn._after((112, 112), 2)     # s2d stem, max pool
+    sites = collections.Counter()
+    for blk in model.blocks:
+        out_hw = trn._after(hw, blk.conv2.strides[0])
+        units = ([(blk.fused1, hw), (blk.fused3, out_hw)]
+                 + ([(blk.proj_fused, hw)] if blk.fused_proj else [])
+                 if blk.fused else [])
+        for unit, (h, w) in units:
+            _, _, ci, co = unit.kernel.shape
+            sites[(batch * h * w, ci, co, unit.relu)] += 1
+        hw = out_hw
+    assert dict(sites) == {s[:4]: s[4] for s in smoke.K8_SITES}
 
 
 def test_trainer_synthetic_batch_and_seeded_init():
