@@ -15,18 +15,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    against its plain PyTorch version within ``TOL``, at the LM's path
    shape (BH=128, T=2048, D=128, bf16, causal) and at a ragged non-causal
    shape (B=2, H=4, T=196 padded to 256, D=64), the backward kernels run
-   twice and their outputs the same bits; kernel, plain and library
-   (``scaled_dot_product_attention``) times by CUDA events, the backward
-   pair with and without Δ = rowsum(dO ∘ O) beside SDPA's backward, and
-   the bound at the card's own peak and HBM rate.
+   twice and their outputs the same bits; so too the backward's Δ =
+   rowsum(dO ∘ O) kernel (``flash_delta``) within ``DELTA_TOL``; kernel,
+   plain and library (``scaled_dot_product_attention``) times by CUDA
+   events, the backward pair with and without Δ beside SDPA's backward,
+   and the bound at the card's own peak and HBM rate.
 4. train: the main path, ``LMTrainer(cfg).measure`` at the full width of
    the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048, batch 8,
    bf16, remat dots+attn, bf16 logits), launch counts reset before and
-   read after; every kernel must have launched.
-   kernels_packed: K4-K6 (the same kernels on the packed [B, T, H·D]
-   layout) the same way, at ViT-B/16's path shape (B=128, H=12, T=196
-   padded to 256, D=64, non-causal) and at a causal one (B=2, H=4, T=512,
-   D=128), both timed; the library call is
+   read after; every kernel must have launched, Δ once per dQ launch.
+   kernels_packed: K4-K6 (K1-K3's kernels on the packed [B, T, H·D]
+   layout) and Δ the same way, at ViT-B/16's path shape (B=128, H=12,
+   T=196 padded to 256, D=64, non-causal) and at a causal one (B=2, H=4,
+   T=512, D=128), both timed; the library call is
    ``scaled_dot_product_attention`` on the [B, H, T, D] transpose views
    with the key mask.
 5. jobs + generate: the ``llm`` entry point with ``--sample``, then greedy
@@ -35,7 +36,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
-   and step, K1-K3 never (the packed route was taken).
+   and step, Δ once per K5 launch, K1-K3 never (the packed route was
+   taken).
 7. vit_job: the ``vit`` entry point at its default width, 2 steps of 64
    images; it builds its encoder as the JAX job does (auto attention,
    dense at 196 patches), so it must launch no flash kernel.
@@ -96,6 +98,16 @@ from kubeoperator_tpu_torch.workloads.train import cuda_ms  # noqa: E402
 # them.
 TOL = {"atol": 1e-2, "rtol": 2e-2, "rel_norm": 1e-2}
 LSE_TOL = {"atol": 1e-4, "rtol": 1e-5, "rel_norm": 1e-2}
+# Δ (f32): each product of two bf16 values is exact in f32, so a right
+# kernel differs from its plain version only in the order of the f32 sum
+# over D = 64 or 128 terms, a few f32 steps of values up to about 40 (on
+# an H100: at most 1.9e-6, 6e-8 in norm, at the path shapes). The limits
+# are fifty and a hundred times that; a Δ 10% wrong on the late half of
+# the rows is about 7% off in norm.
+DELTA_TOL = {"atol": 1e-4, "rtol": 1e-5, "rel_norm": 1e-5}
+# the card's f32 rate outside the tensor cores (H100 SXM data sheet), for
+# Δ's operations bound
+F32_FLOPS = 67e12
 KERNELS = (
     ("flash_fwd", "kubeoperator_tpu/workloads/flash_attention.py:86"),
     ("flash_bwd_dq", "kubeoperator_tpu/workloads/flash_attention.py:158"),
@@ -123,8 +135,9 @@ CUDA_KERNELS = {
     "flash_bwd_dq": ["flash_bwd_dq_wgmma_kernel"],
     "flash_bwd_dkv": ["flash_bwd_dkv_wgmma_kernel"],
     "flash_fwd_packed": ["flash_fwd_wgmma_kernel"],
-    "flash_bwd_dq_packed": ["flash_bwd_dq_kernel"],
-    "flash_bwd_dkv_packed": ["flash_bwd_dkv_kernel"],
+    "flash_bwd_dq_packed": ["flash_bwd_dq_wgmma_kernel"],
+    "flash_bwd_dkv_packed": ["flash_bwd_dkv_wgmma_kernel"],
+    "flash_delta": ["flash_delta_kernel"],
     "conv1x1_bwd_dx": ["k7_wgmma_kernel"],
     "conv1x1_bwd_dw": ["k7_wgmma_kernel", "reduce_chunks_kernel"],
     "bn_bwd_stats": ["colsum_kernel", "reduce_chunks_kernel"],
@@ -132,10 +145,14 @@ CUDA_KERNELS = {
     "bn_bwd_dw": ["k8_dw_wgmma_kernel", "reduce_chunks_kernel"],
     "channel_sum": ["colsum_kernel", "reduce_chunks_kernel"],
 }
-# K4's and K8's redesigned kernels: the build must show no spills and no
-# ignored setmaxnreg (C7508) for them
-NO_SPILLS = ("flash_fwd_wgmma_kernel", "k8_dx_wgmma_kernel",
+# the flash kernels (K1-K6) and K8's products: the build must show no
+# spills and no ignored setmaxnreg (C7508) for them
+NO_SPILLS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+             "flash_bwd_dkv_wgmma_kernel", "k8_dx_wgmma_kernel",
              "k8_dw_wgmma_kernel")
+# Δ stands behind no TPU kernel: the JAX package leaves it to XLA
+DELTA_AT = ("none: XLA-fused in _bwd and _bwd_packed "
+            "(kubeoperator_tpu/workloads/flash_attention.py:231, :432)")
 # K7's sites in a ResNet-50 step at batch 128, 224² (n = B·H·W, ci → co,
 # launches a step): stage 1 blocks 1-3 conv1 and conv3, stage 2 block 0
 # conv1, blocks 1-5 conv1, conv3, stage 3 block 0 conv1, blocks 1-2 conv1,
@@ -210,23 +227,29 @@ def bounds(bh: int, t: int, d: int, causal: bool,
            peak_flops: float, hbm_bytes_per_s: float,
            suffix: str = "") -> dict:
     """Least time per kernel: the larger of bytes over the card's HBM rate
-    and tensor-core FLOPs over its bf16 peak, for the work these inputs
-    need at their ``t`` real rows (rows past ``t``, the tile padding, need
-    be neither read nor written). FLOPs count the real (query, key) pairs,
-    the lower triangle when causal; bytes count each real row of every
-    input once and of every output once. The packed layout moves the same
-    bytes (``bh`` = B·H heads); its kernels are named with
-    ``suffix="_packed"``."""
+    and FLOPs over the card's peak for their type, for the work these
+    inputs need at their ``t`` real rows (rows past ``t``, the tile
+    padding, need be neither read nor written). FLOPs count the real
+    (query, key) pairs, the lower triangle when causal, at the tensor
+    cores' bf16 peak; bytes count each real row of every input once and of
+    every output once. The packed layout moves the same bytes (``bh`` =
+    B·H heads); its kernels are named with ``suffix="_packed"``. Δ
+    (``flash_delta``, one name for both layouts) reads dO and O and
+    writes one f32 a row: a multiply-add per element at the f32 rate."""
     pairs = t * (t + 1) // 2 if causal else t * t
     blk, row = bh * t * d * 2, bh * t * 4       # a [BH,t,D] bf16 / [BH,t] f32
-    work = {"flash_fwd": (4 * pairs * d * bh, 4 * blk + row),
-            "flash_bwd_dq": (6 * pairs * d * bh, 5 * blk + 2 * row),
-            "flash_bwd_dkv": (8 * pairs * d * bh, 6 * blk + 2 * row)}
+    work = {"flash_fwd" + suffix: (4 * pairs * d * bh, peak_flops,
+                                   4 * blk + row),
+            "flash_bwd_dq" + suffix: (6 * pairs * d * bh, peak_flops,
+                                      5 * blk + 2 * row),
+            "flash_bwd_dkv" + suffix: (8 * pairs * d * bh, peak_flops,
+                                       6 * blk + 2 * row),
+            "flash_delta": (2 * bh * t * d, F32_FLOPS, 2 * blk + row)}
     out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops = flops / peak_flops * 1e3
+    for name, (flops, rate, nbytes) in work.items():
+        t_ops = flops / rate * 1e3
         t_bytes = nbytes / hbm_bytes_per_s * 1e3
-        out[name + suffix] = {"bound_ms": max(t_ops, t_bytes),
+        out[name] = {"bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": flops, "bytes": nbytes}
     return out
@@ -234,8 +257,8 @@ def bounds(bh: int, t: int, d: int, causal: bool,
 
 class Layout:
     """How ``kernel_phase`` drives one layout's three kernels: their names,
-    wrappers and plain versions, the [.., T, ..] inputs, Δ, and the
-    [B, H, T, D] views the library call takes."""
+    wrappers and plain versions, the [.., T, ..] inputs, Δ (kernel and
+    plain), and the [B, H, T, D] views the library call takes."""
 
     def __init__(self, fa, layout: str, b: int, h: int, d: int):
         self.b, self.h, self.d = b, h, d
@@ -257,6 +280,12 @@ class Layout:
             return fa.packed_delta(do, o, self.h)
         return fa.bh_delta(do, o)
 
+    def delta_plain(self, fa, do, o):
+        """Δ's plain version on the same layout."""
+        if self.packed:
+            return fa.packed_delta_plain(do, o, self.h)
+        return fa.bh_delta_plain(do, o)
+
     def heads4(self, x):
         """[B, H, T, D] view of a kernel input (no copy)."""
         tp = x.shape[1]
@@ -268,10 +297,10 @@ class Layout:
 def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
                  layout="bh"):
     """One layout's three kernels (K1-K3 on [B·H, T, D], or K4-K6 on the
-    packed [B, T, H·D]) against their plain versions, on inputs zero-
-    padded to the tile grid when T is ragged, keys past T masked; the
-    backward kernels twice, to the same bits. Also shows that the limits
-    reject the plain outputs made 10% wrong on the late half of the
+    packed [B, T, H·D]) and its Δ against their plain versions, on inputs
+    zero-padded to the tile grid when T is ragged, keys past T masked; the
+    backward kernels and Δ twice, to the same bits. Also shows that the
+    limits reject the plain outputs made 10% wrong on the late half of the
     rows."""
     import torch.nn.functional as F
 
@@ -298,32 +327,40 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
     dq2 = dq_k(q, k, v, do, lse, delta, *args)
     dk2, dv2 = dkv_k(q, k, v, do, lse, delta, *args)
     same_bits = {"dq": torch.equal(dq, dq2), "dk": torch.equal(dk, dk2),
-                 "dv": torch.equal(dv, dv2)}
+                 "dv": torch.equal(dv, dv2),
+                 "delta": torch.equal(delta, lay.delta(fa, do, o))}
     if not all(same_bits.values()):
         raise AssertionError(f"{label}: two runs of the backward kernels "
                              f"differ: {same_bits}")
     torch.cuda.synchronize()
     o_p, lse_p = fwd_p(q, k, v, *args)
+    delta_p = lay.delta_plain(fa, do, o)
     dq_p = dq_p_fn(q, k, v, do, lse, delta, *args)
     dk_p, dv_p = dkv_p_fn(q, k, v, do, lse, delta, *args)
     errs = {n_fwd: {"o": compare(f"{n_fwd} o", o, o_p),
                     "lse": compare(f"{n_fwd} lse", lse, lse_p, LSE_TOL)},
             n_dq: {"dq": compare(n_dq, dq, dq_p)},
             n_dkv: {"dk": compare(f"{n_dkv} dk", dk, dk_p),
-                    "dv": compare(f"{n_dkv} dv", dv, dv_p)}}
+                    "dv": compare(f"{n_dkv} dv", dv, dv_p)},
+            "flash_delta": {"delta": compare("flash_delta", delta, delta_p,
+                                             DELTA_TOL)}}
     late = torch.ones(tp, 1, device="cuda")
     late[tp // 2:] = 1.1
     wrong = {}
-    for what, want in (("o", o_p), ("dq", dq_p), ("dk", dk_p), ("dv", dv_p)):
-        err = errors(want * late, want, TOL)
+    # Δ's rows (T) are its last dim
+    for what, want, tol, late_rows in (
+            ("o", o_p, TOL, late), ("dq", dq_p, TOL, late),
+            ("dk", dk_p, TOL, late), ("dv", dv_p, TOL, late),
+            ("delta", delta_p, DELTA_TOL, late[:, 0])):
+        err = errors(want * late_rows, want, tol)
         if err["within"]:
-            raise AssertionError(f"the limits {TOL} pass a {what} that is "
+            raise AssertionError(f"the limits {tol} pass a {what} that is "
                                  f"10% wrong on the late half of the rows")
         wrong[what] = {f: err[f] for f in ("rel_norm_err", "atol_needed")}
     bnd = bounds(b * h, kv_len, d, causal, *peaks,
                  suffix="_packed" if lay.packed else "")
     result = {}
-    for name in lay.names:
+    for name in [*lay.names, "flash_delta"]:
         result[name] = {
             "max_abs_err": max(e["max_abs_err"] for e in errs[name].values()),
             "max_rel_err": max(e["max_rel_err"] for e in errs[name].values()),
@@ -377,14 +414,21 @@ def kernel_phase(fa, peaks, label, b, h, t, d, causal, timed,
         result["sdpa_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
         result["sdpa_bwd_ms"] = result["sdpa_fwd_bwd_ms"] - fwd_ms
         result["ours_bwd_ms"] = result[n_dq]["ms"] + result[n_dkv]["ms"]
-        # SDPA's backward includes its Δ pre-pass; ours runs Δ outside the
-        # kernels, so the like-for-like sum adds it
-        result["delta_ms"] = cuda_ms(lambda: lay.delta(fa, do, o))
+        # SDPA's backward includes its Δ pre-pass; ours runs Δ as its own
+        # kernel, so the like-for-like sum adds it. No one PyTorch call
+        # computes Δ in f32 from bf16 inputs.
+        rec = result["flash_delta"]
+        rec["ms"] = cuda_ms(lambda: lay.delta(fa, do, o))
+        rec["plain_ms"] = cuda_ms(lambda: lay.delta_plain(fa, do, o), n=2)
+        rec["library_ms"] = None
+        result["delta_ms"], result["delta_plain_ms"] = (rec["ms"],
+                                                        rec["plain_ms"])
         result["ours_bwd_with_delta_ms"] = (result["ours_bwd_ms"]
                                             + result["delta_ms"])
     emit({"phase": "kernels_packed" if lay.packed else "kernels",
           "shape": label, "b": b, "h": h, "t": t, "t_padded": tp, "d": d,
           "causal": causal, "tolerance": TOL, "lse_tolerance": LSE_TOL,
+          "delta_tolerance": DELTA_TOL,
           "same_bits_twice": all(same_bits.values()),
           "rejected_late_10pct_wrong": wrong, **result})
     return result
@@ -672,6 +716,10 @@ def main() -> int:
             raise AssertionError(f"train: {kname} launched "
                                  f"{train_launches[kname]} times, expected "
                                  f">= {cfg.n_layers * total_steps}")
+    if train_launches["flash_delta"] != train_launches["flash_bwd_dq"]:
+        raise AssertionError(f"train: flash_delta launched "
+                             f"{train_launches['flash_delta']} times, not "
+                             f"once per dQ launch")
 
     # -- 5. main path: the llm entry point, then greedy generate -------------
     fa.reset_launches()
@@ -763,6 +811,10 @@ def main() -> int:
             raise AssertionError(f"vit_train: {kname} launched "
                                  f"{vit_launches[kname]} times; the packed "
                                  f"route launches none of K1-K3")
+    if vit_launches["flash_delta"] != vit_launches["flash_bwd_dq_packed"]:
+        raise AssertionError(f"vit_train: flash_delta launched "
+                             f"{vit_launches['flash_delta']} times, not "
+                             f"once per K5 launch")
 
     # -- 7. the vit entry point at its default width --------------------------
     fa.reset_launches()
@@ -888,10 +940,13 @@ def main() -> int:
             raise AssertionError(f"bitcast_probe {variant}: {err}")
 
     # -- the kernels line and the device line --------------------------------
-    # each kernel with its own main path's launches and its own path shape
+    # each kernel with its own main path's launches and its own path shape;
+    # Δ with ViT's (the LM path launches it as often as K2)
     main_runs = ([(k, w, SOURCE, train_launches, path[k]) for k, w in KERNELS]
                  + [(k, w, SOURCE, vit_launches, vit_path[k])
                     for k, w in PACKED_KERNELS]
+                 + [("flash_delta", DELTA_AT, SOURCE, vit_launches,
+                     vit_path["flash_delta"])]
                  + [(k, w, CONV_SOURCE, resnet_launches, conv_path[k])
                     for k, w in CONV_KERNELS]
                  + [(K9[0], K9[1], CONV_SOURCE, probe_launches,

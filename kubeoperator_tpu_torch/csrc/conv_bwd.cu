@@ -74,8 +74,7 @@
 
 #include <cuda_runtime.h>
 
-#include "mma.cuh"   // bf16 and pack
-#include "sm90.cuh"
+#include "sm90.cuh"   // also bf16 and pack
 
 namespace {
 

@@ -1,29 +1,35 @@
-// Flash attention for Hopper (sm_90a): forward, dQ backward, dK/dV backward,
-// on two memory layouts.
+// Flash attention for Hopper (sm_90a): forward, dQ backward, dK/dV
+// backward and the backward's delta, each one kernel for two memory
+// layouts.
 //
 // Replaces six Pallas TPU kernels of the JAX package's
 // kubeoperator_tpu/workloads/flash_attention.py:
 //   flash_fwd_wgmma_kernel<D>      <- _fwd / _fwd_kernel                  (K1)
 //                                  <- _fwd_packed / _fwd_packed_kernel    (K4)
 //   flash_bwd_dq_wgmma_kernel<D>   <- _bwd / _bwd_dq_kernel               (K2)
+//                                  <- _bwd_packed / _bwd_dq_packed_kernel (K5)
 //   flash_bwd_dkv_wgmma_kernel<D>  <- _bwd / _bwd_dkv_kernel              (K3)
-//   flash_bwd_dq_kernel<D, true>   <- _bwd_packed / _bwd_dq_packed_kernel (K5)
-//   flash_bwd_dkv_kernel<D, true>  <- _bwd_packed / _bwd_dkv_packed_kernel
+//                                  <- _bwd_packed / _bwd_dkv_packed_kernel
 //                                                                         (K6)
+// and computes, in flash_delta_kernel<D>, the backward's
+// delta = rowsum(dO * O), which the JAX package leaves to XLA (_bwd and
+// _bwd_packed): no TPU kernel stands behind that one.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16, contiguous, either
 // [BH, T, D] (the "bh" layout) or [B, T, nh*D] (the "packed" layout: the
 // attention projections' [B, T, H, D] output read in place, with no
-// transpose). One block works on one head: blockIdx.y = b*nh + h, the
-// head's rows start at b*T*nh*D + h*D and are nh*D apart; the bh layout is
-// that with nh = 1. lse and delta are [B*nh, T] f32 in both (the TPU
-// kernels stored [.., 8, T] only to satisfy Mosaic's (8, 128) tiling). T is
-// a multiple of the 64-row tile (the Python wrapper pads), D is 64 or 128.
-// Keys at or past kv_len are masked to -1e30, causal masks row < col the
-// same way, and the causal loop bounds equal the JAX kernels' `hi` and
-// `lo`. The TPU packed kernels also walked several batch rows and every
-// head in one program (`_bb_packed`), a VMEM tuning with no counterpart
-// here: a block per (tile, head) already fills the 132 SMs at the ViT shape.
+// transpose). One block works on one head: blockIdx.y = b*nh + h. Every
+// kernel reads its tiles through 3-D TMA tensor maps over [B, T, nh*D]
+// (head_map; head h's boxes start at column h*D) and writes row
+// (b, row) at ((b*T + row)*nh*D + h*D); the bh layout is the case nh = 1.
+// lse and delta are [B*nh, T] f32 in both (the TPU kernels stored
+// [.., 8, T] only to satisfy Mosaic's (8, 128) tiling). T is a multiple of
+// the 64-row tile (the Python wrapper pads), D is 64 or 128. Keys at or
+// past kv_len are masked, causal masks row < col the same way, and the
+// causal loop bounds equal the JAX kernels' `hi` and `lo`. The TPU packed
+// kernels also walked several batch rows and every head in one program
+// (`_bb_packed`), a VMEM tuning with no counterpart here: a block per
+// (tile, head) already fills the 132 SMs at the ViT shape.
 //
 // What bounds them on the H100: at the LM's path shape (BH=128, T=2048,
 // D=128, causal) each kernel does 2-4 matrix products of T x T x D per head
@@ -32,83 +38,34 @@
 // ViT-B/16's shape (B=128, H=12, T=196 padded to 256, D=64, non-causal)
 // the sequence is short, and the same kernels are bound by the bytes they
 // must move (K4: 154 MB of real rows, 0.046 ms at 3.35 TB/s, against
-// 0.02 ms of tensor-core work).
+// 0.02 ms of tensor-core work). delta does no product and is bound by
+// bytes everywhere.
 //
-// What the design does about it. K1-K4 run on Hopper's warpgroup MMA
-// (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel, each described where it is defined):
-// 128-row tiles over two consumer warpgroups of 64 rows, the streamed
-// operand through a 3- or 4-stage TMA ring of 64-row tiles under
-// mbarriers, the score-type products (S = Q.K^T, dP = dO.V^T, or their
-// transposes) as wgmma from shared memory, and the probabilities (or dS)
-// kept in registers as the A operand of the next product. The forward
-// takes both layouts through one tensor map over [B, T, nh*D] (the head's
-// box at column h*D); K2 and K3 run on the bh layout. K5 and K6 stay on
-// mma.sync m16n8k16 (bf16 operands, f32 accumulation) with the
-// accumulators in registers: one block of 4 warps owns a 64-row tile and
-// each warp owns 16 rows of it, so a row's softmax statistics live in the
-// four lanes that hold it and the T x T scores never leave registers;
-// shared memory holds only the bf16 input tiles, loaded unpipelined
-// between barriers (about 70 KB a block at D=128), so several blocks
-// share an SM and hide each other's loads. As in the TPU kernels, the dQ
+// What the design does about it: Hopper's warpgroup MMA fed by TMA, each
+// kernel described where it is defined. 128-row tiles over two consumer
+// warpgroups of 64 rows; the streamed operand through a 3- or 4-stage TMA
+// ring of 64-row tiles under mbarriers; the score-type products
+// (S = Q.K^T, dP = dO.V^T, or their transposes) as wgmma from shared
+// memory; the probabilities (or dS) kept in registers as the A operand of
+// the next product. At D = 64 (ViT), where a head has only four 64-row
+// tiles and each block's barrier set-up, first loads and epilogue weigh,
+// two blocks share an SM: the forward and dQ take their score products in
+// 32-key halves to fit the registers that leaves, and a dK/dV block is one
+// consumer warpgroup of 64 keys. As in the TPU kernels, the dQ
 // kernel and the dK/dV kernel are separate, so no block reduces across
-// another (no atomics) and every output is the same bits every run. In
-// all of them the probabilities are rounded to bf16 before the P.V-type
-// products. Moving K5 and K6 onto the wgmma kernels is the same tensor map.
+// another (no atomics) and every output is the same bits every run. In all
+// of them the probabilities are rounded to bf16 before the P.V-type
+// products.
 
 #include <climits>
 
 #include <cuda_runtime.h>
 
-#include "mma.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int NWARPS = 4;     // each warp owns 16 rows of the block's tile
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
-
-// bf16 row stride (elements) of the shared tiles: rows stay 16-byte
-// aligned and the fragment loads of 8 rows hit 8 different bank groups
-template <int D> struct Ld { static constexpr int H = D + 8; };
-
-// copy a [64][D] bf16 tile from global (row stride ld elements) into
-// shared memory (row stride LD), 16 bytes per thread per step
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int ld) {
-  constexpr int LD = Ld<D>::H, VEC = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * VEC; idx += NTHREADS) {
-    const int r = idx / VEC, c = idx % VEC;
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c * 8);
-  }
-}
-
-// where a block's head starts (blockIdx.y is b*nh + h); each kernel's
-// global row stride is PACKED ? nh*D : D. The mma.sync kernels now serve
-// the packed layout alone (K5-K6; the others take the wgmma kernels
-// below), so PACKED is always true where they are launched; the bh case is
-// the one they were written for, with nh = 1 and the constant stride D.
-template <int D, bool PACKED>
-__device__ __forceinline__ size_t head_base(int t, int nh) {
-  if (!PACKED) return (size_t)blockIdx.y * t * D;
-  const int b = blockIdx.y / nh, h = blockIdx.y % nh;
-  return ((size_t)b * t * nh + h) * D;
-}
-
-// accumulator element e of an m16n8 tile sits at row g + 8*(e >> 1),
-// column 2*tq + (e & 1); its A-operand image for a k16 step is the pair of
-// n-tiles (2kk, 2kk+1)
-__device__ __forceinline__ void to_a(uint32_t* a, const float* lo,
-                                     const float* hi) {
-  a[0] = pack(lo[0], lo[1]);
-  a[1] = pack(lo[2], lo[3]);
-  a[2] = pack(hi[0], hi[1]);
-  a[3] = pack(hi[2], hi[3]);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -120,243 +77,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// K2/K5: dQ. One block per (q-tile, head); loops over K/V tiles up to the
-// diagonal. P and dS stay in registers; dQ accumulates in registers.
-// Replaces workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd)
-// and ::_bwd_dq_packed_kernel (launched by _bwd_packed).
-// ---------------------------------------------------------------------------
-template <int D, bool PACKED>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int t, int nh, float scale, int causal, int kv_len) {
-  constexpr int LD = Ld<D>::H;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + BQ * LD;
-  bf16* sK = sDO + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t base = head_base<D, PACKED>(t, nh);
-  const int ld = PACKED ? nh * D : D;         // global row stride
-  const int row0 = qt * BQ + warp * 16 + g;
-
-  load_tile<D>(sQ, q + base + (size_t)qt * BQ * ld, ld);
-  load_tile<D>(sDO, dout + base + (size_t)qt * BQ * ld, ld);
-  const float lse_r[2] = {lse[(size_t)bh * t + row0], lse[(size_t)bh * t + row0 + 8]};
-  const float delta_r[2] = {delta[(size_t)bh * t + row0],
-                            delta[(size_t)bh * t + row0 + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  const int n_kv = t / BK;
-  const int hi = causal ? min((qt + 1) * BQ + BK - 1, n_kv * BK) / BK : n_kv;
-  for (int j = 0; j < hi; ++j) {
-    __syncthreads();
-    load_tile<D>(sK, k + base + (size_t)j * BK * ld, ld);
-    load_tile<D>(sV, v + base + (size_t)j * BK * ld, ld);
-    __syncthreads();
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a<LD>(aq, sQ, warp * 16, kk * 16, g, tq);
-      load_a<LD>(ado, sDO, warp * 16, kk * 16, g, tq);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        uint32_t b0, b1;
-        load_b<LD>(b0, b1, sK, n * 8, kk * 16, g, tq);
-        mma(s[n], aq, b0, b1);                  // S = Q.K^T
-        load_b<LD>(b0, b1, sV, n * 8, kk * 16, g, tq);
-        mma(dp[n], ado, b0, b1);                // dP = dO.V^T
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1);
-        const int col = j * BK + n * 8 + 2 * tq + (e & 1);
-        float x = s[n][e] * scale;
-        if (causal && row < col) x = NEG_INF;
-        if (col >= kv_len) x = NEG_INF;
-        const float p = __expf(x - lse_r[e >> 1]);
-        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]);   // dS
-      }
-    }
-    // dQ += dS . K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t b[4];
-        load_bt2<LD>(b, sK, kk * 16, n * 8, lane);
-        mma(acc[n], da, b[0], b[1]);
-        mma(acc[n + 1], da, b[2], b[3]);
-      }
-    }
-  }
-
-  bf16* d0 = dq + base + (size_t)row0 * ld + 2 * tq;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(d0 + n * 8) = pack(acc[n][0] * scale, acc[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(d0 + 8 * ld + n * 8) =
-        pack(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3/K6: dK and dV, replacing workloads/flash_attention.py::_bwd_dkv_kernel
-// (launched by _bwd) and ::_bwd_dkv_packed_kernel (launched by _bwd_packed).
-// One block per (k-tile, head); loops over Q tiles from the
-// JAX kernel's `lo`. Works on transposed scores S^T = K.Q^T so that each
-// warp owns 16 key rows and keeps their dK/dV in registers; each Q tile is
-// taken in two 32-row halves to bound the live score registers.
-// ---------------------------------------------------------------------------
-template <int D, bool PACKED>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int t, int nh, float scale,
-                     int causal, int kv_len) {
-  constexpr int LD = Ld<D>::H, QH = 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sDO = sQ + BQ * LD;
-  float* sL = reinterpret_cast<float*>(sDO + BQ * LD);
-  float* sD = sL + BQ;
-
-  const int kt = blockIdx.x, bh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t base = head_base<D, PACKED>(t, nh);
-  const int ld = PACKED ? nh * D : D;         // global row stride
-  const int key0 = kt * BK + warp * 16 + g;   // keys of elements 0,1; +8: 2,3
-
-  load_tile<D>(sK, k + base + (size_t)kt * BK * ld, ld);
-  load_tile<D>(sV, v + base + (size_t)kt * BK * ld, ld);
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc_dk[n][0] = acc_dk[n][1] = acc_dk[n][2] = acc_dk[n][3] = 0.0f;
-    acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.0f;
-  }
-
-  const int n_q = t / BQ;
-  const int lo = causal ? (kt * BK) / BQ : 0;
-  for (int i = lo; i < n_q; ++i) {
-    __syncthreads();
-    load_tile<D>(sQ, q + base + (size_t)i * BQ * ld, ld);
-    load_tile<D>(sDO, dout + base + (size_t)i * BQ * ld, ld);
-    for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-      sL[r] = lse[(size_t)bh * t + i * BQ + r];
-      sD[r] = delta[(size_t)bh * t + i * BQ + r];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int h0 = 0; h0 < BQ; h0 += QH) {
-      float st[QH / 8][4], dpt[QH / 8][4];
-#pragma unroll
-      for (int n = 0; n < QH / 8; ++n) {
-        st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.0f;
-        dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.0f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a<LD>(ak, sK, warp * 16, kk * 16, g, tq);
-        load_a<LD>(av, sV, warp * 16, kk * 16, g, tq);
-#pragma unroll
-        for (int n = 0; n < QH / 8; ++n) {
-          uint32_t b0, b1;
-          load_b<LD>(b0, b1, sQ, h0 + n * 8, kk * 16, g, tq);
-          mma(st[n], ak, b0, b1);               // S^T = K.Q^T
-          load_b<LD>(b0, b1, sDO, h0 + n * 8, kk * 16, g, tq);
-          mma(dpt[n], av, b0, b1);              // dP^T = V.dO^T
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < QH / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1);
-          const int qi = h0 + n * 8 + 2 * tq + (e & 1);
-          float x = st[n][e] * scale;
-          if (causal && i * BQ + qi < key) x = NEG_INF;
-          if (key >= kv_len) x = NEG_INF;
-          const float p = __expf(x - sL[qi]);
-          st[n][e] = p;                                  // P^T
-          dpt[n][e] = p * (dpt[n][e] - sD[qi]);          // dS^T
-        }
-      }
-      // dV += P^T . dO ;  dK += dS^T . Q
-#pragma unroll
-      for (int kk = 0; kk < QH / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
-          uint32_t b[4];
-          load_bt2<LD>(b, sDO, h0 + kk * 16, n * 8, lane);
-          mma(acc_dv[n], pa, b[0], b[1]);
-          mma(acc_dv[n + 1], pa, b[2], b[3]);
-          load_bt2<LD>(b, sQ, h0 + kk * 16, n * 8, lane);
-          mma(acc_dk[n], da, b[0], b[1]);
-          mma(acc_dk[n + 1], da, b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  // the TPU kernel pre-scaled Q; here dK = (dS^T . Q) * scale, once
-  bf16* k0p = dk + base + (size_t)key0 * ld + 2 * tq;
-  bf16* v0p = dv + base + (size_t)key0 * ld + 2 * tq;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(k0p + n * 8) =
-        pack(acc_dk[n][0] * scale, acc_dk[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(k0p + 8 * ld + n * 8) =
-        pack(acc_dk[n][2] * scale, acc_dk[n][3] * scale);
-    *reinterpret_cast<uint32_t*>(v0p + n * 8) = pack(acc_dv[n][0], acc_dv[n][1]);
-    *reinterpret_cast<uint32_t*>(v0p + 8 * ld + n * 8) = pack(acc_dv[n][2], acc_dv[n][3]);
-  }
-}
-
-// dynamic shared-memory bytes of each kernel (must match the carve-up above)
-template <int D> constexpr size_t dq_smem() { return (size_t)4 * 64 * Ld<D>::H * 2; }
-template <int D> constexpr size_t dkv_smem() {
-  return (size_t)4 * 64 * Ld<D>::H * 2 + (size_t)2 * BQ * 4;
-}
-
+// let `kernel` use `bytes` of dynamic shared memory, and give its SMs the
+// share of the L1/shared split that `carveout` asks (a percentage of the
+// most shared memory; by default CUDA picks the split, which may be too
+// little for two blocks of ~100 KB)
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+cudaError_t allow_smem(K kernel, size_t bytes,
+                       int carveout = cudaSharedmemCarveoutDefault) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
 }
 
 // ---------------------------------------------------------------------------
@@ -467,7 +199,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[SK / 2],
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
 }
 
-// S = Q.K^T over SK keys (both operands K-major)
+// a score-type product over SK keys, both operands K-major: S = Q.K^T
+// (K1, K2) and dP = dO.V^T (K2)
 template <int SK>
 __device__ __forceinline__ void wgmma_scores(float (&d)[SK / 2], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -664,30 +397,52 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K2 on wgmma: the bh-layout dQ. Replaces the JAX package's
-// workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd). K1's
-// block shape: one block per (128-row Q tile, head), a head's tiles side
-// by side and its heavy causal tiles first; two consumer warpgroups own 64
-// rows each; one producer thread loads Q and dO once and K and V through a
-// ring of B_STAGES 64-key tiles, by TMA with full/empty mbarriers. Per key
-// tile a consumer runs S = Q.K^T and dP = dO.V^T as wgmma m64n64k16 from
-// shared memory (all four operands K-major), in two groups so that it
-// forms P = 2^(S.scale.log2(e) - lse.log2(e)) while dP is in flight;
-// releases V; forms dS = P.(dP - delta), all in registers on the
-// accumulator layout, with lse and delta for the thread's two rows read
-// once from global; rounds dS to bf16 as the register A
-// operand of dQ += dS.K (wgmma m64nDk16, K MN-major: the transpose flag);
-// and releases K. The key loop ends at the JAX kernel's `hi`; masks apply
-// only on tiles that cross the diagonal or reach past kv_len, and a
-// warpgroup skips (but still releases) a tile wholly above the diagonal for
-// its rows, or every tile when its rows all lie past T. dQ is scaled once,
-// at the end. At the LM's path shape (BH 128, T 2048, D 128, causal: 206
-// GFLOP, 0.209 ms at 989 TFLOP/s) it is bound by operations.
+// The backward kernels' shape at D = 64 (ViT's head width), where a head
+// has only four 64-row tiles (T 256) and each block's barrier set-up,
+// first loads and epilogue weigh, so two blocks share an SM to hide each
+// other's: K2 two blocks of 32-key score halves, K3 two blocks of one
+// consumer warpgroup. D = 128 (the LM) runs one block an SM of two
+// consumer warpgroups on whole 64-key score tiles. Each kernel's note
+// says what the two blocks cost it.
+// ---------------------------------------------------------------------------
+template <int D> constexpr int dq_blocks = D == 64 ? 2 : 1;
+// keys of S and dP a K2 consumer holds at once
+template <int D> constexpr int dq_cols = dq_blocks<D> == 2 ? 32 : 64;
+template <int D> constexpr int dkv_wgs = D == 64 ? 1 : 2;
+template <int D> constexpr int dkv_blocks = dkv_wgs<D> == 1 ? 2 : 1;
+
+// ---------------------------------------------------------------------------
+// K2 and K5 on wgmma: dQ on either layout. Replaces the JAX package's
+// workloads/flash_attention.py::_bwd_dq_kernel (launched by _bwd; the bh
+// layout, nh = 1) and ::_bwd_dq_packed_kernel (launched by _bwd_packed;
+// the packed layout, nh heads). K1's block shape: one block per (128-row Q
+// tile, head), a head's tiles side by side and its heavy causal tiles
+// first; two consumer warpgroups own 64 rows each; one producer thread
+// loads Q and dO once and K and V through a ring of B_STAGES 64-key tiles,
+// by TMA with full/empty mbarriers. Per key tile, in steps of SK keys
+// (dq_cols), a consumer runs S = Q.K^T and dP = dO.V^T as wgmma m64nSKk16
+// from shared memory (all four operands K-major), in two groups so that it
+// forms P = 2^(S.scale.log2(e) - lse.log2(e)) while dP is in flight; forms
+// dS = P.(dP - delta), all in registers on the accumulator layout, with lse
+// and delta for the thread's two rows read once from global; rounds dS to
+// bf16 as the register A operand of dQ += dS.K (wgmma m64nDk16, K MN-major:
+// the transpose flag). It releases V after the tile's last dP and K after
+// its last dQ product. dQ accumulates over the keys in order, whatever SK.
+// The key loop ends at the JAX kernel's `hi`; masks apply only on tiles
+// that cross the diagonal or reach past kv_len, and a warpgroup skips (but
+// still releases) a tile wholly above the diagonal for its rows, or every
+// tile when its rows all lie past T. dQ is scaled once, at the end. At
+// the LM's path shape (BH 128, T 2048, D 128, causal: 206 GFLOP, 0.209 ms
+// at 989 TFLOP/s) it is bound by operations; at ViT's (K5: 3,072 blocks
+// of four key tiles) by bytes, and there two blocks share an SM.
 // Registers: dQ 64 + S 32 + dP 32 + dS 16 at D = 128 fit the 168 a thread
-// that ptxas allows K1's 288-thread block, so no register is moved
-// between warpgroups. ptxas (CUDA 12.8): 165 registers at D = 128, 135 at
-// D = 64, no spills; 197,768 / 99,464 bytes of dynamic shared memory (4
-// stages: with 3, both kernels measured slower on an H100).
+// that ptxas allows K1's 288-thread block, so no register is moved between
+// warpgroups; at D = 64 two blocks an SM cap a thread at 96 (ptxas counts
+// the 9 warps as 10), and dQ 32 + S 16 + dP 16 + dS 8 in 32-key steps fit
+// (ptxas, CUDA 12.8: 165 / 96 registers at D = 128 / 64, no spills). On
+// an H100 K5 ran faster so than at one block an SM on whole tiles (135
+// registers; PERF.md gives both times). 197,768 / 99,464 bytes of dynamic shared memory at D = 128 /
+// 64 (4 stages: with 3, K2 and K3 measured slower on an H100).
 // ---------------------------------------------------------------------------
 constexpr int B_STAGES = 4;                  // K/V (K2) or Q/dO (K3) tiles
                                              // in flight
@@ -703,17 +458,17 @@ struct DqSmem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(F_THREADS, 1)
+__global__ void __launch_bounds__(F_THREADS, dq_blocks<D>)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int t, float scale,
+                          bf16* __restrict__ dq, int t, int nh, float scale,
                           int causal, int kv_len) {
   using S = DqSmem<D>;
-  constexpr int BOXES = D / 64;
+  constexpr int BOXES = D / 64, SK = dq_cols<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_1024(smem_raw);
   uint64_t* in_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
@@ -722,7 +477,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* k_empty = v_full + B_STAGES;
   uint64_t* v_empty = k_empty + B_STAGES;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y, b = bh / nh, hcol = (bh % nh) * D;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int n_kv = t / F_KEYS;
   // the JAX kernel's `hi`: key tiles past the diagonal are fully masked
@@ -744,25 +499,25 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x >= F_CONSUMERS) {                 // the producer warp
     if (threadIdx.x == F_CONSUMERS) {
       mbar_expect_tx(in_full, 2 * S::QT);
-      for (int b = 0; b < BOXES; ++b) {
-        tma_load_3d(smem + S::Q + b * F_QBOX, &tq, in_full, b * 64,
-                    qt * F_TILE, bh);
-        tma_load_3d(smem + S::DO + b * F_QBOX, &tdo, in_full, b * 64,
-                    qt * F_TILE, bh);
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_3d(smem + S::Q + x * F_QBOX, &tq, in_full, hcol + x * 64,
+                    qt * F_TILE, b);
+        tma_load_3d(smem + S::DO + x * F_QBOX, &tdo, in_full, hcol + x * 64,
+                    qt * F_TILE, b);
       }
       for (int j = 0; j < hi; ++j) {
         const int s = j % B_STAGES;
         const int parity = (j / B_STAGES - 1) & 1;
         if (j >= B_STAGES) mbar_wait(&k_empty[s], parity);
         mbar_expect_tx(&k_full[s], S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::K + s * S::KV + b * F_KBOX, &tk, &k_full[s],
-                      b * 64, j * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::K + s * S::KV + x * F_KBOX, &tk, &k_full[s],
+                      hcol + x * 64, j * F_KEYS, b);
         if (j >= B_STAGES) mbar_wait(&v_empty[s], parity);
         mbar_expect_tx(&v_full[s], S::KV);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::V + s * S::KV + b * F_KBOX, &tv, &v_full[s],
-                      b * 64, j * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::V + s * S::KV + x * F_KBOX, &tv, &v_full[s],
+                      hcol + x * 64, j * F_KEYS, b);
       }
     }
     return;
@@ -804,57 +559,65 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         (j + 1) * F_KEYS > kv_len;
     const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV);
     const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV);
-    // S and dP in two groups: P is formed while dP is still in flight
-    float sc[F_KEYS / 2], dp[F_KEYS / 2];
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
-      const int col = (kk % 4) * 32;
-      wgmma_ss_n64<0, 0>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
-                         desc_k(k_addr + (kk / 4) * F_KBOX + col), kk);
-    }
-    wgmma_commit();
+    for (int h = 0; h < F_KEYS / SK; ++h) {
+      // S and dP in two groups: P is formed while dP is still in flight
+      float sc[SK / 2], dp[SK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int col = (kk % 4) * 32;
-      wgmma_ss_n64<0, 0>(dp, desc_k(do_addr + (kk / 4) * F_QBOX + col),
-                         desc_k(v_addr + (kk / 4) * F_KBOX + col), kk);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(sc);
+      for (int kk = 0; kk < D / 16; ++kk) {    // scale_d 0 at kk = 0
+        const int col = (kk % 4) * 32;
+        wgmma_scores<SK>(sc, desc_k(q_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(k_addr + h * SK * 128 + (kk / 4) * F_KBOX +
+                                col),
+                         kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int col = (kk % 4) * 32;
+        wgmma_scores<SK>(dp, desc_k(do_addr + (kk / 4) * F_QBOX + col),
+                         desc_k(v_addr + h * SK * 128 + (kk / 4) * F_KBOX +
+                                col),
+                         kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
 
-    // P into sc; element e: the thread's row (e >> 1) & 1, key
-    // j*64 + 8*(e >> 2) + 2*tq4 + (e & 1)
-    const int col0 = j * F_KEYS + 2 * tq4;
+      // P into sc; element e: the thread's row (e >> 1) & 1, key
+      // j*64 + h*SK + 8*(e >> 2) + 2*tq4 + (e & 1)
+      const int col0 = j * F_KEYS + h * SK + 2 * tq4;
 #pragma unroll
-    for (int e = 0; e < F_KEYS / 2; ++e) {
-      const int i = (e >> 1) & 1, col = col0 + 8 * (e >> 2) + (e & 1);
-      sc[e] = !masked || col < lim[i]
-                  ? exp2_approx(fmaf(sc[e], scale_log2, nl[i]))
-                  : 0.0f;
-    }
-    wgmma_wait<0>();
-    fence_regs(dp);
-    mbar_arrive(&v_empty[s]);
-    // dS into sc
+      for (int e = 0; e < SK / 2; ++e) {
+        const int i = (e >> 1) & 1, col = col0 + 8 * (e >> 2) + (e & 1);
+        sc[e] = !masked || col < lim[i]
+                    ? exp2_approx(fmaf(sc[e], scale_log2, nl[i]))
+                    : 0.0f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      if (h == F_KEYS / SK - 1) mbar_arrive(&v_empty[s]);
+      // dS into sc, then as the bf16 A operand of SK / 16 k16 steps
+      // (keys 16kk..16kk+15 of the step)
 #pragma unroll
-    for (int e = 0; e < F_KEYS / 2; ++e) sc[e] *= dp[e] - dl[(e >> 1) & 1];
-    // dS as the bf16 A operand of 4 k16 steps (keys 16kk..16kk+15)
-    uint32_t da[F_KEYS / 16][4];
+      for (int e = 0; e < SK / 2; ++e) sc[e] *= dp[e] - dl[(e >> 1) & 1];
+      uint32_t da[SK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 16; ++kk)
+      for (int kk = 0; kk < SK / 16; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        da[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-    wgmma_fence();
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < F_KEYS / 16; ++kk)
-      wgmma_rs_d<D>(acc, da[kk], desc_mn(k_addr + kk * 2048, F_KBOX));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
+      for (int kk = 0; kk < SK / 16; ++kk)
+        wgmma_rs_d<D>(acc, da[kk],
+                      desc_mn(k_addr + (h * SK / 16 + kk) * 2048, F_KBOX));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
     mbar_arrive(&k_empty[s]);
   }
 
@@ -862,7 +625,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= t) continue;
-    bf16* out = dq + ((size_t)bh * t + row) * D + 2 * tq4;
+    bf16* out = dq + ((size_t)b * t + row) * nh * D + hcol + 2 * tq4;
 #pragma unroll
     for (int jb = 0; jb < D / 8; ++jb)
       *reinterpret_cast<uint32_t*>(out + 8 * jb) =
@@ -871,44 +634,61 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// K3 on wgmma: the bh-layout dK and dV. Replaces the JAX package's
-// workloads/flash_attention.py::_bwd_dkv_kernel (launched by _bwd). One
-// block per (128-key tile, head), a head's tiles side by side, the heavy
-// causal tiles (low keys) first; two consumer warpgroups own 64 keys each.
-// One producer thread loads K and V once and, from the JAX kernel's `lo`,
-// each 64-row query tile's Q, dO, lse and delta through a ring of B_STAGES
-// stages (Q and dO by TMA, lse and delta as 256-byte bulk copies) with
-// full/empty mbarriers. On transposed scores, per query tile: S^T = K.Q^T
-// and dP^T = V.dO^T as wgmma m64n64k16 from shared memory (all K-major);
-// P^T and dS^T in registers, with lse and delta now per column, read from
-// the stage's shared copy; both rounded to bf16 as register A operands of
-// dV += P^T.dO and dK += dS^T.Q (wgmma m64nDk16, dO and Q MN-major). No
-// tile is transposed in shared memory. Masks only on tiles that cross the
-// diagonal or reach past kv_len; a warpgroup skips (but releases) a query
-// tile wholly before its keys, or every tile when its keys all lie past T.
-// dK is scaled once, at the end. Bound by operations at the LM's path
-// shape (275 GFLOP, 0.278 ms at 989 TFLOP/s).
+// K3 and K6 on wgmma: dK and dV on either layout. Replaces the JAX
+// package's workloads/flash_attention.py::_bwd_dkv_kernel (launched by
+// _bwd; nh = 1) and ::_bwd_dkv_packed_kernel (launched by _bwd_packed). One
+// block per (key tile, head), a head's tiles side by side, the heavy
+// causal tiles (low keys) first; a consumer warpgroup owns 64 keys, two a
+// block (128-key tiles) at D = 128, one at D = 64. One
+// producer thread loads K and V once and, from the JAX kernel's `lo`, each
+// 64-row query tile's Q, dO, lse and delta through a ring of B_STAGES
+// stages (Q and dO by TMA, lse and delta as 256-byte bulk copies of the
+// head's contiguous [T] rows) with full/empty mbarriers. On transposed
+// scores, per query tile: S^T = K.Q^T and dP^T = V.dO^T as wgmma
+// m64n64k16 from shared memory (all K-major); P^T and dS^T in registers,
+// with lse and delta now per column, read from the stage's shared copy;
+// both rounded to bf16 as register A operands of dV += P^T.dO and
+// dK += dS^T.Q (wgmma m64nDk16, dO and Q MN-major). No tile is transposed
+// in shared memory. Masks only on tiles that cross the diagonal or reach
+// past kv_len; a warpgroup skips (but releases) a query tile wholly before
+// its keys, or every tile when its keys all lie past T. dK is scaled once,
+// at the end. Bound by operations at the LM's path shape (275 GFLOP,
+// 0.278 ms at 989 TFLOP/s), by bytes at ViT's (K6: 3,072 heads of four
+// query tiles).
 // Registers: dK 64 + dV 64 + S^T 32 + dP^T 32 = 192 at D = 128 before
 // addresses, over the 168 a thread that ptxas allows a block of two
-// consumer warpgroups and a producer warp (K2's shape: there ptxas
-// spilled 688 bytes of K3 at D = 128). So the producer is a whole
-// warpgroup that gives registers up by setmaxnreg (K3_PRODUCER_REGS) and
-// the consumers take them (K3_CONSUMER_REGS), in one if / else whose
-// branches never rejoin, as ptxas needs to honour it (it reports the 168
-// a thread the block starts with). One consumer warpgroup a block, 64
-// keys, would halve the keys that share a Q/dO load. ptxas (CUDA 12.8): no
-// spills at D = 128 or 64, no C7508 warning; 199,784 / 101,480 bytes of
-// dynamic shared memory. Overlapping P^T with dP^T in flight and dS^T
-// with dV (K2's two groups) needs 208 live registers beside the
-// addresses, spilled at D = 128 and measured slower.
+// consumer warpgroups and a producer warp (there ptxas spilled 688 bytes).
+// So the producer is a whole warpgroup that gives registers up by
+// setmaxnreg (40) and the consumers take them (232), in one if / else
+// whose branches never rejoin, as ptxas needs to honour it (it reports the
+// 168 a thread the block starts with). That block fills an SM's
+// registers. Two such blocks an SM (D = 64) would start a thread at 80
+// and leave the consumers 104 of them (24 for the producer): dK 32 + dV 32
+// beside the scores spilled even with 16- or 32-query score steps, and
+// ran slower. So at D = 64 a block is one consumer
+// warpgroup and a producer warp (160 threads, no setmaxnreg, 160
+// registers), two blocks an SM, each of its own 64 keys; the two blocks of
+// a head's 128 keys read the head's Q and dO twice, the second time from
+// L2. On an H100 that ran K6 faster than one block of two warpgroups
+// (PERF.md gives both times).
+// 199,784 / 85,096 bytes of dynamic shared memory at D = 128 / 64.
+// Overlapping P^T with dP^T in flight and dS^T with dV (K2's two groups)
+// needs 208 live registers beside the addresses at D = 128; it spilled
+// and measured slower. P^T alone under dP^T in flight needs none more,
+// and measured the same.
 // ---------------------------------------------------------------------------
-constexpr int K3_THREADS = F_CONSUMERS + 128;   // + the producer warpgroup
+// threads a block: the consumer warpgroups, and a producer warpgroup
+// (two consumers) or warp (one)
+template <int D>
+constexpr int dkv_threads = 128 * dkv_wgs<D> + (dkv_wgs<D> == 2 ? 128 : 32);
 constexpr int K3_PRODUCER_REGS = 40;             // 128 x 40 + 256 x 232
 constexpr int K3_CONSUMER_REGS = 232;            //   = 64,512 of 65,536
 
 template <int D>
 struct DkvSmem {
-  static constexpr int KT = D / 64 * F_QBOX;     // the [128][D] K or V tile
+  static constexpr int KEYS = 64 * dkv_wgs<D>;   // keys a block
+  static constexpr int KBOX = KEYS * 128;        // a [KEYS][64] K or V box
+  static constexpr int KT = D / 64 * KBOX;       // the [KEYS][D] K or V tile
   static constexpr int QT = D / 64 * F_KBOX;     // a [64][D] Q or dO tile
   static constexpr int ROWS = F_KEYS * 4;        // a tile's f32 lse or delta
   static constexpr int K = 0, V = KT, Q = 2 * KT, DO = Q + B_STAGES * QT;
@@ -919,17 +699,18 @@ struct DkvSmem {
 };
 
 // K3's consumer warpgroups: dK and dV of the warpgroup's 64 keys over the
-// query tiles lo..n_q of the ring
+// query tiles lo..n_q of the ring; the head's rows start at row `base` of
+// the [B*T] rows, columns hcol.. of nh*D
 template <int D>
 __device__ __forceinline__ void dkv_consumer(
     unsigned char* smem, uint64_t* kv_full, uint64_t* q_full,
     uint64_t* d_full, uint64_t* empty, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int bh, int kt, int lo, int n_q, int t,
-    float scale, int causal, int kv_len) {
+    bf16* __restrict__ dv, size_t base, int hcol, int nh, int kt, int lo,
+    int n_q, int t, float scale, int causal, int kv_len) {
   using S = DkvSmem<D>;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32, g = lane >> 2, tq4 = lane & 3;
-  const int first = kt * F_TILE + wg * 64;     // this warpgroup's first key
+  const int first = kt * S::KEYS + wg * 64;   // this warpgroup's first key
   // keys of accumulator elements with ((e >> 1) & 1) == 0; +8 for the others
   const int key0 = first + ((threadIdx.x / 32) % 4) * 16 + g;
   const uint32_t k_addr = smem_u32(smem + S::K) + wg * 64 * 128;
@@ -957,13 +738,13 @@ __device__ __forceinline__ void dkv_consumer(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {      // scale_d 0 at kk = 0
       const int col = (kk % 4) * 32;
-      wgmma_ss_n64<0, 0>(st, desc_k(k_addr + (kk / 4) * F_QBOX + col),
+      wgmma_ss_n64<0, 0>(st, desc_k(k_addr + (kk / 4) * S::KBOX + col),
                          desc_k(q_addr + (kk / 4) * F_KBOX + col), kk);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int col = (kk % 4) * 32;
-      wgmma_ss_n64<0, 0>(dpt, desc_k(v_addr + (kk / 4) * F_QBOX + col),
+      wgmma_ss_n64<0, 0>(dpt, desc_k(v_addr + (kk / 4) * S::KBOX + col),
                          desc_k(do_addr + (kk / 4) * F_KBOX + col), kk);
     }
     wgmma_commit();
@@ -1018,24 +799,23 @@ __device__ __forceinline__ void dkv_consumer(
   }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = key0 + 8 * h;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
     if (key >= t) continue;
-    bf16* kout = dk + ((size_t)bh * t + key) * D + 2 * tq4;
-    bf16* vout = dv + ((size_t)bh * t + key) * D + 2 * tq4;
+    const size_t at = (base + key) * nh * D + hcol + 2 * tq4;
 #pragma unroll
     for (int jb = 0; jb < D / 8; ++jb) {
-      *reinterpret_cast<uint32_t*>(kout + 8 * jb) =
-          pack(acc_dk[4 * jb + 2 * h] * scale,
-               acc_dk[4 * jb + 2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vout + 8 * jb) =
-          pack(acc_dv[4 * jb + 2 * h], acc_dv[4 * jb + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * jb) =
+          pack(acc_dk[4 * jb + 2 * r] * scale,
+               acc_dk[4 * jb + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * jb) =
+          pack(acc_dv[4 * jb + 2 * r], acc_dv[4 * jb + 2 * r + 1]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(K3_THREADS, 1)
+__global__ void __launch_bounds__(dkv_threads<D>, dkv_blocks<D>)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -1043,9 +823,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int t, float scale, int causal, int kv_len) {
+                           int t, int nh, float scale, int causal,
+                           int kv_len) {
   using S = DkvSmem<D>;
-  constexpr int BOXES = D / 64;
+  constexpr int BOXES = D / 64, CONSUMERS = 128 * dkv_wgs<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
@@ -1053,17 +834,18 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* d_full = q_full + B_STAGES;
   uint64_t* empty = d_full + B_STAGES;
 
-  const int bh = blockIdx.y, kt = blockIdx.x;
+  const int bh = blockIdx.y, b = bh / nh, hcol = (bh % nh) * D;
+  const int kt = blockIdx.x;
   const int n_q = t / F_KEYS;                  // 64-row query tiles
   // the JAX kernel's `lo`: query tiles before the diagonal are fully masked
-  const int lo = causal ? kt * F_TILE / F_KEYS : 0;
+  const int lo = causal ? kt * S::KEYS / F_KEYS : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < B_STAGES; ++s) {
       mbar_init(&q_full[s], 1);
       mbar_init(&d_full[s], 1);
-      mbar_init(&empty[s], F_CONSUMERS);
+      mbar_init(&empty[s], CONSUMERS);
     }
     mbar_fence_init();
   }
@@ -1071,120 +853,165 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // one if / else whose branches never rejoin, so that ptxas honours the
   // register moves
-  if (threadIdx.x >= F_CONSUMERS) {                 // the producer warpgroup
-    regs_dec<K3_PRODUCER_REGS>();
-    if (threadIdx.x == F_CONSUMERS) {
+  if (threadIdx.x >= CONSUMERS) {                   // the producer
+    if constexpr (dkv_wgs<D> == 2) regs_dec<K3_PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(kv_full, 2 * S::KT);
-      for (int b = 0; b < BOXES; ++b) {
-        tma_load_3d(smem + S::K + b * F_QBOX, &tk, kv_full, b * 64,
-                    kt * F_TILE, bh);
-        tma_load_3d(smem + S::V + b * F_QBOX, &tv, kv_full, b * 64,
-                    kt * F_TILE, bh);
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_3d(smem + S::K + x * S::KBOX, &tk, kv_full, hcol + x * 64,
+                    kt * S::KEYS, b);
+        tma_load_3d(smem + S::V + x * S::KBOX, &tv, kv_full, hcol + x * 64,
+                    kt * S::KEYS, b);
       }
       for (int i = lo; i < n_q; ++i) {
         const int it = i - lo, s = it % B_STAGES;
         if (it >= B_STAGES) mbar_wait(&empty[s], (it / B_STAGES - 1) & 1);
+        // the head's lse and delta rows: [B*nh, T] in both layouts
         const size_t rows = (size_t)bh * t + (size_t)i * F_KEYS;
         mbar_expect_tx(&q_full[s], S::QT + S::ROWS);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::Q + s * S::QT + b * F_KBOX, &tq, &q_full[s],
-                      b * 64, i * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::Q + s * S::QT + x * F_KBOX, &tq, &q_full[s],
+                      hcol + x * 64, i * F_KEYS, b);
         bulk_load(smem + S::L + s * S::ROWS, lse + rows, S::ROWS, &q_full[s]);
         mbar_expect_tx(&d_full[s], S::QT + S::ROWS);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_3d(smem + S::DO + s * S::QT + b * F_KBOX, &tdo,
-                      &d_full[s], b * 64, i * F_KEYS, bh);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_3d(smem + S::DO + s * S::QT + x * F_KBOX, &tdo,
+                      &d_full[s], hcol + x * 64, i * F_KEYS, b);
         bulk_load(smem + S::DL + s * S::ROWS, delta + rows, S::ROWS,
                   &d_full[s]);
       }
     }
   } else {
-    regs_inc<K3_CONSUMER_REGS>();
-    dkv_consumer<D>(smem, kv_full, q_full, d_full, empty, dk, dv, bh, kt, lo,
-                    n_q, t, scale, causal, kv_len);
+    if constexpr (dkv_wgs<D> == 2) regs_inc<K3_CONSUMER_REGS>();
+    dkv_consumer<D>(smem, kv_full, q_full, d_full, empty, dk, dv,
+                    (size_t)b * t, hcol, nh, kt, lo, n_q, t, scale, causal,
+                    kv_len);
   }
 }
 
+// ---------------------------------------------------------------------------
+// delta = rowsum(dO * O) per (row, head), the f32 input of K2/K3 (K5/K6),
+// laid out [B, nh, T] like lse. Not a TPU kernel: the JAX package leaves
+// it to XLA (_bwd and _bwd_packed of workloads/flash_attention.py). dO and
+// O are bf16 [B, T, nh*D] (bh: nh = 1); T may be ragged here. A block takes
+// DELTA_ROWS consecutive rows of the [B*T] rows. Each thread reads 16 bytes
+// of dO and of O at a time (neighbouring lanes on neighbouring bytes) and
+// adds their 8 products in f32 (each exact: a bf16 product fits f32's
+// mantissa); the D/8 lanes that hold one (row, head) add theirs by
+// shuffles; the sums pass through shared memory so that each head's
+// outputs from a block are written as one contiguous run (the heads of a
+// row lie T floats apart). Bound by bytes: one read of dO and O.
+// ---------------------------------------------------------------------------
+constexpr int DELTA_ROWS = 32;
+constexpr int DELTA_THREADS = 256;
+constexpr int DELTA_MAX_HEADS = 384;        // [heads][DELTA_ROWS] f32 in 48 KB
+
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
+                   float* __restrict__ delta, int rows, int t, int nh) {
+  constexpr int G = D / 8;                     // 16-byte chunks of a head
+  extern __shared__ float sums[];              // [nh][DELTA_ROWS]
+  const int row0 = blockIdx.x * DELTA_ROWS;
+  const int n_rows = min(DELTA_ROWS, rows - row0);
+  const int width = nh * G;                    // chunks of a row
+  const int total = n_rows * width;
+  const uint4* a = reinterpret_cast<const uint4*>(dout) + (size_t)row0 * width;
+  const uint4* c = reinterpret_cast<const uint4*>(o) + (size_t)row0 * width;
+  const int lane = threadIdx.x % 32;
+  // a warp takes 32 consecutive chunks a step: whole (row, head) groups,
+  // since G divides 32 and a row holds whole heads
+  for (int w = threadIdx.x - lane; w < total; w += DELTA_THREADS) {
+    const int i = w + lane;
+    float s = 0.0f;
+    if (i < total) {
+      const uint4 x = a[i], y = c[i];
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 xf = __bfloat1622float2(xp[k]);
+        const float2 yf = __bfloat1622float2(yp[k]);
+        s += xf.x * yf.x;
+        s += xf.y * yf.y;
+      }
+    }
+#pragma unroll
+    for (int m = 1; m < G; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (i < total && lane % G == 0)
+      sums[(i % width) / G * DELTA_ROWS + i / width] = s;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nh * n_rows; k += DELTA_THREADS) {
+    const int h = k / n_rows, r = k % n_rows;
+    const int row = row0 + r, b = row / t;
+    delta[((size_t)b * nh + h) * t + row % t] = sums[h * DELTA_ROWS + r];
+  }
+}
+
+// K2 and K5 (nh = 1, b = BH for the bh layout)
 template <int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dq, int bh, int t,
+                            const void* delta, void* dq, int b, int nh, int t,
                             float scale, int causal, int kv_len,
                             cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = head_map(&tq, q, bh, t, 1, D, F_TILE);
-  if (err == cudaSuccess) err = head_map(&tk, k, bh, t, 1, D, F_KEYS);
-  if (err == cudaSuccess) err = head_map(&tv, v, bh, t, 1, D, F_KEYS);
-  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, t, 1, D, F_TILE);
+  cudaError_t err = head_map(&tq, q, b, t, nh, D, F_TILE);
+  if (err == cudaSuccess) err = head_map(&tk, k, b, t, nh, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tv, v, b, t, nh, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, b, t, nh, D, F_TILE);
   if (err != cudaSuccess) return err;
   const size_t smem = DqSmem<D>::BYTES;
-  err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem);
+  err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem,
+                   cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
+  const dim3 grid((t + F_TILE - 1) / F_TILE, b * nh);
   flash_bwd_dq_wgmma_kernel<D><<<grid, F_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, t,
-      scale, causal, kv_len);
+      nh, scale, causal, kv_len);
+  return cudaGetLastError();
+}
+
+// K3 and K6
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int b,
+                             int nh, int t, float scale, int causal,
+                             int kv_len, cudaStream_t stream) {
+  using S = DkvSmem<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = head_map(&tq, q, b, t, nh, D, F_KEYS);
+  if (err == cudaSuccess) err = head_map(&tk, k, b, t, nh, D, S::KEYS);
+  if (err == cudaSuccess) err = head_map(&tv, v, b, t, nh, D, S::KEYS);
+  if (err == cudaSuccess) err = head_map(&tdo, dout, b, t, nh, D, F_KEYS);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, S::BYTES,
+                   cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + S::KEYS - 1) / S::KEYS, b * nh);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, dkv_threads<D>, S::BYTES, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, t, nh, scale, causal, kv_len);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int bh,
-                             int t, float scale, int causal, int kv_len,
-                             cudaStream_t stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = head_map(&tq, q, bh, t, 1, D, F_KEYS);
-  if (err == cudaSuccess) err = head_map(&tk, k, bh, t, 1, D, F_TILE);
-  if (err == cudaSuccess) err = head_map(&tv, v, bh, t, 1, D, F_TILE);
-  if (err == cudaSuccess) err = head_map(&tdo, dout, bh, t, 1, D, F_KEYS);
-  if (err != cudaSuccess) return err;
-  const size_t smem = DkvSmem<D>::BYTES;
-  err = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t + F_TILE - 1) / F_TILE, bh);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, K3_THREADS, smem, stream>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, t, scale, causal, kv_len);
+cudaError_t launch_delta(const void* dout, const void* o, void* delta, int b,
+                         int t, int nh, cudaStream_t stream) {
+  const int rows = b * t;
+  const size_t smem = (size_t)nh * DELTA_ROWS * sizeof(float);
+  flash_delta_kernel<D><<<(rows + DELTA_ROWS - 1) / DELTA_ROWS, DELTA_THREADS,
+                          smem, stream>>>((const bf16*)dout, (const bf16*)o,
+                                          (float*)delta, rows, t, nh);
   return cudaGetLastError();
 }
 
-template <int D, bool PACKED>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int b, int nh, int t, float scale, int causal,
-                      int kv_len, cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, PACKED>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(t / BQ, b * nh);
-  flash_bwd_dq_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, t, nh, scale, causal,
-      kv_len);
-  return cudaGetLastError();
-}
-
-template <int D, bool PACKED>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int b, int nh, int t, float scale,
-                       int causal, int kv_len, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, PACKED>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(t / BK, b * nh);
-  flash_bwd_dkv_kernel<D, PACKED><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, t, nh,
-      scale, causal, kv_len);
-  return cudaGetLastError();
-}
-
-// shapes the kernels take: T a positive multiple of the tile, b*nh blocks
-// within the grid's y limit
+// shapes the flash kernels take: T a positive multiple of the 64-row tile,
+// b*nh blocks within the grid's y limit
 bool bad_shape(int b, int nh, int t) {
-  return t % BQ != 0 || t <= 0 || b <= 0 || nh <= 0 ||
+  return t % F_KEYS != 0 || t <= 0 || b <= 0 || nh <= 0 ||
          (long long)b * nh > 65535;
 }
 
@@ -1199,36 +1026,38 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool PACKED>
+// K2 and K5: the wgmma dQ on either layout
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int b, int nh, int t,
            int d, float scale, int causal, int kv_len, void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (!PACKED) {     // K2: the wgmma dQ
-    if (d == 64) return (int)launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, b, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, b, t, scale, causal, kv_len, s);
-  } else {                     // K5
-    if (d == 64) return (int)launch_dq<64, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_dq<128, PACKED>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
-  }
+  if (d == 64) return (int)launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, b, nh, t, scale, causal, kv_len, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool PACKED>
+// K3 and K6: the wgmma dK/dV on either layout
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int b,
             int nh, int t, int d, float scale, int causal, int kv_len,
             void* stream) {
   if (bad_shape(b, nh, t)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (!PACKED) {     // K3: the wgmma dK/dV
-    if (d == 64) return (int)launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, b, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, b, t, scale, causal, kv_len, s);
-  } else {                     // K6
-    if (d == 64) return (int)launch_dkv<64, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
-    if (d == 128) return (int)launch_dkv<128, PACKED>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
-  }
+  if (d == 64) return (int)launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  if (d == 128) return (int)launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, b, nh, t, scale, causal, kv_len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// delta on either layout: any T, b*T rows within an int
+int delta_rows(const void* dout, const void* o, void* delta, int b, int t,
+               int nh, int d, void* stream) {
+  if (b <= 0 || t <= 0 || nh <= 0 || nh > DELTA_MAX_HEADS ||
+      (long long)b * t > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return (int)launch_delta<64>(dout, o, delta, b, t, nh, s);
+  if (d == 128) return (int)launch_delta<128>(dout, o, delta, b, t, nh, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1238,7 +1067,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a shape it does not take.
 // ko_flash_*: the bh layout [BH, T, D] (K1-K3); ko_flash_*_packed: the
-// packed layout [B, T, H*D] with the head count h (K4-K6).
+// packed layout [B, T, H*D] with the head count h (K4-K6); ko_flash_delta:
+// delta of either, [B, T, nh*D] -> [B, nh, T] (bh: b = BH, nh = 1).
 // ---------------------------------------------------------------------------
 extern "C" {
 
@@ -1252,16 +1082,16 @@ int ko_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int bh, int t, int d, float scale, int causal,
                     int kv_len, void* stream) {
-  return bwd_dq<false>(q, k, v, dout, lse, delta, dq, bh, 1, t, d, scale,
-                       causal, kv_len, stream);
+  return bwd_dq(q, k, v, dout, lse, delta, dq, bh, 1, t, d, scale, causal,
+                kv_len, stream);
 }
 
 int ko_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int bh, int t, int d, float scale,
                      int causal, int kv_len, void* stream) {
-  return bwd_dkv<false>(q, k, v, dout, lse, delta, dk, dv, bh, 1, t, d,
-                        scale, causal, kv_len, stream);
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, bh, 1, t, d, scale,
+                 causal, kv_len, stream);
 }
 
 int ko_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
@@ -1275,8 +1105,8 @@ int ko_flash_bwd_dq_packed(const void* q, const void* k, const void* v,
                            const void* delta, void* dq, int b, int t, int h,
                            int d, float scale, int causal, int kv_len,
                            void* stream) {
-  return bwd_dq<true>(q, k, v, dout, lse, delta, dq, b, h, t, d, scale,
-                      causal, kv_len, stream);
+  return bwd_dq(q, k, v, dout, lse, delta, dq, b, h, t, d, scale, causal,
+                kv_len, stream);
 }
 
 int ko_flash_bwd_dkv_packed(const void* q, const void* k, const void* v,
@@ -1284,8 +1114,13 @@ int ko_flash_bwd_dkv_packed(const void* q, const void* k, const void* v,
                             const void* delta, void* dk, void* dv, int b,
                             int t, int h, int d, float scale, int causal,
                             int kv_len, void* stream) {
-  return bwd_dkv<true>(q, k, v, dout, lse, delta, dk, dv, b, h, t, d, scale,
-                       causal, kv_len, stream);
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, b, h, t, d, scale,
+                 causal, kv_len, stream);
+}
+
+int ko_flash_delta(const void* dout, const void* o, void* delta, int b,
+                   int t, int nh, int d, void* stream) {
+  return delta_rows(dout, o, delta, b, t, nh, d, stream);
 }
 
 }  // extern "C"

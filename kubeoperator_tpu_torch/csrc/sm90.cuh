@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (conv_bwd.cu's K7, flash_attention.cu's K1-K3): shared-memory matrix
-// descriptors for 128-byte-swizzled tiles, the warpgroup matrix multiply
-// (wgmma) and its fences, register moves between warpgroups, mbarriers,
-// named barriers, TMA tile loads and stores, bulk copies, and the
-// host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's CUDA sources
+// (flash_attention.cu's K1-K6 and delta, conv_bwd.cu's K7-K9): the bf16
+// type and its f32 pair packing, shared-memory matrix descriptors for
+// 128-byte-swizzled tiles, the warpgroup matrix multiply (wgmma) and its
+// fences, register moves between warpgroups, mbarriers, named barriers,
+// TMA tile loads and stores, bulk copies, and the host-side encoding of
+// TMA tensor maps.
 //
 // Tiles. Every operand tile in shared memory is one or more TMA boxes of
 // [rows][64] bf16 (128-byte rows) loaded with CU_TENSOR_MAP_SWIZZLE_128B
@@ -25,14 +26,24 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
 
 // ---------------------------------------------------------------------------
 // device side
 // ---------------------------------------------------------------------------
+
+// two f32 values rounded to bf16 (round to nearest even), lo in the low
+// half: the register image of a bf16 pair
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -43,6 +43,8 @@ SIGNATURES = {
                                    _F, _I, _I, _P],
         "ko_flash_bwd_dkv_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _F, _I, _I, _P],
+        # Δ of either layout: (do, o, delta, b, t, nh, d, stream)
+        "ko_flash_delta": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "conv_bwd": {
         "ko_conv1x1_bwd_dx": [_P, _P, _P, _I, _I, _I, _P],

@@ -9,7 +9,10 @@ Counterpart of ``kubeoperator_tpu/workloads/flash_attention.py``
 - K2 ``flash_bwd_dq``: dQ per q-tile over K/V tiles up to the diagonal;
 - K3 ``flash_bwd_dkv``: dK, dV per k-tile over Q tiles from the diagonal;
 - K4-K6 ``flash_fwd_packed``, ``flash_bwd_dq_packed``,
-  ``flash_bwd_dkv_packed``: the same three on the packed layout.
+  ``flash_bwd_dkv_packed``: the same three kernels on the packed layout;
+- ``bh_delta``, ``packed_delta``: Δ = rowsum(dO ∘ O), the backward
+  kernels' f32 input, one kernel for both layouts (the JAX package leaves
+  it to XLA: no TPU kernel stands behind it).
 
 The K1-K3 wrappers take [BH, T, D] tensors ("bh" layout: heads flattened
 into the batch around the kernels). The K4-K6 wrappers take [B, T, H·D]
@@ -40,7 +43,7 @@ HEAD_DIMS = (64, 128)
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_packed": 0, "flash_bwd_dq_packed": 0,
-            "flash_bwd_dkv_packed": 0}
+            "flash_bwd_dkv_packed": 0, "flash_delta": 0}
 
 
 def reset_launches() -> None:
@@ -95,8 +98,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-TILE = 64               # rows per tile of the CUDA kernels (BQ = BK in
-                        # csrc/flash_attention.cu); T must be a multiple
+TILE = 64               # rows per streamed tile of the CUDA kernels
+                        # (F_KEYS in csrc/flash_attention.cu); T must be
+                        # a multiple
 
 
 def _check_tensors(name: str, first: torch.Tensor, t: int, d: int,
@@ -233,10 +237,57 @@ def _setup_context(ctx, inputs, output):
     ctx.args = (scale, causal, kv_len)
 
 
+def bh_delta_plain(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Δ's spec for [BH, T, D] tensors: rowsum(dO ∘ O) in f32, laid out
+    [BH, T] like lse, as the JAX _bwd computes it."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+def packed_delta_plain(do: torch.Tensor, o: torch.Tensor,
+                       heads: int) -> torch.Tensor:
+    """Δ's spec for [B, T, H·D] tensors: rowsum(dO ∘ O) per (b, t, h) in
+    f32, laid out [B, H, T] like lse, as the JAX _bwd_packed computes it."""
+    b, t, hd = o.shape
+    return ((do.float() * o.float()).reshape(b, t, heads, hd // heads)
+            .sum(-1).transpose(1, 2).contiguous())
+
+
+def _delta_kernel(do: torch.Tensor, o: torch.Tensor, b: int, t: int,
+                  heads: int) -> torch.Tensor:
+    """Δ by ``flash_delta_kernel``: dO and O read as [b, t, heads·D] bf16
+    (any t), Δ [b, heads, t] f32."""
+    if heads <= 0 or o.shape[-1] % heads:
+        raise ValueError(f"flash_delta: width {o.shape[-1]} is not a "
+                         f"multiple of {heads} heads")
+    d = o.shape[-1] // heads
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_delta: head dim {d} not in {HEAD_DIMS}")
+    if not o.is_cuda:
+        raise ValueError(f"flash_delta: no kernel for device {o.device}")
+    for x in (do, o):
+        if x.device != o.device or x.shape != o.shape:
+            raise ValueError("flash_delta: dO and O differ in device or shape")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"flash_delta: expected bf16, got {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("flash_delta: inputs must be contiguous and "
+                             "16-byte aligned")
+    delta = torch.empty((b, heads, t), dtype=torch.float32, device=o.device)
+    lib = kernels.load("flash_attention")
+    err = lib.ko_flash_delta(do.data_ptr(), o.data_ptr(), delta.data_ptr(), b,
+                             t, heads, d, _stream())
+    kernels.check(err, "flash_delta")
+    LAUNCHES["flash_delta"] += 1
+    return delta
+
+
 def bh_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """Δ = rowsum(dO ∘ O) in f32 for [BH, T, D] tensors, laid out [BH, T]
-    like lse: outside the kernels, as in the JAX _bwd."""
-    return (do.float() * o.float()).sum(-1).contiguous()
+    like lse."""
+    if o.device.type == "cpu":
+        return bh_delta_plain(do, o)
+    bh, t, _ = o.shape
+    return _delta_kernel(do, o, bh, t, 1).view(bh, t)
 
 
 def _backward(ctx, do, _dlse):
@@ -390,10 +441,11 @@ def _setup_context_packed(ctx, inputs, output):
 def packed_delta(do: torch.Tensor, o: torch.Tensor,
                  heads: int) -> torch.Tensor:
     """Δ = rowsum(dO ∘ O) per (b, t, h) in f32 for [B, T, H·D] tensors,
-    laid out [B, H, T] like lse, as in the JAX _bwd_packed."""
-    b, t, hd = o.shape
-    return ((do.float() * o.float()).reshape(b, t, heads, hd // heads)
-            .sum(-1).transpose(1, 2).contiguous())
+    laid out [B, H, T] like lse."""
+    if o.device.type == "cpu":
+        return packed_delta_plain(do, o, heads)
+    b, t, _ = o.shape
+    return _delta_kernel(do, o, b, t, heads)
 
 
 def _backward_packed(ctx, do, _dlse):

@@ -1,7 +1,8 @@
 """Each CUDA flash-attention kernel (K1-K3 on [BH, T, D], K4-K6 on the
-packed [B, T, H·D]) against its plain PyTorch version, on the card, and
-K8's dW (same bits twice, beside the flash backward's). Imports no JAX, so
-it runs where the kernels build:
+packed [B, T, H·D], and Δ on both) against its plain PyTorch version, on
+the card; the packed kernels against the bh ones bit for bit; and K8's dW
+(same bits twice, beside the flash backward's). Imports no JAX, so it runs
+where the kernels build:
 
     python -m pytest --noconftest -m gpu tests/test_torch_flash_cuda.py
 
@@ -198,6 +199,72 @@ def test_cuda_packed_fwd_is_the_bh_forward(d, causal):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert torch.equal(bh(o), o_bh)
     assert torch.equal(lse.reshape(b * h, t), lse_bh)
+
+
+def _to_bh(x, b, h, d):
+    """[B, T, H·D] -> [B·H, T, D], contiguous"""
+    t = x.shape[1]
+    return x.view(b, t, h, d).transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,causal,kv_len", [
+    (2, 4, 256, 64, False, 196),        # ViT's D and padding, 4 heads
+    (2, 4, 512, 128, True, 512)])
+def test_cuda_packed_bwd_is_the_bh_backward(b, h, t, d, causal, kv_len):
+    """K5 and K6 run K2's and K3's kernels through the packed tensor map:
+    on the same inputs their dQ, dK and dV equal the bh kernels' on the
+    transposed tensors bit for bit, and a second run gives the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    args = (d ** -0.5, causal, kv_len)
+    o, lse = tfa.flash_fwd_packed(q, k, v, h, *args)
+    delta = tfa.packed_delta(do, o, h)
+    packed = (tfa.flash_bwd_dq_packed(q, k, v, do, lse, delta, h, *args),
+              *tfa.flash_bwd_dkv_packed(q, k, v, do, lse, delta, h, *args))
+    again = (tfa.flash_bwd_dq_packed(q, k, v, do, lse, delta, h, *args),
+             *tfa.flash_bwd_dkv_packed(q, k, v, do, lse, delta, h, *args))
+    bh = [_to_bh(x, b, h, d) for x in (q, k, v, do)]
+    rows = (lse.reshape(b * h, t), delta.reshape(b * h, t))
+    want = (tfa.flash_bwd_dq(*bh, *rows, *args),
+            *tfa.flash_bwd_dkv(*bh, *rows, *args))
+    torch.cuda.synchronize()
+    for name, got, twice, ref in zip(("dq", "dk", "dv"), packed, again, want):
+        assert torch.equal(got, twice), name
+        assert torch.equal(_to_bh(got, b, h, d), ref), name
+
+
+# Δ: f32 sums of exact bf16 products, so the kernel and its plain version
+# differ only in the order of the sum (chip_smoke.py's DELTA_TOL); T need
+# not be a multiple of the tile, and a block's rows may span two batch rows
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,shape,heads", [
+    ("bh", (6, 196, 64), 1), ("bh", (4, 2048, 128), 1),
+    ("bh", (3, 33, 128), 1), ("packed", (2, 196, 12 * 64), 12),
+    ("packed", (3, 100, 4 * 128), 4), ("packed", (5, 7, 2 * 64), 2)])
+def test_cuda_delta_matches_plain(layout, shape, heads):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    do, o = (torch.randn(shape, device="cuda", generator=gen)
+             .to(torch.bfloat16) for _ in range(2))
+    if layout == "bh":
+        got, want = tfa.bh_delta(do, o), tfa.bh_delta_plain(do, o)
+        again = tfa.bh_delta(do, o)
+    else:
+        got = tfa.packed_delta(do, o, heads)
+        want = tfa.packed_delta_plain(do, o, heads)
+        again = tfa.packed_delta(do, o, heads)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+    # one thread order, no atomics: the same bits every run
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

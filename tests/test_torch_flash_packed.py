@@ -4,8 +4,9 @@ interpret mode on the CPU, as tests/test_flash.py runs it): forward at
 2e-5 and gradients at 5e-4, causal and not, aligned, ragged and
 multi-tile T. Also: the packed output equals the port's own bh layout, the
 wrappers take their plain versions for CPU tensors and launch nothing,
-the CUDA checks refuse what the kernels do not take, and the ctypes
-signatures agree with the C source. The kernels against their plain
+the CUDA checks refuse what the kernels do not take, Δ's wrappers
+equal the JAX backward's Δ, and the ctypes signatures agree with the C
+source. The kernels against their plain
 versions on the card are in test_torch_flash_cuda.py."""
 
 import ctypes
@@ -154,11 +155,69 @@ def test_packed_delta_is_the_bh_delta_per_head():
     np.testing.assert_allclose(delta.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
+def _jax_delta(do: np.ndarray, o: np.ndarray, heads: int | None,
+               fn=jnp.sum):
+    """Δ as the JAX package's backward computes it: ``_bwd``'s
+    jnp.sum(dO·O, -1) on [BH, T, D], or ``_bwd_packed``'s per-head sum of
+    [B, T, H·D], transposed to [B, H, T] (without the TPU's sublane
+    broadcast). ``fn`` of the products in place of the sum gives the
+    same layout of another row statistic."""
+    prod = jnp.asarray(do).astype(jnp.float32) * jnp.asarray(o).astype(
+        jnp.float32)
+    if heads is None:
+        return np.asarray(fn(prod, axis=-1))
+    b, t, hd = do.shape
+    return np.asarray(fn(prod.reshape(b, t, heads, hd // heads),
+                         axis=-1).transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("layout,shape,heads", [
+    ("bh", (6, 196, 64), None), ("bh", (4, 256, 128), None),
+    ("packed", (2, 196, 3 * 64), 3), ("packed", (2, 256, 2 * 128), 2)])
+def test_delta_wrappers_take_the_plain_versions_and_match_jax(layout, shape,
+                                                              heads):
+    """``bh_delta`` and ``packed_delta`` on CPU tensors run their plain
+    versions, launch nothing, and equal the JAX backward's Δ on the same
+    numpy-seeded bf16 inputs. Both sum the same exact f32 products in
+    other orders, so they differ by f32 rounding of the sum: within 1e-6
+    of the products' absolute sum (an order of the sum is off by up to
+    D·2⁻²⁴ of it; a missing product, by about 1/D of it)."""
+    rng = np.random.default_rng(sum(shape))
+    do, o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    tfa.reset_launches()
+    if layout == "bh":
+        got, plain = tfa.bh_delta(do, o), tfa.bh_delta_plain(do, o)
+    else:
+        got = tfa.packed_delta(do, o, heads)
+        plain = tfa.packed_delta_plain(do, o, heads)
+    assert tfa.LAUNCHES == dict.fromkeys(tfa.LAUNCHES, 0)
+    assert torch.equal(got, plain) and got.dtype == torch.float32
+    arrays = do.float().numpy(), o.float().numpy()
+    want = _jax_delta(*arrays, heads)
+    assert got.shape == want.shape
+    scale = _jax_delta(*arrays, heads,
+                       fn=lambda x, axis: jnp.sum(jnp.abs(x), axis=axis))
+    assert np.all(np.abs(got.numpy() - want) <= 1e-6 * scale)
+
+
+@pytest.mark.parametrize("shape,heads,dtype,match", [
+    ((2, 64, 192), 5, torch.bfloat16, "multiple of 5 heads"),
+    ((2, 64, 96), 3, torch.bfloat16, "head dim 32"),
+    ((2, 64, 128), 2, torch.bfloat16, "no kernel for device cpu"),
+])
+def test_delta_kernel_refuses_what_it_does_not_take(shape, heads, dtype,
+                                                     match):
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        tfa._delta_kernel(x, x, shape[0], shape[1], heads)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tfa.reset_launches()
     port_grads(qkv(b=1, t=128, h=2, d=64), False, 128)
     assert set(tfa.LAUNCHES) >= {"flash_fwd_packed", "flash_bwd_dq_packed",
-                                 "flash_bwd_dkv_packed"}
+                                 "flash_bwd_dkv_packed", "flash_delta"}
     assert tfa.LAUNCHES == dict.fromkeys(tfa.LAUNCHES, 0)
 
 

@@ -120,10 +120,22 @@ def test_resnet50_job_defaults_to_cuda():
 def test_kernel_sources_are_built_from_the_checkout():
     """Both CUDA libraries have their C signatures and a source under
     csrc/; a library's path changes with its source and the shared
-    header."""
+    header, which is the Hopper one alone (no mma.sync kernel is left)."""
     from kubeoperator_tpu_torch import kernels
     assert set(kernels.SIGNATURES) == {"flash_attention", "conv_bwd"}
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
         assert kernels.lib_path(name).parent == kernels.BUILD_DIR
-    assert (kernels.CSRC / "mma.cuh").exists()
+    assert (kernels.CSRC / "sm90.cuh").exists()
+    assert not (kernels.CSRC / "mma.cuh").exists()
+
+
+def test_no_kernel_uses_mma_sync():
+    """Every flash and conv kernel runs on Hopper's wgmma (or no matrix
+    unit at all): no CUDA source of the port issues mma.sync."""
+    from kubeoperator_tpu_torch import kernels
+    sources = sorted(kernels.CSRC.glob("*.cu*"))
+    assert {p.name for p in sources} >= {"flash_attention.cu", "conv_bwd.cu",
+                                        "sm90.cuh"}
+    for path in sources:
+        assert "mma.sync" not in path.read_text(), path.name
