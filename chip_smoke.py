@@ -33,6 +33,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 5. jobs + generate: the ``llm`` entry point with ``--sample``, then greedy
    ``generate()`` on four right-padded prompts of mixed lengths from
    trained params, checked for repeatability and against a full forward.
+   serve: the serving path at the bench LM's width with those weights.
+   (a) ``SlotPoolEngine(slots=16, segment=8)`` (page 16, 2,049 pages)
+   behind a ``ContinuousBatcher`` fed by 8 client threads with 32
+   requests from seed 0 (prompts 16-512, ``SERVE_POW2`` among them;
+   ``max_tokens`` 32-128; four sampled at 0.8): every segment runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside it)
+   and launches no port kernel; each sampled row equals its repeat run,
+   and each of the first 8 greedy rows equals a solo ``generate()`` of
+   its request or differs first at a near-tie (gap <= ``NEAR_TIE`` in the
+   full forward's logits). Tokens/s, segment and admission times (CUDA
+   events), TTFT from ``BatcherStats``, pool bytes and peak memory, beside
+   a micro-step's bound. (b) the ``serve`` entry point
+   (``jobs.build_server``) with each engine answers ``/generate`` (4
+   requests on the continuous engine, 2 on the dynamic one), ``/healthz``,
+   ``/stats`` and ``/metrics`` on a free local port, then shuts down.
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -76,10 +91,14 @@ import dataclasses
 import io
 import json
 import math
+import queue
 import re
+import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -181,6 +200,13 @@ K8_PATH = (401408, 64, 256, True)
 # outputs 10% wrong on the late half of the rows are about 0.07 off in norm.
 CONV_TOL = {"atol": 1e-2, "rtol": 2e-2, "rel_norm": 1e-3}
 F32_TOL = {"atol": 5e-2, "rtol": 1e-3, "rel_norm": 1e-4}
+# serve: the request mix of phase (a), and the limit on a greedy pool row
+# that differs from its solo generate(): the first differing token must be
+# a near-tie in the full forward's logits, the rule phase 5 uses
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_SLOTS, SERVE_SEGMENT = 32, 8, 16, 8
+SERVE_POW2 = (16, 32, 64, 128, 256, 512, 64, 256)
+SERVE_SAMPLED = (5, 13, 21, 29)
+NEAR_TIE = 0.05
 
 
 def defined_at(source: str, kernel: str) -> str:
@@ -644,6 +670,270 @@ def conv_kernel_phase(peaks) -> dict:
     return path
 
 
+def port_launches() -> dict:
+    """Every port kernel's launch count."""
+    from kubeoperator_tpu_torch import bitcast_probe as bp
+    from kubeoperator_tpu_torch.workloads import bn_fused, conv_vjp
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    return {**fa.LAUNCHES, **conv_vjp.LAUNCHES, **bn_fused.LAUNCHES,
+            **bp.LAUNCHES}
+
+
+def reset_port_launches() -> None:
+    from kubeoperator_tpu_torch import bitcast_probe as bp
+    from kubeoperator_tpu_torch.workloads import bn_fused, conv_vjp
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    for mod in (fa, conv_vjp, bn_fused, bp):
+        mod.reset_launches()
+
+
+def serve_requests(vocab: int) -> list[tuple[list[int], int, float, int]]:
+    """(prompt, max_tokens, temperature, seed) of phase (a)'s requests,
+    from seed 0: prompts of 16-512 tokens, every fourth a power of two,
+    32-128 new tokens, ``SERVE_SAMPLED`` at temperature 0.8."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 513, SERVE_REQUESTS)
+    lens[::4] = SERVE_POW2
+    mts = rng.integers(32, 129, SERVE_REQUESTS)
+    return [(rng.integers(0, vocab, int(n)).tolist(), int(mt),
+             0.8 if i in SERVE_SAMPLED else 0.0, i)
+            for i, (n, mt) in enumerate(zip(lens, mts))]
+
+
+def run_clients(submit, reqs: list, clients: int) -> dict:
+    """Each request through ``submit`` from ``clients`` threads that take
+    the next request as they finish one; {index: tokens}. Raises the
+    first error a client met."""
+    todo: queue.Queue = queue.Queue()
+    for i in range(len(reqs)):
+        todo.put(i)
+    results, failures = {}, []
+
+    def client():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            prompt, mt, temp, seed = reqs[i]
+            try:
+                results[i] = submit(prompt, mt, temperature=temp, seed=seed,
+                                    timeout=600.0)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                failures.append(e)
+                return
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900.0)
+        if t.is_alive():
+            raise AssertionError("serve: a client thread did not finish")
+    if failures:
+        raise failures[0]
+    if len(results) != len(reqs):
+        raise AssertionError(f"serve: {len(results)} of {len(reqs)} "
+                             f"requests answered")
+    return results
+
+
+def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
+    """Phase (a): the slot pool behind the continuous batcher."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.serving import (
+        BatcherStats, ContinuousBatcher,
+    )
+
+    reqs = serve_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                            segment=SERVE_SEGMENT)
+    seg_events, admit_events = [], []
+    run_segment, admit = engine.run_segment, engine.admit
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def checked_segment():
+        # a segment only enqueues work: any host sync inside it raises
+        start, end = events()
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_segment()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.record()
+        seg_events.append((start, end))
+
+    def timed_admit(entries):
+        start, end = events()
+        start.record()
+        out = admit(entries)
+        end.record()
+        admit_events.append((start, end, len(entries)))
+        return out
+
+    engine.run_segment, engine.admit = checked_segment, timed_admit
+    stats = BatcherStats()
+    batcher = ContinuousBatcher(engine, stats=stats)
+    reset_port_launches()
+    t0 = time.perf_counter()
+    results = run_clients(batcher.submit, reqs, SERVE_CLIENTS)
+    wall = time.perf_counter() - t0
+    launches = port_launches()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    seg_ms = [a.elapsed_time(b) for a, b in seg_events]
+    admit_ms = [a.elapsed_time(b) for a, b, _ in admit_events]
+    if any(launches.values()):
+        raise AssertionError(f"serve: the segments launched port kernels: "
+                             f"{launches}")
+    for i, (prompt, mt, _, _) in enumerate(reqs):
+        row = results[i]
+        if len(row) != len(prompt) + mt or row[:len(prompt)] != prompt:
+            raise AssertionError(f"serve: request {i} came back malformed")
+        if not all(0 <= t < cfg.vocab_size for t in row):
+            raise AssertionError(f"serve: request {i} left the vocabulary")
+
+    snapshot = stats.snapshot()
+    ttft = (stats.ttft_quantile(0.5), stats.ttft_quantile(0.95),
+            stats.ttft_mean())
+    # sampled rows: a repeat run, with other neighbours, draws the same
+    sampled = [reqs[i] for i in SERVE_SAMPLED]
+    again = run_clients(batcher.submit, sampled, len(sampled))
+    for j, i in enumerate(SERVE_SAMPLED):
+        if again[j] != results[i]:
+            raise AssertionError(f"serve: sampled request {i} differs from "
+                                 f"its repeat run")
+
+    # the first 8 greedy rows against a solo generate() of each request
+    greedy = [i for i in range(SERVE_REQUESTS) if reqs[i][2] == 0.0][:8]
+    near_ties, checks = 0, []
+    with torch.no_grad():
+        for i in greedy:
+            prompt, mt, _, _ = reqs[i]
+            want = generate(cfg, model, [prompt], mt)[0].tolist()
+            got = results[i]
+            j = next((k for k, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            rec = {"request": i, "prompt_len": len(prompt), "max_tokens": mt,
+                   "equal": j is None}
+            if j is not None:
+                logits = model(torch.as_tensor([want[:j]],
+                                               device=model.embedding.device)
+                               )[0, -1].float()
+                gap = abs(float(logits[got[j]] - logits[want[j]]))
+                rec.update(first_diff=j, logit_gap=gap)
+                if gap > NEAR_TIE:
+                    raise AssertionError(f"serve: greedy request {i} differs "
+                                         f"from solo generate() at {j} with "
+                                         f"a logit gap of {gap}")
+                near_ties += 1
+            checks.append(rec)
+
+    weight_bytes = 2 * sum(p.numel() for p in model.parameters())
+    tokens = sum(mt for _, mt, _, _ in reqs)
+    step_ms = statistics.median(seg_ms) / SERVE_SEGMENT
+    rec = {"phase": "serve_engine", "nvidia_smi": smi,
+           "config": {**dataclasses.asdict(cfg), "dtype": str(cfg.dtype)},
+           "slots": SERVE_SLOTS, "segment": SERVE_SEGMENT,
+           "page": engine.page, "pages": engine.pages,
+           "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+           "prompt_lens": [len(r[0]) for r in reqs],
+           "max_tokens": [r[1] for r in reqs],
+           "sampled": list(SERVE_SAMPLED), "launches": launches,
+           "sync_debug_mode": "error", "segments": len(seg_ms),
+           "generated_tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "segment_ms_median": statistics.median(seg_ms),
+           "segment_ms_p10_p90": [float(np.percentile(seg_ms, 10)),
+                                  float(np.percentile(seg_ms, 90))],
+           "micro_step_ms": step_ms,
+           "admission_waves": len(admit_ms),
+           "admission_ms_median": statistics.median(admit_ms),
+           "admission_ms_per_wave": [[round(ms, 3), k] for ms, (_, _, k)
+                                     in zip(admit_ms, admit_events)],
+           "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1],
+           "ttft_mean_s": ttft[2], "stats": snapshot,
+           "pool_bytes": engine.pool_bytes,
+           "max_memory_allocated": peak,
+           "weight_bytes_bf16": weight_bytes,
+           "micro_step_bound_ms_weights": weight_bytes / hbm * 1e3,
+           "micro_step_bound_ms_weights_full_kv":
+               (weight_bytes + engine.pool_bytes) / hbm * 1e3,
+           "greedy_vs_solo": checks, "near_tie_rows": near_ties}
+    emit(rec)
+    return rec
+
+
+def http_call(url: str, body: dict | None = None) -> tuple[int, str]:
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read().decode()
+
+
+def serve_http_phase(cfg, jobs) -> dict:
+    """Phase (b): the serve entry point with each engine, on a free local
+    port, at the bench LM's widths (fresh weights)."""
+    widths = ["--vocab", str(cfg.vocab_size), "--d-model", str(cfg.d_model),
+              "--heads", str(cfg.n_heads), "--layers", str(cfg.n_layers),
+              "--d-ff", str(cfg.d_ff), "--max-seq-len", str(cfg.max_seq_len),
+              "--host", "127.0.0.1", "--port", "0"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 33, 64, 100)]
+    out = {}
+    for engine, n in (("continuous", 4), ("dynamic", 2)):
+        args = jobs.build_parser().parse_args(["serve", "--engine", engine,
+                                               *widths])
+        t0 = time.perf_counter()
+        server, batcher = jobs.build_server(args)
+        up_s = time.perf_counter() - t0
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            t0 = time.perf_counter()
+            replies = run_clients(
+                lambda p, mt, **kw: http_call(url + "/generate", {
+                    "prompt_ids": p, "max_tokens": mt,
+                    "temperature": kw["temperature"], "seed": kw["seed"]}),
+                [(p, 12, 0.0, 0) for p in prompts[:n]], n)
+            answer_s = time.perf_counter() - t0
+            for i, (status, body) in replies.items():
+                reply = json.loads(body)
+                if (status != 200 or reply["tokens"][:len(prompts[i])]
+                        != prompts[i] or len(reply["new_tokens"]) != 12):
+                    raise AssertionError(f"serve {engine}: bad reply {i}: "
+                                         f"{status} {body[:200]}")
+            health = http_call(url + "/healthz")
+            stats = json.loads(http_call(url + "/stats")[1])
+            metrics = http_call(url + "/metrics")[1]
+            if health[0] != 200 or stats["requests_total"] != n:
+                raise AssertionError(f"serve {engine}: healthz {health}, "
+                                     f"stats {stats}")
+            if f"ko_serve_requests_total {n}" not in metrics:
+                raise AssertionError(f"serve {engine}: /metrics lacks "
+                                     f"ko_serve_requests_total {n}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        out[engine] = {"requests": n, "build_s": up_s, "answer_s": answer_s,
+                       "new_tokens": [json.loads(b)["new_tokens"]
+                                      for _, b in replies.values()],
+                       "stats": stats}
+    emit({"phase": "serve_http", **out})
+    return out
+
+
 def main() -> int:
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -778,6 +1068,10 @@ def main() -> int:
           "first_token_check": first,
           "exact_first_tokens": sum(f["token"] == f["full_forward_argmax"]
                                     for f in first)})
+
+    # -- 5b. serve: the slot pool with phase 5's weights, then the entry point
+    serve_engine_phase(cfg, model, smi, peaks[1])
+    serve_http_phase(cfg, jobs)
 
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
     vcfg = ViTConfig()

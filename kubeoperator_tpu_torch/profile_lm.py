@@ -3,6 +3,7 @@
     python -m kubeoperator_tpu_torch.profile_lm [--steps 3] [--top 15]
     python -m kubeoperator_tpu_torch.profile_lm --model vit [--batch 128]
     python -m kubeoperator_tpu_torch.profile_lm --model resnet [--batch 128]
+    python -m kubeoperator_tpu_torch.profile_lm --model serve [--batch 16]
 
 Trains the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048,
 batch 8, bf16, remat dots+attn, bf16 logits), with ``--model vit``
@@ -12,7 +13,9 @@ ResNet-50 at 224² in the configuration that runs K7 and K8
 ``--steps`` more with ``torch.profiler`` and prints one JSON line: the
 window's wall time, the device's busy and idle share, the device time by
 class (the port's kernels, cuDNN convs, cuBLAS GEMMs, the rest) and the
-``--top`` kernels by device time. Needs the card.
+``--top`` kernels by device time. With ``--model serve`` a step is one
+decode segment of the bench LM's ``SlotPoolEngine`` (``--batch`` slots,
+all live, 8 tokens each, from 512-token prompts). Needs the card.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -59,19 +63,47 @@ def kernel_class(name: str) -> str:
         return "optimizer"
     if "copy_kernel" in low:
         return "casts and copies"
+    if "index" in low or "gather" in low:
+        return "gather/scatter (indexing)"
     return "other elementwise/reduction"
+
+
+def serve_segment(slots: int):
+    """One decode segment of a bench-LM slot pool with every slot live, as
+    a step: ``slots`` requests of 512 random prompt tokens and 1,024 new
+    ones, greedy, admitted once. Returns the step (it has no metrics)."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    with torch.device("cuda"):
+        model = Transformer(BENCH_LM)
+    model.reset_parameters(0)
+    engine = SlotPoolEngine(BENCH_LM, model, slots=slots, segment=8)
+    rng = np.random.default_rng(0)
+    engine.admit([(s, rng.integers(0, BENCH_LM.vocab_size, 512).tolist(),
+                   1024, 0.0, s) for s in range(slots)])
+
+    def step():
+        engine.run_segment()
+
+    return step
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--model", choices=("lm", "vit", "resnet"), default="lm")
+    ap.add_argument("--model", choices=("lm", "vit", "resnet", "serve"),
+                    default="lm")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 for the LM, 128 for the ViT and ResNet")
+                    help="default 8 for the LM, 128 for the ViT and ResNet, "
+                         "16 slots for serve")
     args = ap.parse_args(argv)
 
-    if args.model == "lm":
+    if args.model == "serve":
+        args.batch = args.batch or 16
+        step, seq_len = serve_segment(args.batch), None
+    elif args.model == "lm":
         args.batch = args.batch or 8
         tr = LMTrainer(BENCH_LM)
         inputs = (tr.synthetic_batch(args.batch, BENCH_LM.max_seq_len),)
@@ -88,17 +120,23 @@ def main(argv: list[str] | None = None) -> int:
         tr = Trainer(RESNET_K7_K8)
         inputs = tr.synthetic_batch(args.batch)
         seq_len = None
-    state = tr.init_state()
+    if args.model != "serve":
+        state = {"train": tr.init_state()}
+
+        def step():
+            state["train"], metrics = tr.train_step(state["train"], *inputs)
+            return metrics
+
     for _ in range(3):
-        state, _ = tr.train_step(state, *inputs)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            state, metrics = tr.train_step(state, *inputs)
+            metrics = step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    loss = float(metrics["loss"])
+    loss = None if metrics is None else float(metrics["loss"])
 
     kernels = []
     for ev in prof.key_averages():

@@ -44,6 +44,22 @@ def row_seed(seed: int, row: int, pos: int) -> int:
     return h
 
 
+def gumbel_draw(logits: torch.Tensor, temperature: float,
+                keys: Sequence[tuple[int, int, int]],
+                gen: torch.Generator) -> torch.Tensor:
+    """Temperature sample of each row of ``logits`` [B, V] by Gumbel-max:
+    row i's noise comes from ``gen`` seeded with ``row_seed(*keys[i])``,
+    so a row's draw depends on its (seed, row, position) key and its own
+    logits only. The one sampling rule of ``generate()`` and the slot-pool
+    engine (decode_loop.py)."""
+    noise = []
+    for key in keys:
+        gen.manual_seed(row_seed(*key))
+        u = torch.rand(logits.shape[-1], generator=gen, device=logits.device)
+        noise.append(-torch.log(-torch.log(u)))
+    return torch.argmax(logits / temperature + torch.stack(noise), -1)
+
+
 def generate(cfg: TransformerConfig, model: Transformer, prompt,
              max_new_tokens: int, temperature: float = 0.0, seed: int = 0,
              prompt_lens: Sequence[int] | None = None,
@@ -93,20 +109,15 @@ def generate(cfg: TransformerConfig, model: Transformer, prompt,
         # otherwise overwrite the last prompt token)
         return buf
 
-    gens = ([torch.Generator(device=dev) for _ in range(b)]
-            if temperature > 0 else [])
+    gen = torch.Generator(device=dev)
 
     def choose(logits: torch.Tensor, pos: int) -> None:
         """Write the token for position pos+1 from position pos's logits:
         the given prompt token while pos+1 is inside a row's prompt, the
         model's choice after."""
         if temperature > 0:
-            noise = []
-            for row, g in enumerate(gens):
-                g.manual_seed(row_seed(seed, row, pos))
-                u = torch.rand(logits.shape[-1], generator=g, device=dev)
-                noise.append(-torch.log(-torch.log(u)))
-            nxt = torch.argmax(logits / temperature + torch.stack(noise), -1)
+            nxt = gumbel_draw(logits, temperature,
+                              [(seed, row, pos) for row in range(b)], gen)
         else:
             nxt = torch.argmax(logits, dim=-1)
         at = min(pos + 1, total - 1)

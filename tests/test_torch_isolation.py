@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kubeoperator_tpu_torch.train import jobs
+from kubeoperator_tpu_torch.workloads import decode_loop as tdl
 from kubeoperator_tpu_torch.workloads import generate as tgen
 from kubeoperator_tpu_torch.workloads import lm as tlm
 from kubeoperator_tpu_torch.workloads import train as ttrain
@@ -49,6 +50,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "kubeoperator_tpu_torch/workloads/bn_fused.py",
             "kubeoperator_tpu_torch/workloads/resnet.py",
             "kubeoperator_tpu_torch/bitcast_probe.py",
+            "kubeoperator_tpu_torch/workloads/decode_loop.py",
+            "kubeoperator_tpu_torch/workloads/serving.py",
+            "kubeoperator_tpu_torch/telemetry/metrics.py",
             "chip_smoke.py"} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -115,6 +119,23 @@ def test_resnet50_job_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jobs.main(["resnet50", "--steps", "1", "--batch-per-chip", "1",
                    "--image-size", "32", "--depth", "18"])
+
+
+def test_slot_pool_engine_defaults_to_cuda():
+    with torch.device("cuda" if torch.cuda.is_available() else "cpu"):
+        model = ttr.Transformer(TINY)
+    _expect_cuda_default(
+        lambda: tdl.SlotPoolEngine(TINY, model, slots=1, segment=1).device)
+
+
+@pytest.mark.parametrize("engine", ["continuous", "dynamic"])
+def test_serve_job_defaults_to_cuda(engine):
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default run is the full server")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jobs.main(["serve", "--engine", engine, "--port", "0", "--vocab",
+                   "64", "--d-model", "32", "--heads", "4", "--layers", "1",
+                   "--d-ff", "64", "--max-seq-len", "16"])
 
 
 def test_kernel_sources_are_built_from_the_checkout():

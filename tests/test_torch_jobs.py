@@ -1,9 +1,15 @@
-"""The port's ``llm``, ``resnet50`` and ``vit`` job entry points on the
-CPU at a tiny size: they emit loss lines (and the llm job its sampled
-tokens) and a done record, and refuse the flags whose parts are not ported
-yet."""
+"""The port's ``llm``, ``resnet50``, ``vit`` and ``serve`` job entry
+points on the CPU at a tiny size: the training jobs emit loss lines (and
+the llm job its sampled tokens) and a done record, the serve job answers
+over HTTP with both engines, and each refuses the flags whose parts are
+not ported yet."""
 
+import contextlib
+import http.server
 import json
+import threading
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -148,3 +154,127 @@ def test_resnet50_config_is_the_jax_job_s(monkeypatch, capsys, size, stem):
 def test_resnet50_unported_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         jobs.main(["resnet50", *RESNET_TINY, "--steps", "1", flag, value])
+
+
+SERVE_TINY = ["--device", "cpu", "--vocab", "64", "--d-model", "32",
+              "--heads", "4", "--layers", "2", "--d-ff", "64",
+              "--max-seq-len", "32", "--no-bf16", "--host", "127.0.0.1",
+              "--port", "0"]
+HTTP_WAIT = 120.0     # seconds one HTTP exchange or join may take here
+
+
+@contextlib.contextmanager
+def serving(*argv):
+    """The serve job's server on a free port, serving from a thread."""
+    args = jobs.build_parser().parse_args(["serve", *SERVE_TINY, *argv])
+    server, batcher = jobs.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}", batcher
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=HTTP_WAIT)
+        assert not thread.is_alive()
+
+
+def call(url, body=None):
+    """(status, body) of one GET, or of one POST when ``body`` is given
+    (bytes are sent as they are, anything else as JSON)."""
+    data = None if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_WAIT) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+@pytest.mark.parametrize("engine", ["continuous", "dynamic"])
+def test_serve_answers_over_http(capsys, engine):
+    with serving("--engine", engine) as (url, batcher):
+        status, body = call(url + "/healthz")
+        assert status == 200 and json.loads(body)["model"] == {
+            "d_model": 32, "layers": 2, "vocab": 64, "max_seq_len": 32}
+        prompts = [[1, 2, 3], [5, 6, 7, 8, 9], [4], [10, 11, 12, 13]]
+        got = {}
+
+        def client(i):
+            got[i] = call(url + "/generate", {"prompt_ids": prompts[i],
+                                              "max_tokens": 6})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_WAIT)
+            assert not t.is_alive()
+        for i, prompt in enumerate(prompts):
+            status, body = got[i]
+            assert status == 200, body
+            reply = json.loads(body)
+            assert reply["tokens"][:len(prompt)] == prompt
+            assert len(reply["new_tokens"]) == 6
+            assert reply["tokens"][len(prompt):] == reply["new_tokens"]
+            assert all(0 <= t < 64 for t in reply["new_tokens"])
+            # greedy decoding repeats, whatever the request shared a batch
+            # or the pool with
+            again = call(url + "/generate", {"prompt_ids": prompt,
+                                             "max_tokens": 6})
+            assert again == (200, body)
+        for bad in ({"max_tokens": 3}, {"prompt_ids": [1], "max_tokens": "x"},
+                    {"prompt_ids": [1, 99]}, {"prompt_ids": []},
+                    {"prompt_ids": [1] * 30, "max_tokens": 8}, b"not json"):
+            status, body = call(url + "/generate", bad)
+            assert status == 400 and "error" in json.loads(body), bad
+        assert call(url + "/nowhere")[0] == 404
+        assert call(url + "/nowhere", {})[0] == 404
+        status, body = call(url + "/stats")
+        stats = json.loads(body)
+        assert status == 200 and stats["requests_total"] == 8
+        assert stats["tokens_generated_total"] == 48
+        status, text = call(url + "/metrics")
+        assert status == 200
+        assert "ko_serve_requests_total 8" in text
+        assert "# TYPE ko_serve_ttft_seconds histogram" in text
+        assert batcher.stats.snapshot()["errors_total"] == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert records[0]["device"] == "cpu"
+    assert records[1]["engine"] == engine
+
+
+def test_serve_job_listens_until_interrupted(monkeypatch, capsys):
+    def interrupted(self, *a, **k):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(http.server.ThreadingHTTPServer, "serve_forever",
+                        interrupted)
+    assert jobs.main(["serve", *SERVE_TINY, "--engine", "continuous",
+                      "--slots", "2", "--segment", "4", "--page", "8"]) == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    pool = next(r for r in records if r.get("engine") == "continuous")
+    assert (pool["slots"], pool["segment"], pool["page"], pool["pages"]) == (
+        2, 4, 8, 2 * 4 + 1)
+    assert records[-1]["listening"].startswith("127.0.0.1:")
+
+
+def test_serve_warms_dynamic_buckets(capsys):
+    with serving("--warm", "3x5x6,1x9x2"):
+        pass
+    warmed = [json.loads(line).get("warming")
+              for line in capsys.readouterr().out.splitlines()]
+    assert [w for w in warmed if w] == ["4x8x8 prefill=4", "1x16x2 prefill=8"]
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--mesh", "dp:2"), ("--ckpt-dir", "ckpt"), ("--kv-dtype", "int8"),
+    ("--spill-pages", "4"), ("--spec-k", "2"), ("--draft-layers", "1"),
+    ("--moe", "4"), ("--aot-cache", "aot")])
+def test_serve_unported_flags_raise(flag, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        jobs.main(["serve", *SERVE_TINY, "--engine", "continuous", flag,
+                   value])
