@@ -44,10 +44,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    its request or differs first at a near-tie (gap <= ``NEAR_TIE`` in the
    full forward's logits). Tokens/s, segment and admission times (CUDA
    events), TTFT from ``BatcherStats``, pool bytes and peak memory, beside
-   a micro-step's bound. (b) the ``serve`` entry point
-   (``jobs.build_server``) with each engine answers ``/generate`` (4
-   requests on the continuous engine, 2 on the dynamic one), ``/healthz``,
-   ``/stats`` and ``/metrics`` on a free local port, then shuts down.
+   a micro-step's bound. (c) serve_prefix: 32 requests from seed 1 whose
+   prompts all open with one 512-token system prompt that a first request
+   cached (4 full hits with copy-on-write, 14 cover hits, 14 partial
+   hits), then the same requests with that prefix replaced by random
+   tokens of their own (no hit): hit kinds, hit and copy-on-write
+   counters, peak pages in use, admission ms a wave, TTFT, tokens/s,
+   segment ms, the cached pages unchanged after their sharers wrote, and
+   greedy hit rows of each kind against the same requests admitted cold
+   (near-tie rule). (d) serve_kv_quant: int8 pages at the bf16 pool's
+   byte budget (3,973 pages) under phase (a)'s traffic, then 16 greedy
+   requests in bf16, int8 and fp8 engines: int8's ``debug_logits``
+   within ``LOGIT_TOLERANCE`` of bf16's, fp8's distance reported. (e)
+   serve_spill, bf16 and int8: 4 slots, 101 pages (four live requests
+   and one 16-page prefix), ``SPILL_PAGES`` of host tier, 8 prefixes of
+   256 tokens cycled twice: demotions and promoted hits, each promotion's
+   pages equal to the demoted bits, promotion ms against a 256-token
+   prefill, pinned host bytes, rows against a cold one-wave run (near-tie
+   rule, plus the declared tolerance for int8). (b) the ``serve`` entry
+   point (``jobs.build_server``) with each engine, and the continuous one
+   again with ``--kv-dtype int8 --spill-pages 64``, answers ``/generate``
+   (4 requests on a continuous engine, 2 on the dynamic one),
+   ``/healthz``, ``/stats`` and ``/metrics`` on a free local port, then
+   shuts down. ``serve_total`` times the serve phases together.
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -207,6 +226,17 @@ SERVE_REQUESTS, SERVE_CLIENTS, SERVE_SLOTS, SERVE_SEGMENT = 32, 8, 16, 8
 SERVE_POW2 = (16, 32, 64, 128, 256, 512, 64, 256)
 SERVE_SAMPLED = (5, 13, 21, 29)
 NEAR_TIE = 0.05
+# serve_prefix: the shared system prompt's length, how many requests of
+# each hit kind, and how many greedy rows of each kind are held against a
+# cold admission of the same request
+PREFIX_LEN = 512
+PREFIX_KINDS = (("full", 4), ("cover", 14), ("partial", 14))
+PREFIX_CHECKED = (("full", 2), ("cover", 3), ("partial", 3))
+# serve_spill: distinct prefixes (cycled twice), new tokens a request, and
+# the host tier's bound in pages. A demoted prefix of 16 pages takes 136
+# there (the cache holds one entry per page-aligned prefix, 1 to 16
+# pages, and each demotes on its own), so eight take 1,088
+SPILL_PREFIXES, SPILL_NEW, SPILL_PAGES = 8, 64, 1088
 
 
 def defined_at(source: str, kernel: str) -> str:
@@ -738,20 +768,16 @@ def run_clients(submit, reqs: list, clients: int) -> dict:
     return results
 
 
-def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
-    """Phase (a): the slot pool behind the continuous batcher."""
-    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
-    from kubeoperator_tpu_torch.workloads.generate import generate
-    from kubeoperator_tpu_torch.workloads.serving import (
-        BatcherStats, ContinuousBatcher,
-    )
-
-    reqs = serve_requests(cfg.vocab_size)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
-                            segment=SERVE_SEGMENT)
-    seg_events, admit_events = [], []
+def instrument(engine) -> dict:
+    """Wrap ``engine.run_segment`` and ``engine.admit`` in place: every
+    segment runs between CUDA events under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a segment only enqueues
+    work, so any host sync inside it raises), every admission between
+    CUDA events, and after each admission the wave's hit kinds are
+    counted and the peak of ``pages_in_use()`` kept. Returns the lists and
+    counters the wrappers fill."""
+    rec = {"seg": [], "admit": [], "peak_pages": engine.pages_in_use(),
+           "hit_kinds": collections.Counter()}
     run_segment, admit = engine.run_segment, engine.admit
 
     def events():
@@ -759,7 +785,6 @@ def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
                 torch.cuda.Event(enable_timing=True))
 
     def checked_segment():
-        # a segment only enqueues work: any host sync inside it raises
         start, end = events()
         start.record()
         torch.cuda.set_sync_debug_mode("error")
@@ -768,105 +793,427 @@ def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         end.record()
-        seg_events.append((start, end))
+        rec["seg"].append((start, end))
 
     def timed_admit(entries):
         start, end = events()
         start.record()
         out = admit(entries)
         end.record()
-        admit_events.append((start, end, len(entries)))
+        rec["admit"].append((start, end, len(entries)))
+        rec["hit_kinds"].update(p["hit_kind"]
+                                for p in engine.last_plans.values())
+        rec["peak_pages"] = max(rec["peak_pages"], engine.pages_in_use())
         return out
 
     engine.run_segment, engine.admit = checked_segment, timed_admit
+    return rec
+
+
+def drive(engine, reqs: list, clients: int) -> tuple:
+    """``reqs`` through a ``ContinuousBatcher`` over the instrumented
+    ``engine`` from ``clients`` threads, port launch counts reset before
+    and read after: no port kernel may launch, and every reply must be
+    its prompt followed by the asked number of tokens of the vocabulary.
+    Returns (batcher, stats, results, measurements)."""
+    from kubeoperator_tpu_torch.workloads.serving import (
+        BatcherStats, ContinuousBatcher,
+    )
+
+    rec = instrument(engine)
     stats = BatcherStats()
     batcher = ContinuousBatcher(engine, stats=stats)
     reset_port_launches()
     t0 = time.perf_counter()
-    results = run_clients(batcher.submit, reqs, SERVE_CLIENTS)
+    results = run_clients(batcher.submit, reqs, clients)
     wall = time.perf_counter() - t0
     launches = port_launches()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    seg_ms = [a.elapsed_time(b) for a, b in seg_events]
-    admit_ms = [a.elapsed_time(b) for a, b, _ in admit_events]
     if any(launches.values()):
         raise AssertionError(f"serve: the segments launched port kernels: "
                              f"{launches}")
+    vocab = engine.cfg.vocab_size
     for i, (prompt, mt, _, _) in enumerate(reqs):
         row = results[i]
         if len(row) != len(prompt) + mt or row[:len(prompt)] != prompt:
             raise AssertionError(f"serve: request {i} came back malformed")
-        if not all(0 <= t < cfg.vocab_size for t in row):
+        if not all(0 <= t < vocab for t in row):
             raise AssertionError(f"serve: request {i} left the vocabulary")
+    seg_ms = [a.elapsed_time(b) for a, b in rec["seg"]]
+    admit_ms = [a.elapsed_time(b) for a, b, _ in rec["admit"]]
+    tokens = sum(mt for _, mt, _, _ in reqs)
+    m = {"launches": launches, "sync_debug_mode": "error",
+         "segments": len(seg_ms), "generated_tokens": tokens, "wall_s": wall,
+         "tokens_per_s": tokens / wall,
+         "segment_ms_median": statistics.median(seg_ms),
+         "segment_ms_p10_p90": [float(np.percentile(seg_ms, 10)),
+                                float(np.percentile(seg_ms, 90))],
+         "micro_step_ms": statistics.median(seg_ms) / engine.segment,
+         "admission_waves": len(admit_ms),
+         "admission_ms_median": statistics.median(admit_ms),
+         "admission_ms_per_wave": [[round(ms, 3), k] for ms, (_, _, k)
+                                   in zip(admit_ms, rec["admit"])],
+         "ttft_p50_s": stats.ttft_quantile(0.5),
+         "ttft_p95_s": stats.ttft_quantile(0.95),
+         "ttft_mean_s": stats.ttft_mean(), "stats": stats.snapshot(),
+         "hit_kinds": dict(rec["hit_kinds"]),
+         "peak_pages_in_use": rec["peak_pages"],
+         "page": engine.page, "pages": engine.pages,
+         "pool_bytes": engine.pool_bytes, "kv_dtype": engine.kv_dtype}
+    m.update({k: getattr(engine, k) for k in (
+        "prefix_hits", "prefix_pages_reused", "cow_copies", "demotions",
+        "promoted_hits")})
+    return batcher, stats, results, m
 
-    snapshot = stats.snapshot()
-    ttft = (stats.ttft_quantile(0.5), stats.ttft_quantile(0.95),
-            stats.ttft_mean())
-    # sampled rows: a repeat run, with other neighbours, draws the same
-    sampled = [reqs[i] for i in SERVE_SAMPLED]
-    again = run_clients(batcher.submit, sampled, len(sampled))
-    for j, i in enumerate(SERVE_SAMPLED):
+
+def check_repeats(batcher, reqs: list, idx, results: dict) -> None:
+    """Each sampled request ``idx`` run again, beside other neighbours,
+    must draw the same tokens."""
+    again = run_clients(batcher.submit, [reqs[i] for i in idx], len(idx))
+    for j, i in enumerate(idx):
         if again[j] != results[i]:
             raise AssertionError(f"serve: sampled request {i} differs from "
                                  f"its repeat run")
 
+
+def near_tie(model, i: int, got: list, want: list, limit: float) -> dict:
+    """Request ``i``'s greedy row ``got`` against ``want``: equal, or the
+    first differing token a near-tie (gap <= ``limit``) in the full
+    forward's logits over ``want``'s tokens before it."""
+    j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    rec = {"request": i, "equal": j is None}
+    if j is not None:
+        with torch.no_grad():
+            logits = model(torch.as_tensor(
+                [want[:j]], device=model.embedding.device))[0, -1].float()
+        gap = abs(float(logits[got[j]] - logits[want[j]]))
+        rec.update(first_diff=j, logit_gap=gap)
+        if gap > limit:
+            raise AssertionError(f"serve: greedy request {i} differs at {j} "
+                                 f"with a logit gap of {gap} > {limit}")
+    return rec
+
+
+def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
+    """Phase (a): the slot pool behind the continuous batcher."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.generate import generate
+
+    reqs = serve_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                            segment=SERVE_SEGMENT,
+                            device=model.embedding.device)
+    batcher, _, results, m = drive(engine, reqs, SERVE_CLIENTS)
+    peak = torch.cuda.max_memory_allocated()
+    # sampled rows: a repeat run, with other neighbours, draws the same
+    check_repeats(batcher, reqs, SERVE_SAMPLED, results)
     # the first 8 greedy rows against a solo generate() of each request
     greedy = [i for i in range(SERVE_REQUESTS) if reqs[i][2] == 0.0][:8]
-    near_ties, checks = 0, []
-    with torch.no_grad():
-        for i in greedy:
-            prompt, mt, _, _ = reqs[i]
-            want = generate(cfg, model, [prompt], mt)[0].tolist()
-            got = results[i]
-            j = next((k for k, (a, b) in enumerate(zip(got, want))
-                      if a != b), None)
-            rec = {"request": i, "prompt_len": len(prompt), "max_tokens": mt,
-                   "equal": j is None}
-            if j is not None:
-                logits = model(torch.as_tensor([want[:j]],
-                                               device=model.embedding.device)
-                               )[0, -1].float()
-                gap = abs(float(logits[got[j]] - logits[want[j]]))
-                rec.update(first_diff=j, logit_gap=gap)
-                if gap > NEAR_TIE:
-                    raise AssertionError(f"serve: greedy request {i} differs "
-                                         f"from solo generate() at {j} with "
-                                         f"a logit gap of {gap}")
-                near_ties += 1
-            checks.append(rec)
+    checks = []
+    for i in greedy:
+        prompt, mt, _, _ = reqs[i]
+        with torch.no_grad():
+            want = generate(cfg, model, [prompt], mt,
+                            device=model.embedding.device)[0].tolist()
+        checks.append({**near_tie(model, i, results[i], want, NEAR_TIE),
+                       "prompt_len": len(prompt), "max_tokens": mt})
 
     weight_bytes = 2 * sum(p.numel() for p in model.parameters())
-    tokens = sum(mt for _, mt, _, _ in reqs)
-    step_ms = statistics.median(seg_ms) / SERVE_SEGMENT
     rec = {"phase": "serve_engine", "nvidia_smi": smi,
            "config": {**dataclasses.asdict(cfg), "dtype": str(cfg.dtype)},
            "slots": SERVE_SLOTS, "segment": SERVE_SEGMENT,
-           "page": engine.page, "pages": engine.pages,
            "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
            "prompt_lens": [len(r[0]) for r in reqs],
            "max_tokens": [r[1] for r in reqs],
-           "sampled": list(SERVE_SAMPLED), "launches": launches,
-           "sync_debug_mode": "error", "segments": len(seg_ms),
-           "generated_tokens": tokens, "wall_s": wall,
-           "tokens_per_s": tokens / wall,
-           "segment_ms_median": statistics.median(seg_ms),
-           "segment_ms_p10_p90": [float(np.percentile(seg_ms, 10)),
-                                  float(np.percentile(seg_ms, 90))],
-           "micro_step_ms": step_ms,
-           "admission_waves": len(admit_ms),
-           "admission_ms_median": statistics.median(admit_ms),
-           "admission_ms_per_wave": [[round(ms, 3), k] for ms, (_, _, k)
-                                     in zip(admit_ms, admit_events)],
-           "ttft_p50_s": ttft[0], "ttft_p95_s": ttft[1],
-           "ttft_mean_s": ttft[2], "stats": snapshot,
-           "pool_bytes": engine.pool_bytes,
+           "sampled": list(SERVE_SAMPLED), **m,
            "max_memory_allocated": peak,
            "weight_bytes_bf16": weight_bytes,
            "micro_step_bound_ms_weights": weight_bytes / hbm * 1e3,
            "micro_step_bound_ms_weights_full_kv":
                (weight_bytes + engine.pool_bytes) / hbm * 1e3,
-           "greedy_vs_solo": checks, "near_tie_rows": near_ties}
+           "greedy_vs_solo": checks,
+           "near_tie_rows": sum(not c["equal"] for c in checks)}
+    emit(rec)
+    return rec
+
+
+def run_wave(cfg, model, reqs: list, **kw) -> list[list[int]]:
+    """Every request of ``reqs`` admitted in ONE wave into a fresh engine
+    with a slot each (so none hits another's prefix: prefixes publish
+    after the wave), decoded to the end; the rows."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+
+    engine = SlotPoolEngine(cfg, model, slots=len(reqs), segment=SERVE_SEGMENT,
+                            device=model.embedding.device, **kw)
+    pos = engine.admit([(i, p, mt, t, sd)
+                        for i, (p, mt, t, sd) in enumerate(reqs)])
+    track = {i: [pos[i], len(p) + mt - 1] for i, (p, mt, _, _) in
+             enumerate(reqs)}
+    while any(p < last for p, last in track.values()):
+        engine.run_segment()
+        for t in track.values():
+            t[0] = min(t[0] + engine.segment, t[1])
+    buf, _ = engine.poll()
+    return [buf[i][:len(p) + mt].tolist() for i, (p, mt, _, _) in
+            enumerate(reqs)]
+
+
+def prefix_traffic(vocab: int) -> tuple[list, list, list]:
+    """serve_prefix's requests from seed 1: the shared system prompt
+    (``PREFIX_LEN`` tokens), each request's hit kind, and (suffix,
+    max_tokens, temperature, seed) per request — a full hit has no
+    suffix, a cover hit 1-511 tokens, a partial hit 512-1,024."""
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, vocab, PREFIX_LEN).tolist()
+    kinds = [k for k, n in PREFIX_KINDS for _ in range(n)]
+    rng.shuffle(kinds)
+    span = {"full": (0, 1), "cover": (1, PREFIX_LEN),
+            "partial": (PREFIX_LEN, 2 * PREFIX_LEN + 1)}
+    tails = [(rng.integers(0, vocab, int(rng.integers(*span[k]))).tolist(),
+              int(rng.integers(32, 129)),
+              0.8 if i in SERVE_SAMPLED else 0.0, i)
+             for i, k in enumerate(kinds)]
+    return system, kinds, tails
+
+
+def serve_prefix_phase(cfg, model, smi: str) -> dict:
+    """Phase (c): every prompt opens with one shared system prompt, which
+    a first request has already cached; then the same requests with that
+    prefix replaced by random tokens of their own, so nothing hits."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+
+    system, kinds, tails = prefix_traffic(cfg.vocab_size)
+    rng = np.random.default_rng(2)
+    out = {}
+    for run in ("hit", "cold"):
+        if run == "hit":
+            prefixes = [system] * len(tails)
+            prime = system
+        else:
+            prefixes = [rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+                        for _ in tails]
+            prime = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+        reqs = [(pre + tail, mt, t, sd)
+                for pre, (tail, mt, t, sd) in zip(prefixes, tails)]
+        engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                                segment=SERVE_SEGMENT,
+                                device=model.embedding.device)
+        # a first request caches its prompt's pages (the system prompt in
+        # the hit run): one prefill, nothing to decode
+        engine.admit([(0, prime, 1, 0.0, 0)])
+        engine.release([0])
+        cached = engine._shards[0].prefix[hash(tuple(prime))][1]
+        idx = torch.as_tensor(cached, device=model.embedding.device)
+        before = [b[idx].clone() for entry in engine._pools for b in entry]
+        batcher, _, results, m = drive(engine, reqs, SERVE_CLIENTS)
+        check_repeats(batcher, reqs, SERVE_SAMPLED, results)
+        want = {"hit": collections.Counter(kinds),
+                "cold": {"miss": len(reqs)}}[run]
+        if m["hit_kinds"] != dict(want):
+            raise AssertionError(f"serve_prefix {run}: hit kinds "
+                                 f"{m['hit_kinds']}, expected {dict(want)}")
+        out[run] = m
+        if run == "cold":
+            continue
+        # the sharers wrote only their own pages
+        after = [b[idx] for entry in engine._pools for b in entry]
+        if engine._shards[0].prefix[hash(tuple(prime))][1] != cached or \
+                not all(map(torch.equal, after, before)):
+            raise AssertionError("serve_prefix: the cached system prompt's "
+                                 "pages changed under their sharers")
+        m["cached_pages_unchanged"] = len(cached)
+        # greedy hit rows of each kind against the same requests admitted
+        # cold, in one wave into a fresh engine
+        picked = [i for k, n in PREFIX_CHECKED for i in
+                  [j for j, kk in enumerate(kinds)
+                   if kk == k and tails[j][2] == 0.0][:n]]
+        cold = run_wave(cfg, model, [reqs[i] for i in picked])
+        m["greedy_vs_cold"] = [
+            {**near_tie(model, i, results[i], row, NEAR_TIE),
+             "kind": kinds[i], "prompt_len": len(reqs[i][0])}
+            for i, row in zip(picked, cold)]
+    rec = {"phase": "serve_prefix", "nvidia_smi": smi,
+           "slots": SERVE_SLOTS, "segment": SERVE_SEGMENT,
+           "requests": len(tails), "clients": SERVE_CLIENTS,
+           "prefix_len": PREFIX_LEN, "kinds": kinds,
+           "prompt_lens": [PREFIX_LEN + len(t[0]) for t in tails],
+           "max_tokens": [t[1] for t in tails],
+           "sampled": list(SERVE_SAMPLED), **out}
+    emit(rec)
+    return rec
+
+
+def kv_quant_pages(cfg, page: int, budget: int) -> tuple[int, int]:
+    """(pages, bytes a page) of an int8 pool within ``budget`` bytes: a
+    page holds 1-byte K and V codes and a float32 scale per (offset,
+    head), in every layer."""
+    per_page = cfg.n_layers * 2 * page * cfg.n_heads * (cfg.head_dim + 4)
+    return budget // per_page, per_page
+
+
+def serve_kv_quant_phase(cfg, model, smi: str, bf16: dict) -> dict:
+    """Phase (d): int8 pages at the bf16 pool's byte budget under phase
+    (a)'s traffic, then the same 16 greedy requests admitted into bf16,
+    int8 and fp8 engines: the int8 engine's logits within
+    ``LOGIT_TOLERANCE`` of bf16's, and the fp8 engine's distance
+    reported against the same bound."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import (
+        LOGIT_TOLERANCE, SlotPoolEngine,
+    )
+
+    dev = model.embedding.device
+    pages, per_page = kv_quant_pages(cfg, bf16["page"], bf16["pool_bytes"])
+    reqs = serve_requests(cfg.vocab_size)
+    engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                            segment=SERVE_SEGMENT, pages=pages,
+                            kv_dtype="int8", device=dev)
+    if engine.pool_bytes != pages * per_page or \
+            engine.pool_bytes > bf16["pool_bytes"]:
+        raise AssertionError(f"serve_kv_quant: pool of {engine.pool_bytes} "
+                             f"bytes, budget {bf16['pool_bytes']}")
+    batcher, _, results, m = drive(engine, reqs, SERVE_CLIENTS)
+    check_repeats(batcher, reqs, SERVE_SAMPLED, results)
+
+    greedy = [r for r in reqs if r[2] == 0.0][:SERVE_SLOTS]
+    engines = {kv: SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                                  segment=SERVE_SEGMENT, kv_dtype=kv,
+                                  device=dev)
+               for kv in ("bf16", "int8", "fp8")}
+    for e in engines.values():
+        e.admit([(i, p, mt, 0.0, sd) for i, (p, mt, _, sd) in
+                 enumerate(greedy)])
+    ref = engines["bf16"].debug_logits()
+    rows = {kv: np.abs(engines[kv].debug_logits() - ref).max(axis=1)
+            for kv in ("int8", "fp8")}
+    deltas = {kv: float(r.max()) for kv, r in rows.items()}
+    rec = {"phase": "serve_kv_quant", "nvidia_smi": smi,
+           "requests": len(reqs), "clients": SERVE_CLIENTS,
+           "bytes_per_page": {"bf16": bf16["pool_bytes"] // bf16["pages"],
+                              "int8": per_page},
+           "int8": m,
+           "bf16": {k: bf16[k] for k in (
+               "pages", "pool_bytes", "tokens_per_s", "segment_ms_median",
+               "micro_step_ms")},
+           "logit_max_abs_delta": deltas,
+           "logit_max_abs_delta_per_row": {kv: r.tolist()
+                                           for kv, r in rows.items()},
+           "bf16_logit_abs_max": float(np.abs(ref).max()),
+           "bf16_logit_std": float(ref.std()),
+           "logit_tolerance": {kv: LOGIT_TOLERANCE[kv] for kv in deltas},
+           "within_tolerance": {kv: d <= LOGIT_TOLERANCE[kv]
+                                for kv, d in deltas.items()}}
+    emit(rec)
+    # int8, the serve job's quantized layout, is held to its declared
+    # tolerance. fp8 is measured and reported beside it, not held: with
+    # these weights the reference design's fp8 pages (e4m3 codes, one
+    # scale per head) come out at 0.15-0.26 on an H100, over the 0.25
+    # it declares, while its codes equal the reference's bit for bit on
+    # the CPU (tests/test_torch_kv_quant.py)
+    if not rec["within_tolerance"]["int8"]:
+        raise AssertionError(f"serve_kv_quant: int8 logits differ from "
+                             f"bf16's by {deltas['int8']}, over "
+                             f"{LOGIT_TOLERANCE['int8']}")
+    return rec
+
+
+def spill_traffic(vocab: int) -> list:
+    """serve_spill's requests from seed 3: ``SPILL_PREFIXES`` distinct
+    256-token prefixes, each followed by a unique 16-token suffix, cycled
+    twice, 64 greedy tokens each."""
+    rng = np.random.default_rng(3)
+    prefixes = [rng.integers(0, vocab, 256).tolist()
+                for _ in range(SPILL_PREFIXES)]
+    return [(prefixes[i % SPILL_PREFIXES] + rng.integers(0, vocab, 16).tolist(),
+             SPILL_NEW, 0.0, i) for i in range(2 * SPILL_PREFIXES)]
+
+
+def serve_spill_phase(cfg, model, smi: str, kv: str) -> dict:
+    """Phase (e): a pool just large enough for four live requests and one
+    prefix entry, with a host spill tier: the first cycle of prefixes
+    demotes, the second promotes. Each promotion's pages must be the
+    demoted bits; each row equals its cold run or first differs at a
+    near-tie (the quantized tolerance added for a quantized pool)."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import (
+        LOGIT_TOLERANCE, SlotPoolEngine,
+    )
+
+    dev = model.embedding.device
+    reqs = spill_traffic(cfg.vocab_size)
+    page = 16
+    need = -(-(len(reqs[0][0]) + SPILL_NEW) // page)
+    engine = SlotPoolEngine(cfg, model, slots=4, segment=SERVE_SEGMENT,
+                            pages=4 * need + 256 // page + 1, kv_dtype=kv,
+                            spill_pages=SPILL_PAGES, device=dev)
+    sh = engine._shards[0]
+    land, prefill, pinned = [], [], [0, True]
+    land_pages, admit_group, admit = (engine._land_pages,
+                                      engine._admit_group, engine.admit)
+
+    def timed_land(pages, payload):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        land_pages(pages, payload)
+        end.record()
+        idx = torch.as_tensor(pages, device=dev)
+        parts = [engine._split(e) for e in engine._pools]
+        same = all(torch.equal(torch.stack([p[kind][idx] for p in parts]),
+                               payload[kind].to(dev))
+                   for kind in range(len(payload)))
+        land.append((start, end, len(pages), same))
+
+    def timed_group(c, h, group):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = admit_group(c, h, group)
+        end.record()
+        prefill.append((start, end, c, h, len(group)))
+        return out
+
+    def counted_admit(entries):
+        out = admit(entries)
+        held = [t for _, p, _ in sh.spill.values() for t in p]
+        pinned[0] = max(pinned[0], sum(t.numel() * t.element_size()
+                                       for t in held))
+        pinned[1] = pinned[1] and (dev.type != "cuda"
+                                   or all(t.is_pinned() for t in held))
+        return out
+
+    engine._land_pages, engine._admit_group = timed_land, timed_group
+    engine.admit = counted_admit
+    _, _, results, m = drive(engine, reqs, 4)
+    if not (m["demotions"] and m["promoted_hits"]):
+        raise AssertionError(f"serve_spill {kv}: {m['demotions']} demotions "
+                             f"and {m['promoted_hits']} promoted hits")
+    if not all(same for *_, same in land):
+        raise AssertionError(f"serve_spill {kv}: a promoted page differs "
+                             f"from what was demoted")
+    if not pinned[1]:
+        raise AssertionError(f"serve_spill {kv}: spilled pages not pinned")
+    limit = NEAR_TIE + LOGIT_TOLERANCE[kv]
+    cold = run_wave(cfg, model, reqs, kv_dtype=kv)
+    checks = [near_tie(model, i, results[i], row, limit)
+              for i, row in enumerate(cold)]
+    land_ms = [a.elapsed_time(b) for a, b, _, _ in land]
+    prefill_ms = [a.elapsed_time(b) for a, b, c, h, k in prefill
+                  if (c, h, k) == (256, 0, 1)]
+    rec = {"phase": "serve_spill", "nvidia_smi": smi, "kv_dtype": kv,
+           "slots": 4, "spill_pages": SPILL_PAGES,
+           "requests": len(reqs), "prefixes": SPILL_PREFIXES, **m,
+           "spill_pages_used": engine.spill_pages_used(),
+           "promotions": len(land), "promoted_pages": [n for *_, n, _ in land],
+           "promotion_ms_median": (statistics.median(land_ms)
+                                   if land_ms else None),
+           "promotion_ms": land_ms,
+           "prefill_256_ms_median": (statistics.median(prefill_ms)
+                                     if prefill_ms else None),
+           "pinned_host_bytes_peak": pinned[0],
+           "promoted_pages_bit_exact": True, "near_tie_limit": limit,
+           "greedy_vs_cold": checks,
+           "near_tie_rows": sum(not c["equal"] for c in checks)}
     emit(rec)
     return rec
 
@@ -880,7 +1227,8 @@ def http_call(url: str, body: dict | None = None) -> tuple[int, str]:
 
 
 def serve_http_phase(cfg, jobs) -> dict:
-    """Phase (b): the serve entry point with each engine, on a free local
+    """Phase (b): the serve entry point with each engine, and the
+    continuous one again with int8 pages and a spill tier, on a free local
     port, at the bench LM's widths (fresh weights)."""
     widths = ["--vocab", str(cfg.vocab_size), "--d-model", str(cfg.d_model),
               "--heads", str(cfg.n_heads), "--layers", str(cfg.n_layers),
@@ -890,9 +1238,12 @@ def serve_http_phase(cfg, jobs) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (20, 33, 64, 100)]
     out = {}
-    for engine, n in (("continuous", 4), ("dynamic", 2)):
+    for label, engine, flags, n in (
+            ("continuous", "continuous", [], 4), ("dynamic", "dynamic", [], 2),
+            ("continuous_int8_spill", "continuous",
+             ["--kv-dtype", "int8", "--spill-pages", "64"], 4)):
         args = jobs.build_parser().parse_args(["serve", "--engine", engine,
-                                               *widths])
+                                               *widths, *flags])
         t0 = time.perf_counter()
         server, batcher = jobs.build_server(args)
         up_s = time.perf_counter() - t0
@@ -911,25 +1262,26 @@ def serve_http_phase(cfg, jobs) -> dict:
                 reply = json.loads(body)
                 if (status != 200 or reply["tokens"][:len(prompts[i])]
                         != prompts[i] or len(reply["new_tokens"]) != 12):
-                    raise AssertionError(f"serve {engine}: bad reply {i}: "
+                    raise AssertionError(f"serve {label}: bad reply {i}: "
                                          f"{status} {body[:200]}")
             health = http_call(url + "/healthz")
             stats = json.loads(http_call(url + "/stats")[1])
             metrics = http_call(url + "/metrics")[1]
             if health[0] != 200 or stats["requests_total"] != n:
-                raise AssertionError(f"serve {engine}: healthz {health}, "
+                raise AssertionError(f"serve {label}: healthz {health}, "
                                      f"stats {stats}")
             if f"ko_serve_requests_total {n}" not in metrics:
-                raise AssertionError(f"serve {engine}: /metrics lacks "
+                raise AssertionError(f"serve {label}: /metrics lacks "
                                      f"ko_serve_requests_total {n}")
         finally:
             server.shutdown()
             server.server_close()
             thread.join(timeout=60)
-        out[engine] = {"requests": n, "build_s": up_s, "answer_s": answer_s,
-                       "new_tokens": [json.loads(b)["new_tokens"]
-                                      for _, b in replies.values()],
-                       "stats": stats}
+        out[label] = {"requests": n, "build_s": up_s, "answer_s": answer_s,
+                      "flags": flags,
+                      "new_tokens": [json.loads(b)["new_tokens"]
+                                     for _, b in replies.values()],
+                      "stats": stats}
     emit({"phase": "serve_http", **out})
     return out
 
@@ -1069,9 +1421,16 @@ def main() -> int:
           "exact_first_tokens": sum(f["token"] == f["full_forward_argmax"]
                                     for f in first)})
 
-    # -- 5b. serve: the slot pool with phase 5's weights, then the entry point
-    serve_engine_phase(cfg, model, smi, peaks[1])
+    # -- 5b. serve: the slot pool with phase 5's weights, its prefix cache,
+    # quantized pages and spill tier, then the entry point
+    serve_t0 = time.perf_counter()
+    bf16_serve = serve_engine_phase(cfg, model, smi, peaks[1])
+    serve_prefix_phase(cfg, model, smi)
+    serve_kv_quant_phase(cfg, model, smi, bf16_serve)
+    for kv in ("bf16", "int8"):
+        serve_spill_phase(cfg, model, smi, kv)
     serve_http_phase(cfg, jobs)
+    emit({"phase": "serve_total", "seconds": time.perf_counter() - serve_t0})
 
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
     vcfg = ViTConfig()

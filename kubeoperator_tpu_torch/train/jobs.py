@@ -19,7 +19,8 @@ Vision Transformer classifier on a synthetic image stream) and ``serve``
     python -m kubeoperator_tpu_torch.train.jobs serve --engine continuous
     python -m kubeoperator_tpu_torch.train.jobs serve --device cpu \\
         --vocab 128 --d-model 32 --heads 2 --layers 1 --max-seq-len 64 \\
-        --no-bf16 --port 8199 [--engine continuous]
+        --no-bf16 --port 8199 [--engine continuous \\
+        [--kv-dtype int8] [--spill-pages 8]]
 
 Each record is one JSON line on stdout. Runs on the card unless
 ``--device cpu`` is given.
@@ -44,8 +45,6 @@ NOT_PORTED = {
     "ckpt_dir": (None, "checkpointing (ROADMAP queue 1, checkpoint)"),
     "metrics_port": (0, "the ko_train_* metrics server (ROADMAP queue 1, "
                         "serving and jobs)"),
-    "kv_dtype": ("bf16", "quantized KV pages (ROADMAP queue 1, item 7)"),
-    "spill_pages": (0, "the host spill tier (ROADMAP queue 1, item 7)"),
     "spec_k": (0, "speculative decoding (ROADMAP queue 1, item 9)"),
     "draft_layers": (0, "speculative decoding (ROADMAP queue 1, item 9)"),
     "moe": (0, "MoE serving (ROADMAP queue 1, item 9)"),
@@ -226,13 +225,16 @@ def build_server(args: argparse.Namespace):
         try:
             engine = SlotPoolEngine(cfg, model, slots=args.slots,
                                     segment=args.segment, page=args.page,
-                                    pages=args.pages, device=dev)
+                                    pages=args.pages,
+                                    kv_dtype=args.kv_dtype,
+                                    spill_pages=args.spill_pages, device=dev)
         except ValueError as e:
             raise SystemExit(f"serve: {e}") from e
         batcher = ContinuousBatcher(engine, stats=stats)
         emit({"job": "serve", "engine": "continuous", "slots": args.slots,
               "segment": args.segment, "page": engine.page,
-              "pages": engine.pages, "kv_dtype": engine.kv_dtype})
+              "pages": engine.pages, "kv_dtype": engine.kv_dtype,
+              "spill_pages": engine.spill_pages})
         # every request shape shares the one segment path, so an
         # empty-pool segment is the whole warm-up; --warm is moot here
         engine.run_segment()
@@ -445,7 +447,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continuous engine: total KV pages, the admission "
                          "limiter (default slots * max_seq_len/page + 1)")
     sv.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
-                    help="not ported: must stay bf16")
+                    help="continuous engine: KV page-pool element type — "
+                         "int8 stores quantized codes with per-(page, "
+                         "offset, head) scales (~2x pages at equal memory; "
+                         "greedy logits within 0.25 of bf16)")
     sv.add_argument("--spec-k", type=int, default=0,
                     help="not ported: must stay 0")
     sv.add_argument("--draft-layers", type=int, default=0,
@@ -453,7 +458,11 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--moe", type=int, default=0,
                     help="not ported: must stay 0")
     sv.add_argument("--spill-pages", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help="continuous engine: host-RAM prefix-cache spill "
+                         "tier bound, in KV pages — cold prefix entries "
+                         "demote here at LRU eviction and a later hit "
+                         "promotes them back instead of recomputing "
+                         "(0 disables)")
     sv.add_argument("--aot-cache", type=str, default=None,
                     help="not ported: must stay unset")
     return p

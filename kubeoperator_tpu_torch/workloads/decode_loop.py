@@ -1,6 +1,8 @@
 """Persistent slot-pool decode engine for continuous batching, the
-counterpart of ``kubeoperator_tpu/workloads/decode_loop.py`` (part 1: one
-device, a KV pool in the model dtype, no prefix cache).
+counterpart of ``kubeoperator_tpu/workloads/decode_loop.py`` on one
+device: paged KV, the prefix cache with copy-on-write and LRU eviction,
+int8/fp8 KV pages, the host spill tier and the engine half of the
+prefill→decode handoff.
 
 ``generate()`` runs one fused batch to completion. This module keeps a
 fixed pool of S decode *slots* alive on the device instead: one
@@ -13,15 +15,45 @@ queued requests via chunked prefill (``admit``).
 Paged KV: each layer keeps one page *pool* ``[P, page, H, D]`` and each
 slot an int64 *block table* ``[T/page]`` naming the pages behind its
 positions. The micro-step gathers ``pool[block_table]`` back into the
-dense ``[S, T, H, D]`` view (``_gather_kv``, a permutation copy, so the
-attention math sees the operands a dense cache row would hold) and writes
-each step's K/V through the ``(page, offset)`` indirection
-(``_page_write``, in place). These two are the only code that reads or
-writes a pool. Admission reserves ``ceil((plen+max_tokens)/page)`` pages;
-the batcher admits against free pages. One *trash page* is never
+dense ``[S, T, H, D]`` view (``_gather_kv``, a permutation copy for
+model-dtype pools, so the attention math sees the operands a dense cache
+row would hold) and writes each step's K/V through the ``(page, offset)``
+indirection (``_page_write``, in place). ``_page_write``, ``_page_copy``
+(whole pages: copy-on-write, spill promotion, import), ``_gather_kv`` and
+the raw ``_page_export`` are the only code that reads or writes a pool.
+Admission reserves ``ceil((plen+max_tokens)/page)`` pages; the batcher
+admits against free plus evictable pages. One *trash page* is never
 allocated: empty and finished rows keep writing their no-op K/V there or
 at their frozen position, so a recycled page is never corrupted by a
 retired slot (``release`` points retired block tables at trash).
+
+Prefix cache (always on, as in the reference): admission hashes every
+page-aligned prompt prefix into an LRU ``hash(tokens) -> (tokens, pages)``.
+A hit maps the cached pages into the new slot's block table read-only
+(refcounted: a page frees only when no slot and no cache entry holds it)
+and skips their prefill. The page holding the first position the request
+itself writes is copied first (copy-on-write), so sharing never shows in
+the tokens. Three hit kinds: *full* (the whole prompt cached: re-decode
+its last token, ``pos0 = plen-1``), *cover* (the hit reaches the pow2
+prefill bucket: no prefill pass), *partial* (prefill ``[h, c)`` over a
+scratch cache seeded from the shared pages). When the pool runs dry,
+admission evicts LRU entries whose pages no live slot pins.
+
+Quantized KV: ``kv_dtype="int8"`` or ``"fp8"`` stores 1-byte pages plus a
+float32 scale per (page, offset, head). ``_page_write`` quantizes on
+write, ``_gather_kv`` dequantizes on read (an eager multiply into an f32
+intermediate, where XLA fuses it into the gather), and copies move raw
+codes and scale rows. fp8 codes are held as ``uint8`` and viewed as
+``float8_e4m3fn`` only to convert, so no indexing op ever touches the
+float8 dtype. Greedy logits then stay within ``LOGIT_TOLERANCE`` of the
+model-dtype pool instead of equal to it.
+
+Host spill tier (``spill_pages=N``): LRU eviction of an entry whose pages
+only the cache holds first *demotes* its raw pages (codes and scales) into
+a bounded host LRU (pinned memory on the card); a later hit there is
+*promoted* host→device into fresh pages instead of recomputed, bit for
+bit what was demoted. Demotion and promotion happen inside ``admit``,
+never inside ``run_segment``.
 
 The micro-step's math is the port's ``_decode_loop`` (generate.py) op for
 op — the same shared helpers (``rms_norm``, ``token_qkv``,
@@ -29,25 +61,26 @@ op — the same shared helpers (``rms_norm``, ``token_qkv``,
 full ``max_seq_len`` width — with the scalar position replaced by a
 per-row position vector (``_rope_rows`` is ``rope`` at each row's
 position). Greedy rows therefore give the tokens a solo ``generate()`` of
-the same request gives. Sampling uses ``generate()``'s own rule
-(``gumbel_draw``) keyed on ``(seed, 0, position)``: the draw a solo
-``generate()`` of that one request makes at that position, which makes a
-sampled row invariant to its slot, its neighbours and when it was
-admitted. The draws are seeded on the host, so the engine keeps a host
-mirror of each slot's position (exact: admission sets it, and every
-micro-step adds 1 while ``pos < last``) and of each slot's temperature
-and seed; greedy rows draw nothing.
+the same request gives, on prefix hits too (the seeded chunk attends over
+exactly the K/V a cold prefill computes). Sampling uses ``generate()``'s
+own rule (``gumbel_draw``) keyed on ``(seed, 0, position)``: the draw a
+solo ``generate()`` of that one request makes at that position, which
+makes a sampled row invariant to its slot, its neighbours, when it was
+admitted and what it shared. The draws are seeded on the host, so the
+engine keeps a host mirror of each slot's position (exact: admission sets
+it, and every micro-step adds 1 while ``pos < last``) and of each slot's
+temperature and seed; greedy rows draw nothing.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): the prefix cache and copy-on-write [6], quantized KV and
-the host spill tier [7], speculative decoding and MoE serving [9], a
-device mesh [14] and the AOT compile cache [15].
+queue 1 item): speculative decoding and MoE serving [9], a device mesh
+[14] and the AOT compile cache [15].
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import replace
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -83,13 +116,16 @@ def _default_page(max_total: int) -> int:
 #: legal page-pool element layouts. "bf16" means "the model dtype,
 #: unquantized" (pools store cfg.dtype verbatim — float32 in tests);
 #: "int8"/"fp8" store 1-byte elements plus per-(page, offset, head)
-#: float32 scales (ROADMAP queue 1 item 7; not ported yet).
+#: float32 scales.
 KV_DTYPES = ("bf16", "int8", "fp8")
 
 #: declared greedy-logit tolerance per KV layout: a bf16 pool gives the
 #: logits of solo ``generate()`` (tolerance 0.0); quantized pools promise
 #: max |logit delta| below this bound instead.
 LOGIT_TOLERANCE = {"bf16": 0.0, "int8": 0.25, "fp8": 0.25}
+
+#: symmetric quantization range per quantized dtype
+_QMAX = {"int8": 127.0, "fp8": 448.0}
 
 
 def validate_page_pool(*, page: int, pages: int, max_seq_len: int,
@@ -163,11 +199,15 @@ def _rope_rows(x: torch.Tensor, pos: torch.Tensor,
 
 class _PageShard:
     """Host-side page allocator for the pool: a free list over its page
-    range, per-page refcounts and the reserved trash page. (The prefix
-    cache's ``cache_ref``/``prefix`` and the spill tier come with ROADMAP
-    items 6 and 7.)"""
+    range, per-page refcounts (``ref`` counts every holder, ``cache_ref``
+    the prefix cache's share of it — a page is evictable exactly when the
+    two are equal), the LRU prefix cache ``hash(tokens) -> (tokens,
+    pages)``, the reserved trash page, and the bounded host spill tier
+    ``hash(tokens) -> (tokens, payload, n_pages)`` holding raw demoted
+    pages (``spill_used`` counts its pages)."""
 
-    __slots__ = ("index", "base", "span", "trash", "free", "ref")
+    __slots__ = ("index", "base", "span", "trash", "free", "ref",
+                 "cache_ref", "prefix", "spill", "spill_used")
 
     def __init__(self, index: int, base: int, span: int):
         self.index = index
@@ -176,6 +216,12 @@ class _PageShard:
         self.trash = base           # never allocated; absorbs no-op writes
         self.free = list(range(base + 1, base + span))
         self.ref: dict[int, int] = {}
+        self.cache_ref: dict[int, int] = {}
+        self.prefix: OrderedDict[int, tuple[tuple[int, ...],
+                                            tuple[int, ...]]] = OrderedDict()
+        self.spill: OrderedDict[int, tuple[tuple[int, ...], tuple,
+                                           int]] = OrderedDict()
+        self.spill_used = 0
 
 
 class SlotPoolEngine:
@@ -185,16 +231,20 @@ class SlotPoolEngine:
     The host-facing protocol (``ContinuousBatcher`` drives it):
 
     * ``admit(entries)`` — write queued requests into free slots: pages
-      are reserved, one chunked prefill per pow2 prompt bucket fills them,
-      and the per-slot state vectors are set. Returns ``{slot: pos}``.
+      are reserved (prefix-cache hits map shared pages in and skip their
+      prefill), one chunked prefill per (bucket, hit length) pair fills
+      the fresh pages, and the per-slot state vectors are set. Returns
+      ``{slot: pos}``.
     * ``run_segment()`` — advance every active slot ``segment`` tokens;
       no host-device sync.
     * ``poll()`` — one batched device->host fetch of (token buffers,
       positions) for retirement.
-    * ``release(slots)`` — free retired slots' pages and point their
-      block tables at the trash page.
+    * ``release(slots)`` — free retired slots' pages (prefix-cache
+      entries keep theirs alive) and point their block tables at the
+      trash page.
     * ``pages_for`` / ``free_pages`` / ``evictable_pages`` /
-      ``pages_in_use`` — the page accounting the batcher admits against.
+      ``pages_in_use`` / ``spill_pages_used`` — the page accounting the
+      batcher admits against and reports.
 
     The protocol is single-writer: one host thread calls admit/release/
     run_segment/poll (the batcher's worker), so allocator state needs no
@@ -248,22 +298,30 @@ class SlotPoolEngine:
         self.pages = (int(pages) if pages is not None else
                       self.slots * (self.max_total // max(self.page, 1)) + 1)
         self.kv_dtype = str(kv_dtype)
+        self.spill_pages = int(spill_pages)
         validate_page_pool(page=self.page, pages=self.pages,
                            max_seq_len=self.max_total,
                            kv_dtype=self.kv_dtype,
-                           spill_pages=int(spill_pages))
-        if self.kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype {self.kv_dtype!r}: quantized KV is not ported yet "
-                f"(ROADMAP queue 1, item 7)")
-        if spill_pages:
-            raise NotImplementedError(
-                "the host spill tier is not ported yet (ROADMAP queue 1, "
-                "item 7)")
+                           spill_pages=self.spill_pages)
+        self._quantized = self.kv_dtype != "bf16"
+        # codes are stored in _store_dt and converted through _qdt: fp8
+        # lives in uint8 so that indexing never meets the float8 dtype
+        self._qdt = (None if not self._quantized
+                     else torch.int8 if self.kv_dtype == "int8"
+                     else torch.float8_e4m3fn)
+        self._store_dt = (None if not self._quantized
+                          else torch.int8 if self.kv_dtype == "int8"
+                          else torch.uint8)
+        self._qmax = _QMAX.get(self.kv_dtype)
         self.logit_tolerance = LOGIT_TOLERANCE[self.kv_dtype]
         self.blocks = self.max_total // self.page
         self._shards = [_PageShard(0, 0, self.pages)]
         self._slot_pages: dict[int, list[int]] = {}
+        self.prefix_hits = 0          # admissions that reused cached pages
+        self.prefix_pages_reused = 0  # pages whose prefill was skipped
+        self.cow_copies = 0           # copy-on-write page duplications
+        self.demotions = 0            # prefix entries demoted to host RAM
+        self.promoted_hits = 0        # admissions served from the spill tier
         self.last_plans: dict[int, dict] = {}   # last wave's admission plans
 
         s, t, dev = self.slots, self.max_total, self.device
@@ -283,32 +341,115 @@ class SlotPoolEngine:
         self._temp_h = np.zeros(s, np.float64)
         self._seed_h = np.zeros(s, np.int64)
         self._gen = torch.Generator(device=dev)
-        self._pools = [
-            (torch.zeros((self.pages, self.page, h, d), dtype=dt, device=dev),
-             torch.zeros((self.pages, self.page, h, d), dtype=dt, device=dev))
-            for _ in range(cfg.n_layers)]
+        # model-dtype pools keep 2-tuples; quantized ones widen each layer
+        # entry to (k_pool, v_pool, k_scale, v_scale): 1-byte pools plus
+        # per-(page, offset, head) float32 scales that start at 1
+        shape = (self.pages, self.page, h, d)
+
+        def entry():
+            if not self._quantized:
+                return (torch.zeros(shape, dtype=dt, device=dev),
+                        torch.zeros(shape, dtype=dt, device=dev))
+            return (torch.zeros(shape, dtype=self._store_dt, device=dev),
+                    torch.zeros(shape, dtype=self._store_dt, device=dev),
+                    torch.ones(shape[:3], dtype=torch.float32, device=dev),
+                    torch.ones(shape[:3], dtype=torch.float32, device=dev))
+
+        self._pools = [entry() for _ in range(cfg.n_layers)]
         self._bt_np = np.full((s, self.blocks), self._shards[0].trash,
                               np.int64)
         self._bt = torch.as_tensor(self._bt_np, device=dev)
 
     @property
     def pool_bytes(self) -> int:
-        """Device bytes of every layer's K and V page pools."""
+        """Device bytes of every layer's K and V page pools and, for a
+        quantized pool, their scale buffers."""
         return sum(p.numel() * p.element_size()
                    for entry in self._pools for p in entry)
 
+    # -- quantized-entry plumbing -------------------------------------------
+    def _split(self, entry):
+        """Normalize one per-layer pool entry to (k_pool, v_pool, k_scale,
+        v_scale); model-dtype entries carry ``None`` scales."""
+        if self._quantized:
+            return entry
+        kp, vp = entry
+        return kp, vp, None, None
+
+    def _quantize(self, vals: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Symmetric per-(row, head) quantization over the head dim:
+        scale = amax/qmax, so dequantizing is one multiply. The division
+        stays a division (a reciprocal multiply changes codes), and int8
+        rounds half to even. Returns (stored codes, float32 scales)."""
+        v32 = vals.float()
+        amax = v32.abs().amax(dim=-1)                       # [..., H]
+        qscale = torch.clamp_min(amax, 1e-30) / self._qmax
+        q = v32 / qscale[..., None]
+        if self._qdt == torch.int8:
+            q = torch.clamp(torch.round(q), -self._qmax, self._qmax)
+        return q.to(self._qdt).view(self._store_dt), qscale
+
     # -- the pool's write and read paths --------------------------------------
     def _page_write(self, pool: torch.Tensor, pages: torch.Tensor,
-                    offsets: torch.Tensor, vals: torch.Tensor) -> None:
+                    offsets: torch.Tensor, vals: torch.Tensor,
+                    scale: torch.Tensor | None = None) -> None:
         """THE pool write path: one in-place scatter of already
         block-table-routed ``(page, offset)`` pairs. A raw slot- or
         position-indexed write would land in whichever request currently
-        owns that page."""
-        pool[pages, offsets] = vals
+        owns that page. With a ``scale`` buffer (quantized pools) the
+        values are quantized here and their scale rows land beside
+        them."""
+        if scale is None:
+            pool[pages, offsets] = vals
+            return
+        q, s = self._quantize(vals)
+        pool[pages, offsets] = q
+        scale[pages, offsets] = s
 
-    def _gather_kv(self, pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """THE pool read path: gather pages by index (a permutation copy)."""
-        return pool[idx]
+    def _page_copy(self, pool: torch.Tensor, dst: torch.Tensor,
+                   src: torch.Tensor, src_pool: torch.Tensor | None = None,
+                   *, scale: torch.Tensor | None = None,
+                   src_scale: torch.Tensor | None = None) -> None:
+        """Whole-page duplication, one gather then one scatter: copy-on-
+        write within the pool and — with ``src_pool`` — landing demoted
+        or imported pages (``src`` indexes ``src_pool``) in freshly
+        allocated ``dst`` pages. Quantized pools move raw codes plus their
+        scale rows, so copy-on-write and spill promotion are bit-exact; a
+        model-dtype payload landing in a quantized pool (``src_pool``
+        without ``src_scale``: the import) is quantized on land. All
+        sources are read before any destination is written, so a source
+        page that is also a destination of the same call is copied
+        intact."""
+        sp = pool if src_pool is None else src_pool
+        if scale is None:                       # model-dtype pool
+            pool[dst] = sp[src]
+            return
+        if src_pool is not None and src_scale is None:
+            q, s = self._quantize(sp[src])
+            pool[dst] = q
+            scale[dst] = s
+            return
+        ss = scale if src_scale is None else src_scale
+        pool[dst] = sp[src]
+        scale[dst] = ss[src]
+
+    def _gather_kv(self, pool: torch.Tensor, scale: torch.Tensor | None,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """THE pool read path: gather pages by index (a permutation copy
+        for model-dtype pools); a quantized pool is dequantized in the same
+        expression, so attention always sees model-dtype operands."""
+        if scale is None:
+            return pool[idx]
+        return (pool[idx].view(self._qdt).float()
+                * scale[idx][..., None]).to(self.cfg.dtype)
+
+    def _page_export(self, buf: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+        """Raw page gather for the spill tier: demotion keeps the stored
+        bits (quantized codes AND their scale rows), so a demote→promote
+        round trip is bit-exact."""
+        return buf[idx]
 
     # -- device math ----------------------------------------------------------
     def _forward(self) -> torch.Tensor:
@@ -331,14 +472,15 @@ class SlotPoolEngine:
         pg = self._bt[self._rows, blk]
         off = pos - blk * self.page
         visible = self._key_pos[None, None, None, :] <= pos[:, None, None, None]
-        for layer, (kp, vp) in zip(model.layers, self._pools):
+        for layer, entry in zip(model.layers, self._pools):
+            kp, vp, ks, vs = self._split(entry)
             h = rms_norm(x, layer.ln1.scale).to(dt)
             q, k, v = token_qkv(layer.attn, h, dt)
             q, k = _rope_rows(q, pos), _rope_rows(k, pos)
-            self._page_write(kp, pg, off, k[:, 0].to(dt))
-            self._page_write(vp, pg, off, v[:, 0].to(dt))
-            ck = self._gather_kv(kp, self._bt).reshape(s, t, nh, hd)
-            cv = self._gather_kv(vp, self._bt).reshape(s, t, nh, hd)
+            self._page_write(kp, pg, off, k[:, 0].to(dt), ks)
+            self._page_write(vp, pg, off, v[:, 0].to(dt), vs)
+            ck = self._gather_kv(kp, ks, self._bt).reshape(s, t, nh, hd)
+            cv = self._gather_kv(vp, vs, self._bt).reshape(s, t, nh, hd)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                   ck.float()) * scale
             scores = torch.where(visible, scores,
@@ -387,26 +529,31 @@ class SlotPoolEngine:
     @torch.no_grad()
     def debug_logits(self) -> np.ndarray:
         """Test hook: the next-token logits ``[S, vocab]`` every slot would
-        choose from, by the micro-step's own path, without advancing any
-        slot. (Its page writes are the ones the next micro-step makes.)"""
+        choose from, by the micro-step's own path (the same quantizing
+        write and dequantizing gather), without advancing any slot. (Its
+        page writes are the ones the next micro-step makes.)"""
         return self._forward().cpu().numpy()
 
     # -- host-side page accounting ------------------------------------------
     def pages_for(self, prompt_len: int, max_tokens: int) -> int:
         """Pages one request reserves: its full decode extent, rounded up
-        to whole pages."""
+        to whole pages. Prefix hits only ever need fewer, so admitting
+        against this number never over-commits."""
         return -(-(int(prompt_len) + int(max_tokens)) // self.page)
 
     def free_pages(self, shard: int = 0) -> int:
         return len(self._shards[shard].free)
 
     def evictable_pages(self, shard: int = 0) -> int:
-        """Pages only the prefix cache keeps alive: none until the cache
-        (ROADMAP queue 1, item 6)."""
-        return 0
+        """Pages only the prefix cache is keeping alive (ref == cache_ref):
+        exactly the pages a full LRU drain would hand back."""
+        sh = self._shards[shard]
+        return sum(1 for pg, r in sh.ref.items()
+                   if r == sh.cache_ref.get(pg, 0))
 
     def pages_in_use(self, shard: int = 0) -> int:
-        """Allocated pages (live slots), excluding the trash page."""
+        """Allocated pages (live slots + prefix cache), excluding the
+        trash page."""
         sh = self._shards[shard]
         return sh.span - 1 - len(sh.free)
 
@@ -416,13 +563,159 @@ class SlotPoolEngine:
         pool minus its trash page."""
         return self.pages - 1
 
+    def spill_pages_used(self, shard: int = 0) -> int:
+        """Host pages the spill tier currently holds (bounded by
+        ``spill_pages``)."""
+        return self._shards[shard].spill_used
+
+    def _lookup_prefix(self, shard_i: int, prompt: list[int]
+                       ) -> tuple[int, tuple[int, ...]]:
+        """Longest cached page-aligned prefix of ``prompt``. Returns
+        (n_pages, pages); token equality is checked, so a hash collision
+        becomes a miss, never wrong tokens."""
+        sh = self._shards[shard_i]
+        for n in range(len(prompt) // self.page, 0, -1):
+            toks = tuple(prompt[:n * self.page])
+            key = hash(toks)
+            ent = sh.prefix.get(key)
+            if ent is not None and ent[0] == toks:
+                sh.prefix.move_to_end(key)      # LRU touch
+                return n, ent[1]
+        return 0, ()
+
+    def _demote(self, sh: _PageShard, toks: tuple[int, ...],
+                pgs: tuple[int, ...]) -> None:
+        """Demote one cold cache-only prefix entry into the host spill
+        tier before LRU eviction frees its device pages: one raw gather
+        per kind of buffer (codes, and scale rows for a quantized pool,
+        so the round trip is bit-exact) stacked over layers, and one
+        device→host copy of each into host tensors (pinned on the card).
+        The host LRU evicts its own cold entries until the newcomer fits
+        ``spill_pages``; an entry larger than the whole bound is
+        dropped."""
+        n = len(pgs)
+        if not self.spill_pages or n > self.spill_pages:
+            return
+        key = hash(toks)
+        if key in sh.spill:
+            sh.spill.move_to_end(key)
+            return
+        while sh.spill_used + n > self.spill_pages and sh.spill:
+            _k, (_t, _p, m) = sh.spill.popitem(last=False)
+            sh.spill_used -= m
+        idx = torch.as_tensor(list(pgs), device=self.device)
+        parts = [self._split(e) for e in self._pools]
+        pin = self.device.type == "cuda"
+        payload = []
+        for kind in range(4 if self._quantized else 2):
+            dev = torch.stack([self._page_export(p[kind], idx)
+                               for p in parts])
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
+            host.copy_(dev)
+            payload.append(host)
+        sh.spill[key] = (toks, tuple(payload), n)
+        sh.spill_used += n
+        self.demotions += 1
+
     def _ensure_free(self, sh: _PageShard, need: int) -> None:
+        """Evict LRU prefix entries until ``need`` pages are free. Pages a
+        live slot still pins survive eviction (ref stays > 0). Entries
+        whose pages are ALL cache-only — the cold ones whose K/V would
+        otherwise be lost — demote into the host spill tier first."""
+        while len(sh.free) < need and sh.prefix:
+            _key, (toks, pgs) = sh.prefix.popitem(last=False)
+            if all(sh.ref[pg] == sh.cache_ref.get(pg, 0) for pg in pgs):
+                self._demote(sh, toks, pgs)
+            for pg in pgs:
+                sh.cache_ref[pg] -= 1
+                if not sh.cache_ref[pg]:
+                    del sh.cache_ref[pg]
+                sh.ref[pg] -= 1
+                if not sh.ref[pg]:
+                    del sh.ref[pg]
+                    sh.free.append(pg)
         if len(sh.free) < need:
             raise RuntimeError(
                 f"page pool exhausted on dp shard {sh.index}: need {need} "
-                f"free pages, {len(sh.free)} available ({sh.span - 1} "
-                f"usable pages per shard; raise pages= or admit less "
-                f"concurrency)")
+                f"free pages, {len(sh.free)} available after draining the "
+                f"prefix cache ({sh.span - 1} usable pages per shard; "
+                f"raise pages= or admit less concurrency)")
+
+    def _promote_spill(self, sh: _PageShard, prompt: list[int],
+                       n_hit: int, hit_pages: tuple[int, ...]
+                       ) -> tuple[int, tuple[int, ...]]:
+        """Promote the longest spilled prefix of ``prompt`` that beats the
+        device cache's hit: land its raw pages host→device in freshly
+        allocated pages and publish them as cache-only prefix entries, so
+        the caller's plan shares them like any other hit. The entry is
+        popped BEFORE ``_ensure_free`` runs: eviction inside the
+        allocation may demote OTHER entries into the spill LRU, and the
+        one mid-promotion must not be evicted from under us. If the pool
+        cannot host the promotion even after draining the prefix cache,
+        the entry goes back and the plan falls back to the device hit,
+        looked up again (the failed drain may have evicted it) — the
+        spill tier never deadlocks admission."""
+        best_key = None
+        for n in range(len(prompt) // self.page, n_hit, -1):
+            toks = tuple(prompt[:n * self.page])
+            key = hash(toks)
+            ent = sh.spill.get(key)
+            if ent is not None and ent[0] == toks:
+                best_key = key
+                break
+        if best_key is None:
+            return n_hit, hit_pages
+        toks, payload, n = sh.spill.pop(best_key)
+        sh.spill_used -= n
+        try:
+            self._ensure_free(sh, n)
+        except RuntimeError:
+            sh.spill[best_key] = (toks, payload, n)
+            sh.spill_used += n
+            return self._lookup_prefix(sh.index, prompt)
+        pages = [sh.free.pop() for _ in range(n)]
+        self._land_pages(pages, payload)
+        self._publish_prefix(sh, list(toks), pages)
+        self.promoted_hits += 1
+        return n, tuple(pages)
+
+    def _land_pages(self, pages: list[int], payload: tuple) -> None:
+        """Land one spill payload (per kind of buffer, stacked over
+        layers) in freshly allocated device pages: one host→device
+        transfer per kind, then ``_page_copy`` per layer."""
+        dst = torch.as_tensor(pages, device=self.device)
+        src = torch.arange(len(pages), device=self.device)
+        kinds = [b.to(self.device) for b in payload]
+        for li, entry in enumerate(self._pools):
+            kp, vp, ks, vs = self._split(entry)
+            if ks is None:
+                self._page_copy(kp, dst, src, kinds[0][li])
+                self._page_copy(vp, dst, src, kinds[1][li])
+            else:
+                self._page_copy(kp, dst, src, kinds[0][li], scale=ks,
+                                src_scale=kinds[2][li])
+                self._page_copy(vp, dst, src, kinds[1][li], scale=vs,
+                                src_scale=kinds[3][li])
+
+    def _publish_prefix(self, sh: _PageShard, toks: list[int],
+                        pages: list[int]) -> None:
+        """Register every page-aligned prefix of ``toks`` over freshly
+        landed ``pages`` as cache-only entries (ref == cache_ref), i.e.
+        evictable under pool pressure like any other prefix entry —
+        shared by the import and spill-tier promotion."""
+        for m in range(1, len(pages) + 1):
+            ptoks = tuple(toks[:m * self.page])
+            key = hash(ptoks)
+            ent = sh.prefix.get(key)
+            if ent is not None:
+                if ent[0] == ptoks:
+                    sh.prefix.move_to_end(key)
+                continue        # hash collision: keep the resident entry
+            pgs = tuple(pages[:m])
+            sh.prefix[key] = (ptoks, pgs)
+            for pg in pgs:
+                sh.ref[pg] = sh.ref.get(pg, 0) + 1
+                sh.cache_ref[pg] = sh.cache_ref.get(pg, 0) + 1
 
     def _release_slot(self, slot: int) -> None:
         pages = self._slot_pages.pop(slot, None)
@@ -436,10 +729,11 @@ class SlotPoolEngine:
                 sh.free.append(pg)
 
     def release(self, slots: Sequence[int]) -> None:
-        """Hand retired slots' pages back to the allocator and point every
-        retired block table at the trash page, so the frozen row's no-op
-        K/V writes can never corrupt a page the next admission hands
-        out."""
+        """Hand retired slots' pages back to the allocator (pages the
+        prefix cache also holds stay resident for future hits) and point
+        every retired block table at the trash page, so the frozen row's
+        no-op K/V writes can never corrupt a page the next admission
+        hands out."""
         freed = [int(s) for s in slots if int(s) in self._slot_pages]
         for s in freed:
             self._release_slot(s)
@@ -451,29 +745,51 @@ class SlotPoolEngine:
     def admit(self, entries: Sequence[tuple[int, Sequence[int], int, float,
                                             int]]) -> dict[int, int]:
         """Admit ``(slot, prompt_ids, max_tokens, temperature, seed)``
-        tuples into their (free) slots: pages are reserved per request,
-        one chunked forward pass per pow2 prompt bucket fills them, and
-        the per-slot state vectors are set. Returns {slot: pos}."""
-        plans = self._plan_entries(entries)
+        tuples into their (free) slots. Pages are reserved per request
+        (prefix-cache hits map shared pages in and skip their prefill;
+        copy-on-write duplicates the first page the request writes), then
+        one chunked forward pass per distinct (bucket, hit length) pair
+        fills the fresh pages and the per-slot state vectors are set.
+        Returns {slot: pos}.
+
+        The order is fixed: plan/allocate -> copy-on-write -> prefill
+        writes -> state vectors -> block tables -> prefix registration.
+        Copy-on-write reads its source pages before any write of this wave
+        can touch a recycled page, so even a source that eviction freed
+        mid-wave (and another plan of the wave took) is copied intact."""
+        plans, cow_pairs = self._plan_entries(entries)
         self.last_plans = {
             pl["slot"]: {
                 "shard": pl["shard"], "pages": len(pl["pages"]),
                 "bucket": pl["c"], "hit_len": pl["h"], "pos0": pl["pos0"],
-                "pages_reused": pl["h"] // self.page, "hit_kind": "miss",
+                "pages_reused": pl["h"] // self.page,
+                "hit_kind": ("full" if pl["h"] == pl["plen"]
+                             else "cover" if pl["h"] >= pl["c"]
+                             else "partial" if pl["h"] else "miss"),
             } for pl in plans}
-        groups: dict[int, list[dict]] = {}
+        self._apply_cow(cow_pairs)
+        groups: dict[tuple[int, int], list[dict]] = {}
+        nopass: list[dict] = []
         for pl in plans:
-            groups.setdefault(pl["c"], []).append(pl)
+            if pl["h"] < pl["c"]:
+                groups.setdefault((pl["c"], pl["h"]), []).append(pl)
+            else:
+                nopass.append(pl)
         out: dict[int, int] = {}
-        for c, group in sorted(groups.items()):
-            out.update(self._admit_group(c, group))
+        for (c, h), group in sorted(groups.items()):
+            out.update(self._admit_group(c, h, group))
+        if nopass:
+            out.update(self._admit_nopass(nopass))
         self._push_block_tables([pl["slot"] for pl in plans])
+        self._register_prefixes(plans)
         return out
 
-    def _plan_entries(self, entries) -> list[dict]:
-        """Validate and reserve pages for one admission wave. Host-only:
-        no device work happens here."""
+    def _plan_entries(self, entries) -> tuple[list[dict],
+                                              list[tuple[int, int]]]:
+        """Validate, look up prefixes, and reserve pages for one admission
+        wave. Host-only, apart from a spill promotion's page landing."""
         plans: list[dict] = []
+        cow_pairs: list[tuple[int, int]] = []
         sh = self._shards[0]
         for slot, prompt_ids, max_tokens, temperature, seed in entries:
             prompt = list(map(int, prompt_ids))
@@ -491,49 +807,103 @@ class SlotPoolEngine:
             # (its block table is rewritten below, before any segment runs)
             self._release_slot(slot)
             blocks_needed = self.pages_for(plen, mt)
-            # the prefix-cache lookup (ROADMAP queue 1, item 6) slots in
-            # here: n_hit cached pages would be shared and their prefill
-            # skipped
-            n_hit = 0
+            n_hit, hit_pages = self._lookup_prefix(sh.index, prompt)
+            if sh.spill and n_hit * self.page < plen:
+                # a demoted prefix may cover more of the prompt than the
+                # device cache still does: promote it instead of
+                # recomputing that share of the prefill
+                n_hit, hit_pages = self._promote_spill(
+                    sh, prompt, n_hit, hit_pages)
             c = _pow2_at_most(plen)
-            self._ensure_free(sh, blocks_needed)
-            pages = [sh.free.pop() for _ in range(blocks_needed)]
-            for pg in pages:
-                sh.ref[pg] = 1
+            h = n_hit * self.page
+            if h == plen:
+                # the whole prompt is cached: re-decode its last token (one
+                # micro-step) to recover its logits, in a copy-on-write page
+                pos0 = plen - 1
+            elif h >= c:
+                pos0 = h        # the hit covers the prefill bucket: skip it
+            else:
+                pos0 = c        # prefill [h, c), seeded from shared pages
+            first_write_blk = pos0 // self.page
+            cow_blk = first_write_blk if first_write_blk < n_hit else None
+            # pin the pages about to be shared BEFORE eviction can free
+            # them, then make room for the fresh ones
+            shared = [hit_pages[b] for b in range(n_hit) if b != cow_blk]
+            for pg in shared:
+                sh.ref[pg] += 1
+            self._ensure_free(sh, blocks_needed - len(shared))
+            if n_hit:
+                self.prefix_hits += 1
+                self.prefix_pages_reused += n_hit
+            pages: list[int] = []
+            for b in range(blocks_needed):
+                if b < n_hit and b != cow_blk:
+                    pages.append(hit_pages[b])
+                else:
+                    pg = sh.free.pop()
+                    sh.ref[pg] = 1
+                    if b == cow_blk:
+                        cow_pairs.append((pg, hit_pages[b]))
+                        self.cow_copies += 1
+                    pages.append(pg)
             self._slot_pages[slot] = pages
             self._bt_np[slot, :] = sh.trash
             self._bt_np[slot, :blocks_needed] = pages
             plans.append(dict(slot=slot, prompt=prompt, plen=plen, mt=mt,
                               temp=float(temperature), seed=int(seed),
-                              c=c, h=n_hit * self.page, pos0=c, pages=pages,
+                              c=c, h=h, pos0=pos0, pages=pages,
                               shard=sh.index))
-        return plans
+        return plans, cow_pairs
 
-    def _admit_group(self, c: int, group: list[dict]) -> dict[int, int]:
-        """One chunked prefill for every plan of prompt bucket c: a
-        compact [k, c] pass through the model with c-wide scratch caches
-        (the transformer's decode branch masks to the cache width), then
-        one page-routed write of positions [0, c) into each pool."""
+    def _apply_cow(self, cow_pairs: list[tuple[int, int]]) -> None:
+        """Every copy-on-write of the wave as one gather of all sources and
+        one scatter into all destinations per buffer."""
+        if not cow_pairs:
+            return
+        dst = torch.as_tensor([d for d, _ in cow_pairs], device=self.device)
+        src = torch.as_tensor([s for _, s in cow_pairs], device=self.device)
+        for entry in self._pools:
+            kp, vp, ks, vs = self._split(entry)
+            self._page_copy(kp, dst, src, scale=ks)
+            self._page_copy(vp, dst, src, scale=vs)
+
+    def _admit_group(self, c: int, h: int, group: list[dict]
+                     ) -> dict[int, int]:
+        """One chunked prefill for every plan of (bucket c, hit h): a
+        compact [k, c-h] pass over positions [h, c) with c-wide scratch
+        caches (the transformer's decode branch masks to the cache width),
+        seeded at [0, h) from the shared pages through ``_gather_kv`` — so
+        the pass attends over exactly the K/V the micro-step would see —
+        then one page-routed write of positions [h, c) into each pool."""
         cfg, dev = self._decode_cfg, self.device
         nh, hd = cfg.n_heads, cfg.head_dim
-        k = len(group)
-        chunk = torch.as_tensor(np.array([pl["prompt"][:c] for pl in group]),
+        k, w = len(group), c - h
+        chunk = torch.as_tensor(np.array([pl["prompt"][h:c] for pl in group]),
                                 dtype=torch.long, device=dev)
+        parts = [self._split(e) for e in self._pools]
         scratch = [(torch.zeros((k, c, nh, hd), dtype=cfg.dtype, device=dev),
                     torch.zeros((k, c, nh, hd), dtype=cfg.dtype, device=dev))
                    for _ in range(cfg.n_layers)]
-        logits = self.model(chunk, torch.arange(c, device=dev), scratch)
+        if h:
+            blk = torch.as_tensor(np.array([pl["pages"][:h // self.page]
+                                            for pl in group]), device=dev)
+            for (sk, sv), (kp, vp, ks, vs) in zip(scratch, parts):
+                sk[:, :h] = self._gather_kv(kp, ks, blk).reshape(k, h, nh, hd)
+                sv[:, :h] = self._gather_kv(vp, vs, blk).reshape(k, h, nh, hd)
+        logits = self.model(chunk, torch.arange(h, c, device=dev), scratch)
 
-        # route positions [0, c) through each plan's block table into the
+        # route positions [h, c) through each plan's block table into the
         # pools: indices stacked on the host, moved once, one write each
-        hpos = np.arange(c)
+        hpos = np.arange(h, c)
         pg = torch.as_tensor(np.array([[pl["pages"][p // self.page]
                                         for p in hpos] for pl in group]
                                       ).reshape(-1), device=dev)
         off = torch.as_tensor(np.tile(hpos % self.page, k), device=dev)
-        for (kp, vp), (sk, sv) in zip(self._pools, scratch):
-            self._page_write(kp, pg, off, sk.reshape(k * c, nh, hd))
-            self._page_write(vp, pg, off, sv.reshape(k * c, nh, hd))
+        for (kp, vp, ks, vs), (sk, sv) in zip(parts, scratch):
+            self._page_write(kp, pg, off, sk[:, h:c].reshape(k * w, nh, hd),
+                             ks)
+            self._page_write(vp, pg, off, sv[:, h:c].reshape(k * w, nh, hd),
+                             vs)
 
         rows = torch.as_tensor(self._prompt_rows(group), device=dev)
         for i, pl in enumerate(group):
@@ -548,6 +918,16 @@ class SlotPoolEngine:
                               if pl["temp"] > 0 else torch.argmax(lg[0]))
         self._scatter_state(group, np.full(k, c, np.int64), rows)
         return {pl["slot"]: c for pl in group}
+
+    def _admit_nopass(self, group: list[dict]) -> dict[int, int]:
+        """Plans whose prefill the prefix cache covers: no forward pass at
+        all. A full-prompt hit starts one position back (pos = plen-1) and
+        re-decodes the boundary token inside its copy-on-write page to
+        recover the first generated token's logits."""
+        pos_np = np.array([pl["pos0"] for pl in group], np.int64)
+        rows = torch.as_tensor(self._prompt_rows(group), device=self.device)
+        self._scatter_state(group, pos_np, rows)
+        return {pl["slot"]: int(pl["pos0"]) for pl in group}
 
     def _prompt_rows(self, group: list[dict]) -> np.ndarray:
         rows_np = np.zeros((len(group), self.max_total), np.int64)
@@ -579,3 +959,80 @@ class SlotPoolEngine:
         idx_np = np.asarray(sorted(set(int(s) for s in slots)), np.int64)
         self._bt[torch.as_tensor(idx_np, device=self.device)] = \
             torch.as_tensor(self._bt_np[idx_np], device=self.device)
+
+    def _register_prefixes(self, plans: list[dict]) -> None:
+        """Publish every page-aligned prefix strictly below each plan's
+        write frontier (pages at or above pos0 may still be written by the
+        slot and must never be shared)."""
+        for pl in plans:
+            sh = self._shards[pl["shard"]]
+            for n in range(1, pl["pos0"] // self.page + 1):
+                toks = tuple(pl["prompt"][:n * self.page])
+                key = hash(toks)
+                ent = sh.prefix.get(key)
+                if ent is not None:
+                    if ent[0] == toks:
+                        sh.prefix.move_to_end(key)
+                    continue        # hash collision: keep the resident entry
+                pgs = tuple(pl["pages"][:n])
+                sh.prefix[key] = (toks, pgs)
+                for pg in pgs:
+                    sh.ref[pg] += 1
+                    sh.cache_ref[pg] = sh.cache_ref.get(pg, 0) + 1
+
+    # -- prefill→decode handoff, engine half ----------------------------------
+    @torch.no_grad()
+    def export_prefix(self, slot: int, n_pages: int
+                      ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Whole-page gather of ``slot``'s first ``n_pages`` KV pages, the
+        prefill worker's half of a handoff. The caller guarantees the pages
+        are final (the slot's position has passed ``n_pages * page``).
+        Returns one ``(k_pages, v_pages)`` pair per layer, each ``[n,
+        page, H, D]`` in the model dtype: a quantized pool exports
+        dequantized pages, so any pool layout can import them."""
+        pages = self._slot_pages.get(int(slot), [])
+        if n_pages > len(pages):
+            raise ValueError(
+                f"slot {slot} holds {len(pages)} pages, cannot export "
+                f"{n_pages}")
+        idx = torch.as_tensor(pages[:n_pages], device=self.device)
+        return [(self._gather_kv(kp, ks, idx), self._gather_kv(vp, vs, idx))
+                for kp, vp, ks, vs in map(self._split, self._pools)]
+
+    @torch.no_grad()
+    def import_prefix(self, tokens: Sequence[int], layers: Any,
+                      shard: int = 0) -> int:
+        """Decode-side half of the handoff: land exported KV pages in this
+        pool and publish them to the prefix cache, so the next ``admit``
+        of a prompt opening with ``tokens`` hits and skips that share of
+        prefill. ``tokens`` must be page-aligned; ``layers`` is one
+        ``(k_pages, v_pages)`` pair per layer in the model dtype (a
+        quantized pool quantizes them on land). The entries start
+        cache-only, i.e. evictable. Returns the pages newly imported (0
+        when the cache already covers the prefix). Call from the thread
+        that drives admit/release."""
+        toks = [int(t) for t in tokens]
+        if not toks or len(toks) % self.page:
+            raise ValueError(
+                f"imported prefix must be a non-empty multiple of the "
+                f"page size ({self.page}), got {len(toks)} tokens")
+        n = len(toks) // self.page
+        if len(layers) != self.cfg.n_layers:
+            raise ValueError(
+                f"handoff payload has {len(layers)} layers, engine has "
+                f"{self.cfg.n_layers}")
+        sh = self._shards[shard]
+        n_hit, _ = self._lookup_prefix(shard, toks)
+        if n_hit >= n:
+            return 0
+        self._ensure_free(sh, n)
+        pages = [sh.free.pop() for _ in range(n)]
+        dst = torch.as_tensor(pages, device=self.device)
+        src = torch.arange(n, device=self.device)
+        dt = self.cfg.dtype
+        for entry, (lk, lv) in zip(self._pools, layers):
+            kp, vp, ks, vs = self._split(entry)
+            self._page_copy(kp, dst, src, lk.to(self.device, dt), scale=ks)
+            self._page_copy(vp, dst, src, lv.to(self.device, dt), scale=vs)
+        self._publish_prefix(sh, toks, pages)
+        return n

@@ -16,7 +16,12 @@ engine (``decode_loop.SlotPoolEngine``): requests are admitted into free
 decode slots between fixed K-token segments, each row stops at exactly
 its own ``prompt_len + max_tokens``, finished slots retire with one
 batched fetch, and mixed temperatures co-batch (the engine samples per
-row). Admission reserves KV pages, FIFO, with head-of-line backpressure.
+row). Admission reserves KV pages, FIFO, with head-of-line backpressure,
+counting the pages the engine's prefix cache could evict as free. The
+engine's prefix-cache hits, demotions and promotions reach the
+``ko_serve_prefix_hits_total``, ``ko_serve_kv_demotions_total`` and
+``ko_serve_kv_promoted_hits_total`` counters and its spill-tier pages the
+``ko_serve_kv_spill_pages`` gauge.
 
 Both engines report through ``BatcherStats``, whose ``ko_serve_*``
 families live in a ``telemetry.metrics`` registry (private per batcher by
@@ -26,8 +31,9 @@ scrape).
 Left out of the reference's ``ContinuousBatcher`` (ROADMAP queue 1): the
 cluster tier's levers (``drain``, ``preempt``, ``preemptible``,
 ``readmit``, ``inject``, ``handoff``, ``requeue_sink``, ``replica``), the
-request tracer, per-shard (dp mesh) accounting, and engines without page
-accounting. Only the paged engine exists in the port.
+request tracer, speculative-decoding and MoE metrics, per-shard (dp mesh)
+accounting, and engines without page accounting. Only the paged engine
+exists in the port.
 """
 
 from __future__ import annotations
@@ -157,9 +163,26 @@ class BatcherStats:
         self._m["host_blocked"].observe(seconds, shard=str(shard))
 
     def pages_used(self, pages: int, shard: int | str = 0) -> None:
-        """Allocated KV pages (live slots) on one dp mesh shard of the
-        paged continuous engine."""
+        """Allocated KV pages (live slots + prefix cache) on one dp mesh
+        shard of the paged continuous engine."""
         self._m["kv_pages_used"].set(pages, shard=str(shard))
+
+    def prefix_hit(self, n: int = 1) -> None:
+        """Admissions that reused prefix-cached pages."""
+        self._m["prefix_hits"].inc(n)
+
+    def kv_spill_pages(self, pages: int, shard: int | str = 0) -> None:
+        """KV pages parked in one dp shard's host-RAM spill tier."""
+        self._m["kv_spill_pages"].set(pages, shard=str(shard))
+
+    def kv_demotion(self, n: int = 1) -> None:
+        """Prefix entries demoted from device memory into the host spill
+        tier."""
+        self._m["kv_demotions"].inc(n)
+
+    def kv_promoted_hit(self, n: int = 1) -> None:
+        """Admissions served by promoting a demoted prefix host->device."""
+        self._m["kv_promoted_hits"].inc(n)
 
     def ttft_mean(self) -> float:
         """Mean observed time-to-first-token in seconds (0.0 before any
@@ -355,7 +378,10 @@ class ContinuousBatcher:
     ``pages`` / ``page``, and methods ``admit(entries) -> {slot: pos}``,
     ``run_segment()``, ``poll() -> (buf [S, max_total], pos [S])``,
     ``release(slots)``, ``pages_for``, ``free_pages``,
-    ``evictable_pages`` and ``pages_in_use``.
+    ``evictable_pages`` and ``pages_in_use``; optionally the counters
+    ``prefix_hits`` / ``demotions`` / ``promoted_hits`` and, with
+    ``spill_pages`` set, ``spill_pages_used``, which ``_report_pages``
+    turns into the prefix-hit and spill-tier metrics.
 
     The worker alternates: admit queued requests into free slots, dispatch
     ONE segment advancing every active slot K tokens, retire finished
@@ -383,6 +409,10 @@ class ContinuousBatcher:
         self._queue: deque[_Pending] = deque()
         self._track: dict[int, dict] = {}       # slot -> in-flight state
         self._free = list(range(engine.slots))
+        # the engine's counters as last reported (only the worker reads
+        # and writes this)
+        self._seen = dict.fromkeys(("prefix_hits", "demotions",
+                                    "promoted_hits"), 0)
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="ko-serve-continuous")
         self._worker.start()
@@ -427,7 +457,20 @@ class ContinuousBatcher:
         self.stats.occupancy(len(self._track))
 
     def _report_pages(self) -> None:
-        self.stats.pages_used(self.engine.pages_in_use())
+        """Pages in use and the spill tier's pages as gauges; the engine's
+        prefix-hit, demotion and promotion counters as their growth since
+        the last report (an engine without them reports none)."""
+        eng = self.engine
+        self.stats.pages_used(eng.pages_in_use())
+        if getattr(eng, "spill_pages", 0):
+            self.stats.kv_spill_pages(eng.spill_pages_used())
+        now = {k: int(getattr(eng, k, 0)) for k in self._seen}
+        for key, report in (("prefix_hits", self.stats.prefix_hit),
+                            ("demotions", self.stats.kv_demotion),
+                            ("promoted_hits", self.stats.kv_promoted_hit)):
+            if now[key] > self._seen[key]:
+                report(now[key] - self._seen[key])
+        self._seen = now
 
     def _admit_wave_locked(self) -> list[tuple[int, _Pending]]:
         """Pick the next admissions (caller holds the lock): FIFO page

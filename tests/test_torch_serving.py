@@ -114,6 +114,23 @@ def test_batcher_stats_match_jax():
     assert got.ttft_mean() == pytest.approx(want.ttft_mean())
 
 
+@pytest.mark.parametrize("method,args,key,want", [
+    ("prefix_hit", (3,), "prefix_hits_total", 3),
+    ("kv_spill_pages", (5,), "kv_spill_pages", 5),
+    ("kv_demotion", (2,), "kv_demotions_total", 2),
+    ("kv_promoted_hit", (1,), "kv_promoted_hits_total", 1)])
+def test_prefix_and_spill_stats_match_jax(method, args, key, want):
+    """The prefix-cache and spill-tier hooks move the reference's snapshot
+    key and Prometheus series alike."""
+    got, ref = tserving.BatcherStats(), jserving.BatcherStats()
+    for stats in (got, ref):
+        getattr(stats, method)(*args)
+    assert got.snapshot()[key] == ref.snapshot()[key] == want
+    series = re.compile(r"^(ko_serve_(?!request_latency)\S+ \S+)$", re.M)
+    assert series.findall(got.prometheus()) == series.findall(
+        ref.prometheus())
+
+
 def test_stats_registries_are_private_unless_shared():
     a, b = tserving.BatcherStats(), tserving.BatcherStats()
     a.executed(1)
@@ -145,7 +162,9 @@ def test_continuous_batcher_end_to_end(model):
     assert s["requests_total"] == 6 and s["errors_total"] == 0
     assert s["tokens_generated_total"] == 6 + 4 + 8 + 12 + 7
     assert s["queue_depth"] == 0 and s["slot_occupancy"] == 0
-    assert s["kv_pages_used"] == 0 and s["batches_total"] >= 1
+    # the prefix cache keeps the 8-token prompt's page
+    assert s["kv_pages_used"] == 1 == eng.evictable_pages()
+    assert s["batches_total"] >= 1
     assert s["ttft_count"] == 5            # max_tokens=0 never decodes
     text = cb.stats.prometheus()
     assert 'ko_serve_slot_occupancy{shard="0"} 0' in text
@@ -208,6 +227,41 @@ def test_continuous_batcher_under_thread_stress(model):
     assert s["requests_total"] == 24 and s["queue_depth"] == 0
     assert s["slot_occupancy"] == 0 and s["kv_pages_used"] == 0
     assert eng.free_pages() == eng.pages - 1 and sorted(cb._free) == [0, 1, 2]
+
+
+def test_batcher_reports_prefix_and_spill_counters(model):
+    """Over an engine that hits, demotes and promotes, the batcher's
+    /stats keys follow the engine's counters: a repeated prompt hits,
+    three more prompts evict and demote its cache entry, and a prompt
+    opening with it is promoted from the host tier (which demotes
+    others in turn)."""
+    from test_torch_prefix_cache import PRE, PROMPT_B, PROMPT_C, PROMPT_D
+
+    eng = SlotPoolEngine(CFG, model, slots=4, segment=4, page=8, pages=9,
+                         spill_pages=4, device="cpu")
+    cb = tserving.ContinuousBatcher(eng)
+    snap = cb.stats.snapshot
+    assert cb.submit(PRE, 4, timeout=WAIT) == solo(model, PRE, 4)
+    assert cb.submit(PRE, 4, timeout=WAIT) == solo(model, PRE, 4)
+    assert snap()["prefix_hits_total"] == 1 == eng.prefix_hits
+    assert snap()["kv_demotions_total"] == 0
+    for prompt in (PROMPT_B, PROMPT_C, PROMPT_D):
+        assert cb.submit(prompt, 4, timeout=WAIT) == solo(model, prompt, 4)
+    s = snap()
+    assert s["kv_demotions_total"] == eng.demotions == 1
+    assert s["kv_spill_pages"] == eng.spill_pages_used() == 2
+    assert s["kv_promoted_hits_total"] == 0
+    assert cb.submit(PRE + [7, 7], 4, timeout=WAIT) == solo(
+        model, PRE + [7, 7], 4)
+    s = snap()
+    assert s["kv_promoted_hits_total"] == eng.promoted_hits == 1
+    assert s["prefix_hits_total"] == eng.prefix_hits == 2
+    assert s["kv_demotions_total"] == eng.demotions == 3
+    assert s["kv_spill_pages"] == eng.spill_pages_used() == 3
+    assert s["kv_pages_used"] == eng.pages_in_use()
+    text = cb.stats.prometheus()
+    assert f"ko_serve_prefix_hits_total {eng.prefix_hits}" in text
+    assert 'ko_serve_kv_spill_pages{shard="0"}' in text
 
 
 class _Failing:
