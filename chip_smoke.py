@@ -30,9 +30,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    T=512, D=128), both timed; the library call is
    ``scaled_dot_product_attention`` on the [B, H, T, D] transpose views
    with the key mask.
+   moe_train: the MoE LM's main path, ``LMTrainer(BENCH_MOE).measure``:
+   the bench LM with 8 experts, top-2, capacity factor 1.25 in every
+   layer (``profile_lm.BENCH_MOE``, 1.74 B params), 2 repeats of 3 steps
+   after 2 warm-up steps; K1-K3 each at least once a layer and step, Δ
+   once per dQ launch, the loss (aux included) finite; step ms, tokens/s,
+   MFU by the MoE ``flops_per_token``, peak memory and the aux share of
+   the loss.
 5. jobs + generate: the ``llm`` entry point with ``--sample``, then greedy
    ``generate()`` on four right-padded prompts of mixed lengths from
    trained params, checked for repeatability and against a full forward.
+   jobs_llm_moe: the ``llm`` entry point with ``--experts 8 --steps 2
+   --sample 16`` at those widths; every flash kernel and Δ launched.
    serve: the serving path at the bench LM's width with those weights.
    (a) ``SlotPoolEngine(slots=16, segment=8)`` (page 16, 2,049 pages)
    behind a ``ContinuousBatcher`` fed by 8 client threads with 32
@@ -61,12 +70,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    256 tokens cycled twice: demotions and promoted hits, each promotion's
    pages equal to the demoted bits, promotion ms against a 256-token
    prefill, pinned host bytes, rows against a cold one-wave run (near-tie
-   rule, plus the declared tolerance for int8). (b) the ``serve`` entry
+   rule, plus the declared tolerance for int8). (f) serve_spec: phase
+   (a)'s traffic on ``SlotPoolEngine(slots=16, segment=8, spec_k=4,
+   draft_layers=1)``: every dispatch under sync-debug "error" and
+   launching no port kernel, the batcher's spec counters equal to the
+   engine's, each sampled row equal to its repeat run, each greedy row
+   equal to phase (a)'s row or first different at a near-tie; acceptance
+   ratio, tokens/s beside phase (a)'s, dispatch ms. (g) serve_moe: the MoE
+   LM trained 2 steps from seed 1 behind phase (a)'s engine shape and
+   traffic: no sync, no port kernel, ``expert_load().sum()`` equal to
+   slots × top_k × layers × micro-steps and its gauges on /metrics, the
+   sampled rows equal to their repeats, the power-of-two greedy rows equal
+   to solo ``generate()`` or first different at a near-tie of the solo
+   decode's logits; tokens/s and micro-step ms. (b) the ``serve`` entry
    point (``jobs.build_server``) with each engine, and the continuous one
-   again with ``--kv-dtype int8 --spill-pages 64``, answers ``/generate``
-   (4 requests on a continuous engine, 2 on the dynamic one),
-   ``/healthz``, ``/stats`` and ``/metrics`` on a free local port, then
-   shuts down. ``serve_total`` times the serve phases together.
+   again with ``--kv-dtype int8 --spill-pages 64``, with ``--spec-k 4
+   --draft-layers 1`` and with ``--moe 8``, answers ``/generate`` (4
+   requests on a continuous engine, 2 on the dynamic one), ``/healthz``,
+   ``/stats`` and ``/metrics`` (the spec and MoE families included) on a
+   free local port, then shuts down. ``serve_total`` times the serve
+   phases together.
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -107,6 +130,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -237,6 +261,9 @@ PREFIX_CHECKED = (("full", 2), ("cover", 3), ("partial", 3))
 # there (the cache holds one entry per page-aligned prefix, 1 to 16
 # pages, and each demotes on its own), so eight take 1,088
 SPILL_PREFIXES, SPILL_NEW, SPILL_PAGES = 8, 64, 1088
+# serve_spec: bench_serving.py:321's bench_spec_real defaults, on phase
+# (a)'s engine shape and traffic
+SPEC_K, DRAFT_LAYERS = 4, 1
 
 
 def defined_at(source: str, kernel: str) -> str:
@@ -876,16 +903,19 @@ def check_repeats(batcher, reqs: list, idx, results: dict) -> None:
                                  f"its repeat run")
 
 
-def near_tie(model, i: int, got: list, want: list, limit: float) -> dict:
+def near_tie(model, i: int, got: list, want: list, limit: float,
+             logits_at=None) -> dict:
     """Request ``i``'s greedy row ``got`` against ``want``: equal, or the
-    first differing token a near-tie (gap <= ``limit``) in the full
-    forward's logits over ``want``'s tokens before it."""
+    first differing token a near-tie (gap <= ``limit``) in the logits over
+    ``want``'s tokens before it: the full forward's, or ``logits_at(
+    prefix)``'s."""
     j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), None)
     rec = {"request": i, "equal": j is None}
     if j is not None:
         with torch.no_grad():
-            logits = model(torch.as_tensor(
+            logits = (model(torch.as_tensor(
                 [want[:j]], device=model.embedding.device))[0, -1].float()
+                if logits_at is None else logits_at(want[:j]))
         gap = abs(float(logits[got[j]] - logits[want[j]]))
         rec.update(first_diff=j, logit_gap=gap)
         if gap > limit:
@@ -936,7 +966,7 @@ def serve_engine_phase(cfg, model, smi: str, hbm: float) -> dict:
            "greedy_vs_solo": checks,
            "near_tie_rows": sum(not c["equal"] for c in checks)}
     emit(rec)
-    return rec
+    return rec, results
 
 
 def run_wave(cfg, model, reqs: list, **kw) -> list[list[int]]:
@@ -1218,6 +1248,240 @@ def serve_spill_phase(cfg, model, smi: str, kv: str) -> dict:
     return rec
 
 
+def moe_train_phase(moe_cfg, smi: str, peaks: tuple) -> dict:
+    """Phase 4b: the MoE LM's main path, ``LMTrainer(moe_cfg).measure`` at
+    the bench LM's width with 8 experts, top-2, capacity factor 1.25, flash
+    launch counts reset before and read after: K1-K3 each at least once a
+    layer and step, Δ once per dQ launch, the loss (aux included) finite.
+    Returns the launches."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        Transformer, flops_per_token,
+    )
+
+    steps, warmup, repeats = 3, 2, 2
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in Transformer(moe_cfg).parameters())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    m = LMTrainer(moe_cfg).measure(batch=8, seq_len=2048, steps=steps,
+                                   warmup=warmup, repeats=repeats)
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total = warmup + steps * repeats
+    e, d, layers = moe_cfg.moe_experts, moe_cfg.d_model, moe_cfg.n_layers
+    cap = max(1, int(moe_cfg.moe_capacity_factor * moe_cfg.moe_top_k
+                     * 2048 / e))
+    emit({"phase": "moe_train", "nvidia_smi": smi,
+          "config": {**dataclasses.asdict(moe_cfg),
+                     "dtype": str(moe_cfg.dtype)},
+          "params": n_params, "batch": 8, "seq_len": 2048,
+          "steps_run": total, "repeats": repeats, "launches": launches,
+          "max_memory_allocated": peak, "peak_flops": peaks[0],
+          "flops_per_token": flops_per_token(moe_cfg, 2048),
+          "capacity": cap,
+          # the dense dispatch and combine einsums, which flops_per_token
+          # leaves out as the reference does: 2·2·E·C·D a token a layer
+          "dispatch_combine_flops_per_token": 2 * 2 * e * cap * d * layers,
+          "aux_share": m["final_aux"] / m["final_loss"],
+          **{k: v for k, v in m.items() if k != "step_stats"},
+          "step_stats": m["step_stats"]})
+    if not math.isfinite(m["final_loss"]):
+        raise AssertionError(f"moe_train: loss not finite "
+                             f"({m['final_loss']})")
+    for kname, _ in KERNELS:
+        if launches[kname] < layers * total:
+            raise AssertionError(f"moe_train: {kname} launched "
+                                 f"{launches[kname]} times, expected "
+                                 f">= {layers * total}")
+    if launches["flash_delta"] != launches["flash_bwd_dq"]:
+        raise AssertionError(f"moe_train: flash_delta launched "
+                             f"{launches['flash_delta']} times, not once "
+                             f"per dQ launch")
+    return launches
+
+
+def jobs_llm_moe_phase(moe_cfg, jobs, smi: str) -> dict:
+    """Phase 5a: the ``llm`` entry point with ``--experts 8`` at the bench
+    LM's widths, 2 steps and 16 sampled tokens: finite losses, the sample
+    in the vocabulary, and every flash kernel launched."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = jobs.main(["llm", "--experts", str(moe_cfg.moe_experts),
+                        "--steps", "2", "--vocab", str(moe_cfg.vocab_size),
+                        "--d-model", str(moe_cfg.d_model),
+                        "--heads", str(moe_cfg.n_heads), "--layers",
+                        str(moe_cfg.n_layers), "--d-ff", str(moe_cfg.d_ff),
+                        "--seq-len", str(moe_cfg.max_seq_len), "--batch",
+                        "8", "--sample", "16"])
+    print(out.getvalue(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"jobs llm --experts returned {rc}")
+    records = [json.loads(line) for line in out.getvalue().splitlines()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    sampled = next(r["sampled_tokens"] for r in records
+                   if "sampled_tokens" in r)
+    launches = dict(fa.LAUNCHES)
+    rec = {"phase": "jobs_llm_moe", "nvidia_smi": smi, "losses": losses,
+           "sampled_tokens": sampled, "launches": launches}
+    emit(rec)
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"jobs llm --experts: losses {losses}")
+    if len(sampled) != 4 + 16 or not all(
+            0 <= t < moe_cfg.vocab_size for t in sampled):
+        raise AssertionError(f"jobs llm --experts: sample {sampled}")
+    if min(launches[k] for k in (*(k for k, _ in KERNELS),
+                                 "flash_delta")) == 0:
+        raise AssertionError(f"jobs llm --experts: a flash kernel never "
+                             f"launched: {launches}")
+    return rec
+
+
+def serve_spec_phase(cfg, model, smi: str, base: dict,
+                     base_rows: dict) -> dict:
+    """Phase (f): phase (a)'s 32 requests through a ``ContinuousBatcher``
+    on a speculative engine (``spec_k`` 4, the first layer as the draft),
+    every dispatch under sync-debug "error" and launching no port kernel;
+    each sampled row equals its repeat run; each greedy row equals the
+    plain pool's row of phase (a) or differs first at a near-tie."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+
+    reqs = serve_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                            segment=SERVE_SEGMENT, spec_k=SPEC_K,
+                            draft_layers=DRAFT_LAYERS,
+                            device=model.embedding.device)
+    batcher, stats, results, m = drive(engine, reqs, SERVE_CLIENTS)
+    peak = torch.cuda.max_memory_allocated()
+    drafted, accepted = engine.spec_draft_tokens, engine.spec_accepted_tokens
+    snap = stats.snapshot()
+    if (snap["spec_draft_tokens_total"], snap["spec_accepted_tokens_total"]) \
+            != (drafted, accepted) or not 0 < accepted <= drafted:
+        raise AssertionError(f"serve_spec: counters {drafted}/{accepted}, "
+                             f"stats {snap}")
+    check_repeats(batcher, reqs, SERVE_SAMPLED, results)
+    checks = [{**near_tie(model, i, results[i], base_rows[i], NEAR_TIE),
+               "prompt_len": len(reqs[i][0])}
+              for i in range(SERVE_REQUESTS) if reqs[i][2] == 0.0]
+    rec = {"phase": "serve_spec", "nvidia_smi": smi, "spec_k": SPEC_K,
+           "draft_layers": DRAFT_LAYERS, "slots": SERVE_SLOTS,
+           "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, **m,
+           "dispatch_ms_median": m["segment_ms_median"],
+           "dispatches": m["segments"],
+           "spec_draft_tokens": drafted, "spec_accepted_tokens": accepted,
+           "acceptance_ratio": accepted / drafted,
+           "plain_tokens_per_s": base["tokens_per_s"],
+           "tokens_per_s_vs_plain": m["tokens_per_s"] / base["tokens_per_s"],
+           "plain_segment_ms_median": base["segment_ms_median"],
+           "max_memory_allocated": peak,
+           "greedy_vs_plain_pool": checks,
+           "near_tie_rows": sum(not c["equal"] for c in checks)}
+    emit(rec)
+    return rec
+
+
+def decode_logits(cfg, model, tokens: list, plen: int) -> torch.Tensor:
+    """f32 logits after the last of ``tokens`` by solo ``generate()``'s own
+    path: one prefill pass over the first ``plen`` (an MoE layer's
+    capacity depends on that width), then one token a step."""
+    from kubeoperator_tpu_torch.workloads.generate import _decode_loop
+
+    dev = model.embedding.device
+    buf = torch.as_tensor([tokens], device=dev)
+    shape = (1, cfg.max_seq_len, cfg.n_heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+               torch.zeros(shape, dtype=cfg.dtype, device=dev))
+              for _ in range(cfg.n_layers)]
+    out = {}
+    with torch.no_grad():
+        out["logits"] = model(buf[:, :plen], torch.arange(plen, device=dev),
+                              caches)[0, -1]
+        _decode_loop(dataclasses.replace(cfg, decode=True, remat=False),
+                     model, caches, buf, range(plen, len(tokens)),
+                     lambda logits, pos: out.update(logits=logits[0]))
+    return out["logits"].float()
+
+
+def serve_moe_phase(moe_cfg, smi: str) -> dict:
+    """Phase (g): the MoE LM, trained 2 steps from seed 1 as phase 5
+    trains the dense one, behind phase (a)'s engine shape and traffic:
+    every segment under sync-debug "error" and launching no port kernel,
+    ``expert_load().sum()`` exactly slots × top_k × layers × micro-steps
+    (at one token a step nothing drops), and the power-of-two greedy rows
+    equal to solo ``generate()`` or first different at a near-tie of the
+    solo decode's logits."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+
+    lt = LMTrainer(moe_cfg)
+    state = lt.init_state(seed=1)
+    toks = lt.synthetic_batch(8, 2048, seed=1)
+    for _ in range(2):
+        state, metrics = lt.train_step(state, toks)
+    model = state["model"]
+    model.zero_grad(set_to_none=True)
+    del state, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = serve_requests(moe_cfg.vocab_size)
+    engine = SlotPoolEngine(moe_cfg, model, slots=SERVE_SLOTS,
+                            segment=SERVE_SEGMENT,
+                            device=model.embedding.device)
+    batcher, stats, results, m = drive(engine, reqs, SERVE_CLIENTS)
+    peak = torch.cuda.max_memory_allocated()
+    load = engine.expert_load()
+    steps = m["segments"] * SERVE_SEGMENT
+    want = SERVE_SLOTS * moe_cfg.moe_top_k * moe_cfg.n_layers * steps
+    if float(load.sum()) != want:
+        raise AssertionError(f"serve_moe: expert load sums to "
+                             f"{float(load.sum())}, not {want}")
+    prom = {line.split()[0]: float(line.split()[1])
+            for line in stats.prometheus().splitlines()
+            if line.startswith("ko_serve_moe_expert_load{")}
+    if sorted(prom.values()) != sorted(float(x) for x in load):
+        raise AssertionError(f"serve_moe: /metrics load {prom} against "
+                             f"{load.tolist()}")
+    check_repeats(batcher, reqs, SERVE_SAMPLED, results)
+    checks = []
+    for i, (prompt, mt, temp, _) in enumerate(reqs):
+        if temp or len(prompt) & (len(prompt) - 1):
+            continue
+        with torch.no_grad():
+            solo = generate(moe_cfg, model, [prompt], mt,
+                            device=model.embedding.device)[0].tolist()
+        checks.append({**near_tie(
+            model, i, results[i], solo, NEAR_TIE,
+            lambda pre, n=len(prompt): decode_logits(moe_cfg, model, pre, n)),
+            "prompt_len": len(prompt), "max_tokens": mt})
+    rec = {"phase": "serve_moe", "nvidia_smi": smi,
+           "config": {**dataclasses.asdict(moe_cfg),
+                      "dtype": str(moe_cfg.dtype)},
+           "train_loss": float(metrics["loss"]),
+           "slots": SERVE_SLOTS, "segment": SERVE_SEGMENT,
+           "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS, **m,
+           "micro_steps": steps, "expert_load": load.tolist(),
+           "expert_load_sum": float(load.sum()),
+           "max_memory_allocated": peak,
+           "greedy_pow2_vs_solo": checks,
+           "near_tie_rows": sum(not c["equal"] for c in checks)}
+    emit(rec)
+    return rec
+
+
 def http_call(url: str, body: dict | None = None) -> tuple[int, str]:
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data,
@@ -1226,10 +1490,12 @@ def http_call(url: str, body: dict | None = None) -> tuple[int, str]:
         return r.status, r.read().decode()
 
 
-def serve_http_phase(cfg, jobs) -> dict:
+def serve_http_phase(cfg, jobs, smi: str) -> dict:
     """Phase (b): the serve entry point with each engine, and the
-    continuous one again with int8 pages and a spill tier, on a free local
-    port, at the bench LM's widths (fresh weights)."""
+    continuous one again with int8 pages and a spill tier, with
+    speculation (``--spec-k 4 --draft-layers 1``) and over an MoE model
+    (``--moe 8``), on a free local port, at the bench LM's widths (fresh
+    weights); each /metrics carries its engine's families."""
     widths = ["--vocab", str(cfg.vocab_size), "--d-model", str(cfg.d_model),
               "--heads", str(cfg.n_heads), "--layers", str(cfg.n_layers),
               "--d-ff", str(cfg.d_ff), "--max-seq-len", str(cfg.max_seq_len),
@@ -1241,7 +1507,11 @@ def serve_http_phase(cfg, jobs) -> dict:
     for label, engine, flags, n in (
             ("continuous", "continuous", [], 4), ("dynamic", "dynamic", [], 2),
             ("continuous_int8_spill", "continuous",
-             ["--kv-dtype", "int8", "--spill-pages", "64"], 4)):
+             ["--kv-dtype", "int8", "--spill-pages", "64"], 4),
+            ("continuous_spec", "continuous",
+             ["--spec-k", str(SPEC_K), "--draft-layers", str(DRAFT_LAYERS)],
+             4),
+            ("continuous_moe", "continuous", ["--moe", "8"], 4)):
         args = jobs.build_parser().parse_args(["serve", "--engine", engine,
                                                *widths, *flags])
         t0 = time.perf_counter()
@@ -1273,6 +1543,12 @@ def serve_http_phase(cfg, jobs) -> dict:
             if f"ko_serve_requests_total {n}" not in metrics:
                 raise AssertionError(f"serve {label}: /metrics lacks "
                                      f"ko_serve_requests_total {n}")
+            family = {"continuous_spec": "ko_serve_spec_draft_tokens_total ",
+                      "continuous_moe": "ko_serve_moe_expert_load{"}.get(
+                          label)
+            if family and family not in metrics:
+                raise AssertionError(f"serve {label}: /metrics lacks "
+                                     f"{family.strip()}")
         finally:
             server.shutdown()
             server.server_close()
@@ -1282,7 +1558,7 @@ def serve_http_phase(cfg, jobs) -> dict:
                       "new_tokens": [json.loads(b)["new_tokens"]
                                      for _, b in replies.values()],
                       "stats": stats}
-    emit({"phase": "serve_http", **out})
+    emit({"phase": "serve_http", "nvidia_smi": smi, **out})
     return out
 
 
@@ -1293,6 +1569,7 @@ def main() -> int:
                          "the port on the card and has no CPU mode")
     from kubeoperator_tpu_torch import kernels
     from kubeoperator_tpu_torch.profile_lm import BENCH_LM as cfg
+    from kubeoperator_tpu_torch.profile_lm import BENCH_MOE as moe_cfg
     from kubeoperator_tpu_torch.train import jobs
     from kubeoperator_tpu_torch.workloads import flash_attention as fa
     from kubeoperator_tpu_torch.workloads.generate import generate
@@ -1363,6 +1640,9 @@ def main() -> int:
                              f"{train_launches['flash_delta']} times, not "
                              f"once per dQ launch")
 
+    # -- 4b. main path: the MoE LM's training --------------------------------
+    moe_launches = moe_train_phase(moe_cfg, smi, peaks)
+
     # -- 5. main path: the llm entry point, then greedy generate -------------
     fa.reset_launches()
     rc = jobs.main(["llm", "--steps", "2", "--d-model", str(cfg.d_model),
@@ -1421,15 +1701,21 @@ def main() -> int:
           "exact_first_tokens": sum(f["token"] == f["full_forward_argmax"]
                                     for f in first)})
 
+    # -- 5a. the llm entry point with MoE FFNs --------------------------------
+    jobs_llm_moe_phase(moe_cfg, jobs, smi)
+
     # -- 5b. serve: the slot pool with phase 5's weights, its prefix cache,
-    # quantized pages and spill tier, then the entry point
+    # quantized pages, spill tier and speculation, the MoE pool, then the
+    # entry point
     serve_t0 = time.perf_counter()
-    bf16_serve = serve_engine_phase(cfg, model, smi, peaks[1])
+    bf16_serve, bf16_rows = serve_engine_phase(cfg, model, smi, peaks[1])
+    serve_spec_phase(cfg, model, smi, bf16_serve, bf16_rows)
     serve_prefix_phase(cfg, model, smi)
     serve_kv_quant_phase(cfg, model, smi, bf16_serve)
     for kv in ("bf16", "int8"):
         serve_spill_phase(cfg, model, smi, kv)
-    serve_http_phase(cfg, jobs)
+    serve_moe_phase(moe_cfg, smi)
+    serve_http_phase(cfg, jobs, smi)
     emit({"phase": "serve_total", "seconds": time.perf_counter() - serve_t0})
 
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
@@ -1610,7 +1896,11 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "cuda_kernels": {k: defined_at(source, k)
-                          for k in CUDA_KERNELS[kname]}}
+                          for k in CUDA_KERNELS[kname]},
+         # the MoE LM's path runs K1-K3 and Δ too (phase moe_train)
+         **({"moe_train_launches": moe_launches[kname]}
+            if kname in (*(k for k, _ in KERNELS), "flash_delta")
+            else {})}
         for kname, where, source, launches, r in main_runs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -8,8 +8,10 @@ The port keeps the flax layouts, so the bridge is a copy: it walks the
 modules do. Both layer layouts are taken: the ``nn.scan``-stacked tree
 (``params["layers"][...]`` with a leading axis of length L) and the
 unrolled one (``params["layers"]["layers_{i}"]``, ``scan_layers=False``);
-fused ``qkv`` and split ``q``/``k``/``v`` projections alike. Values stay
-f32, as the flax masters are.
+fused ``qkv`` and split ``q``/``k``/``v`` projections alike; dense
+``mlp`` and routed ``moe`` FFNs (``router/kernel`` [D, E], ``w_gate``,
+``w_up`` [E, D, F], ``w_down`` [E, F, D]). Values stay f32, as the flax
+masters are.
 """
 
 from __future__ import annotations
@@ -43,16 +45,19 @@ def _blocks_from_jax(layers: Mapping, n_layers: int) -> dict[str, torch.Tensor]:
     sd = {}
     for i in range(n_layers):
         lp = _layer_tree(layers, i, stacked)
-        if "moe" in lp:
-            raise NotImplementedError("MoE params are not ported yet "
-                                      "(ROADMAP queue 1, MoE slice)")
         pre = f"layers.{i}."
         attn = lp["attn"]
         names = ("qkv",) if "qkv" in attn else ("q", "k", "v")
         for name in names + ("o",):
             sd[pre + f"attn.{name}"] = _tensor(attn[name]["kernel"])
-        for name in ("gate", "up", "down"):
-            sd[pre + f"mlp.{name}"] = _tensor(lp["mlp"][name]["kernel"])
+        if "moe" in lp:
+            mo = lp["moe"]
+            sd[pre + "moe.router"] = _tensor(mo["router"]["kernel"])
+            for name in ("w_gate", "w_up", "w_down"):
+                sd[pre + f"moe.{name}"] = _tensor(mo[name])
+        else:
+            for name in ("gate", "up", "down"):
+                sd[pre + f"mlp.{name}"] = _tensor(lp["mlp"][name]["kernel"])
         sd[pre + "ln1.scale"] = _tensor(lp["ln1"]["scale"])
         sd[pre + "ln2.scale"] = _tensor(lp["ln2"]["scale"])
     return sd

@@ -4,6 +4,7 @@
     python -m kubeoperator_tpu_torch.profile_lm --model vit [--batch 128]
     python -m kubeoperator_tpu_torch.profile_lm --model resnet [--batch 128]
     python -m kubeoperator_tpu_torch.profile_lm --model serve [--batch 16]
+    python -m kubeoperator_tpu_torch.profile_lm --model moe [--batch 8]
 
 Trains the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048,
 batch 8, bf16, remat dots+attn, bf16 logits), with ``--model vit``
@@ -15,12 +16,19 @@ window's wall time, the device's busy and idle share, the device time by
 class (the port's kernels, cuDNN convs, cuBLAS GEMMs, the rest) and the
 ``--top`` kernels by device time. With ``--model serve`` a step is one
 decode segment of the bench LM's ``SlotPoolEngine`` (``--batch`` slots,
-all live, 8 tokens each, from 512-token prompts). Needs the card.
+all live, 8 tokens each, from 512-token prompts). ``--model moe`` trains
+the bench LM with 8 experts, top-2, capacity factor 1.25 in every layer
+(``BENCH_MOE``) and splits its batched GEMMs by the ops that launch them
+(``moe_gemm_ms_per_step``): the expert SwiGLUs (the ``aten::bmm`` calls
+with a ``d_ff`` dimension), the dense dispatch and combine einsums (the
+other ``aten::bmm`` calls) and the 2-D products (``aten::mm``: the
+attention projections, the router and the logits). Needs the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -37,6 +45,10 @@ BENCH_LM = TransformerConfig(vocab_size=32_000, d_model=2048, n_heads=16,
                              dtype=torch.bfloat16, remat=True,
                              attention="auto", logits_bf16=True,
                              remat_policy="dots+attn")
+# the bench LM with Mixtral-8x7B's routing (8 experts, top-2) and
+# MoEMlp's default capacity factor in every layer
+BENCH_MOE = dataclasses.replace(BENCH_LM, moe_experts=8, moe_top_k=2,
+                                moe_capacity_factor=1.25)
 # ResNet-50 as bench.py:112-113 measures it, with the two kernel modes on:
 # every 1x1 conv takes make_conv's backward (dw_dot_max_k=1), K7 on the
 # stride-1 ones, and the 56x56 neighbourhoods are fused units (K8)
@@ -68,6 +80,31 @@ def kernel_class(name: str) -> str:
     return "other elementwise/reduction"
 
 
+def moe_gemm_split(prof, d_ff: int) -> dict[str, float]:
+    """Device ms of the profiled window's GEMM-issuing ops, by the MoE
+    product they compute: a batched product with a ``d_ff`` dimension is an
+    expert SwiGLU (forward or backward), any other batched product a
+    dispatch or combine einsum, a 2-D product a dense projection, the
+    router or the logits."""
+    split = {"experts (bmm with d_ff)": 0.0,
+             "dispatch/combine (other bmm)": 0.0,
+             "dense products (mm)": 0.0}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        if ev.key == "aten::bmm":
+            dims = {d for shape in ev.input_shapes for d in shape}
+            key = ("experts (bmm with d_ff)" if d_ff in dims
+                   else "dispatch/combine (other bmm)")
+        elif ev.key == "aten::mm":
+            key = "dense products (mm)"
+        else:
+            continue
+        split[key] += dev_us / 1e3
+    return split
+
+
 def serve_segment(slots: int):
     """One decode segment of a bench-LM slot pool with every slot live, as
     a step: ``slots`` requests of 512 random prompt tokens and 1,024 new
@@ -93,21 +130,22 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--model", choices=("lm", "vit", "resnet", "serve"),
-                    default="lm")
+    ap.add_argument("--model", choices=("lm", "moe", "vit", "resnet",
+                                        "serve"), default="lm")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 for the LM, 128 for the ViT and ResNet, "
-                         "16 slots for serve")
+                    help="default 8 for the LM and the MoE LM, 128 for the "
+                         "ViT and ResNet, 16 slots for serve")
     args = ap.parse_args(argv)
 
     if args.model == "serve":
         args.batch = args.batch or 16
         step, seq_len = serve_segment(args.batch), None
-    elif args.model == "lm":
+    elif args.model in ("lm", "moe"):
+        lm_cfg = BENCH_MOE if args.model == "moe" else BENCH_LM
         args.batch = args.batch or 8
-        tr = LMTrainer(BENCH_LM)
-        inputs = (tr.synthetic_batch(args.batch, BENCH_LM.max_seq_len),)
-        seq_len = BENCH_LM.max_seq_len
+        tr = LMTrainer(lm_cfg)
+        inputs = (tr.synthetic_batch(args.batch, lm_cfg.max_seq_len),)
+        seq_len = lm_cfg.max_seq_len
     elif args.model == "vit":
         from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
         args.batch = args.batch or 128
@@ -130,7 +168,8 @@ def main(argv: list[str] | None = None) -> int:
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=args.model == "moe") as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             metrics = step()
@@ -158,6 +197,11 @@ def main(argv: list[str] | None = None) -> int:
     for name, ms, _ in kernels:
         cls = kernel_class(name)
         classes[cls] = classes.get(cls, 0.0) + ms
+    extra = {}
+    if args.model == "moe":
+        extra["moe_gemm_ms_per_step"] = {
+            k: ms / args.steps
+            for k, ms in moe_gemm_split(prof, BENCH_MOE.d_ff).items()}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": args.model,
         "steps": args.steps, "batch": args.batch, "seq_len": seq_len,
@@ -170,7 +214,7 @@ def main(argv: list[str] | None = None) -> int:
                                                   key=lambda kv: -kv[1])},
         "top": [{"kernel": n[:120], "ms_per_step": ms / args.steps,
                  "calls_per_step": c / args.steps}
-                for n, ms, c in kernels[:args.top]]}), flush=True)
+                for n, ms, c in kernels[:args.top]], **extra}), flush=True)
     return 0
 
 

@@ -8,7 +8,8 @@ Vision Transformer classifier on a synthetic image stream) and ``serve``
 
     python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16
     python -m kubeoperator_tpu_torch.train.jobs llm --device cpu --steps 2 \\
-        --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256
+        --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256 \\
+        [--experts 4 --sample 4]
     python -m kubeoperator_tpu_torch.train.jobs resnet50 --steps 2
     python -m kubeoperator_tpu_torch.train.jobs resnet50 --device cpu \\
         --steps 2 --batch-per-chip 2 --image-size 32 --depth 18
@@ -20,7 +21,8 @@ Vision Transformer classifier on a synthetic image stream) and ``serve``
     python -m kubeoperator_tpu_torch.train.jobs serve --device cpu \\
         --vocab 128 --d-model 32 --heads 2 --layers 1 --max-seq-len 64 \\
         --no-bf16 --port 8199 [--engine continuous \\
-        [--kv-dtype int8] [--spill-pages 8]]
+        [--kv-dtype int8] [--spill-pages 8] \\
+        [--spec-k 2 --draft-layers 1 | --moe 4]]
 
 Each record is one JSON line on stdout. Runs on the card unless
 ``--device cpu`` is given.
@@ -39,15 +41,11 @@ import torch
 # system this port does not have yet, and where the ROADMAP queues it
 NOT_PORTED = {
     "mesh": (None, "multi-device meshes (ROADMAP queue 1, multi-device)"),
-    "experts": (0, "MoE FFNs (ROADMAP queue 1, MoE)"),
     "sp_attention": ("ring", "sequence-parallel attention (ROADMAP queue 1, "
                              "multi-device)"),
     "ckpt_dir": (None, "checkpointing (ROADMAP queue 1, checkpoint)"),
     "metrics_port": (0, "the ko_train_* metrics server (ROADMAP queue 1, "
                         "serving and jobs)"),
-    "spec_k": (0, "speculative decoding (ROADMAP queue 1, item 9)"),
-    "draft_layers": (0, "speculative decoding (ROADMAP queue 1, item 9)"),
-    "moe": (0, "MoE serving (ROADMAP queue 1, item 9)"),
     "aot_cache": (None, "the AOT compile cache (ROADMAP queue 1, item 15)"),
 }
 
@@ -66,8 +64,9 @@ def refuse_unported(args: argparse.Namespace) -> None:
 
 
 def cmd_llm(args: argparse.Namespace) -> int:
-    """Train the transformer LM for ``--steps`` on a synthetic batch, then
-    sample ``--sample`` tokens from the trained model."""
+    """Train the transformer LM (``--experts`` > 0: MoE FFNs) for
+    ``--steps`` on a synthetic batch, then sample ``--sample`` tokens from
+    the trained model."""
     refuse_unported(args)
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
@@ -77,6 +76,7 @@ def cmd_llm(args: argparse.Namespace) -> int:
                             n_heads=args.heads, n_layers=args.layers,
                             d_ff=args.d_ff or int(args.d_model * 8 / 3 / 32) * 32,
                             max_seq_len=args.seq_len,
+                            moe_experts=args.experts,
                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
     lt = LMTrainer(cfg, device=args.device)
     state = lt.init_state()
@@ -209,7 +209,7 @@ def build_server(args: argparse.Namespace):
         n_layers=args.layers,
         # the llm job's SwiGLU recipe, so a trained model's shapes match
         d_ff=args.d_ff or int(args.d_model * 8 / 3 / 32) * 32,
-        max_seq_len=args.max_seq_len,
+        max_seq_len=args.max_seq_len, moe_experts=args.moe,
         dtype=torch.bfloat16 if args.bf16 else torch.float32)
     with torch.device(dev):
         model = Transformer(cfg)
@@ -227,14 +227,18 @@ def build_server(args: argparse.Namespace):
                                     segment=args.segment, page=args.page,
                                     pages=args.pages,
                                     kv_dtype=args.kv_dtype,
-                                    spill_pages=args.spill_pages, device=dev)
+                                    spill_pages=args.spill_pages,
+                                    spec_k=args.spec_k,
+                                    draft_layers=args.draft_layers,
+                                    device=dev)
         except ValueError as e:
             raise SystemExit(f"serve: {e}") from e
         batcher = ContinuousBatcher(engine, stats=stats)
         emit({"job": "serve", "engine": "continuous", "slots": args.slots,
               "segment": args.segment, "page": engine.page,
               "pages": engine.pages, "kv_dtype": engine.kv_dtype,
-              "spill_pages": engine.spill_pages})
+              "spill_pages": engine.spill_pages, "spec_k": engine.spec_k,
+              "draft_layers": engine.draft_layers, "moe": cfg.moe_experts})
         # every request shape shares the one segment path, so an
         # empty-pool segment is the whole warm-up; --warm is moot here
         engine.run_segment()
@@ -355,7 +359,8 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--layers", type=int, default=4)
     lm.add_argument("--d-ff", type=int, default=None)
     lm.add_argument("--experts", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help=">0 enables MoE FFNs of that many experts (top-2, "
+                         "capacity factor 1.25)")
     lm.add_argument("--sample", type=int, default=0,
                     help=">0: generate this many tokens after training "
                          "(KV-cached decode smoke)")
@@ -452,11 +457,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "offset, head) scales (~2x pages at equal memory; "
                          "greedy logits within 0.25 of bf16)")
     sv.add_argument("--spec-k", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help="continuous engine: speculative decoding — draft K "
+                         "tokens a dispatch with the model's own first "
+                         "--draft-layers layers, verify them in one K-wide "
+                         "pass (0 disables)")
     sv.add_argument("--draft-layers", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help="continuous engine with --spec-k: how many leading "
+                         "layers form the draft (>= 1, < --layers)")
     sv.add_argument("--moe", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help="serve a mixture-of-experts model: experts per "
+                         "layer (0 = dense FFN); not with --spec-k")
     sv.add_argument("--spill-pages", type=int, default=0,
                     help="continuous engine: host-RAM prefix-cache spill "
                          "tier bound, in KV pages — cold prefix entries "

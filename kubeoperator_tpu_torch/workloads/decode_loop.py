@@ -59,7 +59,7 @@ The micro-step's math is the port's ``_decode_loop`` (generate.py) op for
 op — the same shared helpers (``rms_norm``, ``token_qkv``,
 ``attn_out_mlp``, ``final_logits``), f32 scores, the -1e30 mask over the
 full ``max_seq_len`` width — with the scalar position replaced by a
-per-row position vector (``_rope_rows`` is ``rope`` at each row's
+per-row position vector (``_rope_grid`` is ``rope`` at each row's
 position). Greedy rows therefore give the tokens a solo ``generate()`` of
 the same request gives, on prefix hits too (the seeded chunk attends over
 exactly the K/V a cold prefill computes). Sampling uses ``generate()``'s
@@ -71,9 +71,43 @@ engine keeps a host mirror of each slot's position (exact: admission sets
 it, and every micro-step adds 1 while ``pos < last``) and of each slot's
 temperature and seed; greedy rows draw nothing.
 
+Speculative decoding (``spec_k=K, draft_layers=N``): each
+``run_segment`` is one round of K draft micro-steps through the target's
+own first N layers (a strict-prefix draft: no second parameter set),
+whose KV lives in the same page pool behind per-slot draft block tables
+(``_dbt``), then ONE K-wide verify pass through all layers. Each row
+commits the leading run of proposals that match the target's own choice
+plus the target's correction at the first mismatch, so 1..K tokens a
+round, and ``_rewind`` (the only code that moves ``pos`` back) sets each
+row's position to its accepted frontier. ``pages_for`` reserves the
+K-token lookahead and mirrors the reservation for the draft.
+Admission seeds the draft pages from the target's pages below the write
+frontier (``_seed_draft``): the draft's layer-l KV over a prefix IS the
+target's. Draft pages are always fresh and never prefix-cached;
+``release`` points them back at the trash page. A sampled row's K Gumbel
+noise vectors are drawn once a round, keyed ``(seed, 0, pos0 + i)`` from
+the host mirror, and used by draft step i and verify step i alike, so a
+sampled row emits exactly the non-speculative engine's stream. The
+advance is data-dependent, so the mirror is stale after a round until
+``poll_spec()`` (one batched fetch of positions and the ``[drafted,
+accepted]`` stats) refreshes it; ``ContinuousBatcher`` calls it after
+every dispatch. A round that would need the mirror while it is stale (a
+live sampled row, by the host's last knowledge) raises ``RuntimeError``
+before any device work instead of syncing, so a dispatch never reads the
+device.
+
+MoE serving (``moe_experts > 0``): each layer's FFN is the model's
+``MoEMlp`` at this pass's width (``attn_out_mlp``'s MoE branch, the
+reference's ``_layer_tail``), streaming every expert for every row (the
+dense dispatch). The per-expert load of the micro-steps accumulates on
+the device; ``expert_load()`` fetches it on demand. Admission prefills
+are not counted. GShard capacity depends on the pass's width, so a pool
+row equals solo ``generate()`` for power-of-two prompts, whose admission
+chunk is the whole prompt; at one token a step nothing is ever dropped.
+Speculation over MoE is refused (``ValueError``), as in the reference.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): speculative decoding and MoE serving [9], a device mesh
-[14] and the AOT compile cache [15].
+queue 1 item): a device mesh [14] and the AOT compile cache [15].
 """
 
 from __future__ import annotations
@@ -87,7 +121,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeoperator_tpu_torch.workloads.generate import (
-    attn_out_mlp, final_logits, gumbel_draw,
+    attn_out_mlp, final_logits, gumbel_draw, gumbel_noise, gumbel_pick,
 )
 from kubeoperator_tpu_torch.workloads.train import MeshSpec, resolve_device
 from kubeoperator_tpu_torch.workloads.transformer import (
@@ -180,21 +214,23 @@ def validate_page_pool(*, page: int, pages: int, max_seq_len: int,
             f"least one allocatable page")
 
 
-def _rope_rows(x: torch.Tensor, pos: torch.Tensor,
+def _rope_grid(x: torch.Tensor, pos: torch.Tensor,
                base: float = 10_000.0) -> torch.Tensor:
-    """Rotary embeddings with a *per-row* position. x: [S, 1, H, D],
-    pos: [S]. Elementwise identical to ``transformer.rope`` evaluated at
-    each row's scalar position (same f32 angle math, same stack/reshape),
-    which is what keeps slot tokens equal to the solo decode's."""
+    """Rotary embeddings over a per-(row, step) position grid. x:
+    [S, K, H, D], pos: [S, K]. Elementwise identical to
+    ``transformer.rope`` evaluated at each element's scalar position (same
+    f32 angle math, same stack/reshape), which is what keeps slot tokens
+    equal to the solo decode's."""
     d = x.shape[-1]
     freqs = base ** (-torch.arange(0, d, 2, dtype=torch.float32,
                                    device=x.device) / d)
-    angles = pos[:, None].float() * freqs[None, :]              # [S, D/2]
-    cos = torch.cos(angles)[:, None, None, :]
-    sin = torch.sin(angles)[:, None, None, :]
+    angles = pos[..., None].float() * freqs                     # [S, K, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., ::2], x[..., 1::2]
     rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rotated.reshape(x.shape).to(x.dtype)
+
 
 
 class _PageShard:
@@ -245,6 +281,9 @@ class SlotPoolEngine:
     * ``pages_for`` / ``free_pages`` / ``evictable_pages`` /
       ``pages_in_use`` / ``spill_pages_used`` — the page accounting the
       batcher admits against and reports.
+    * ``poll_spec()`` (``spec_k > 0``) — after each speculative round, one
+      batched fetch of (positions, drafted, accepted); ``expert_load()``
+      (MoE configs) — the per-expert load accumulated on the device.
 
     The protocol is single-writer: one host thread calls admit/release/
     run_segment/poll (the batcher's worker), so allocator state needs no
@@ -266,13 +305,24 @@ class SlotPoolEngine:
         if model.embedding.device != self.device:
             raise ValueError(f"model is on {model.embedding.device}, the "
                              f"engine on {self.device}")
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE serving is not ported yet (ROADMAP queue 1, item 9)")
-        if spec_k or draft_layers:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1, "
-                "item 9)")
+        self.spec_k = int(spec_k)
+        self.draft_layers = int(draft_layers)
+        if self.spec_k:
+            if not 1 <= self.draft_layers < cfg.n_layers:
+                raise ValueError(
+                    f"draft_layers ({draft_layers}) must satisfy 1 <= "
+                    f"draft_layers < n_layers ({cfg.n_layers}) when "
+                    f"spec_k > 0: the draft is the target's own first "
+                    f"layers, so it must be a strict, non-empty prefix")
+            if cfg.moe_experts:
+                raise ValueError(
+                    "speculative decoding over MoE models is not "
+                    "supported: the truncated draft stack has no router "
+                    "state to propose with (serve MoE with spec_k=0)")
+        elif self.draft_layers:
+            raise ValueError(
+                f"draft_layers ({draft_layers}) requires spec_k > 0 "
+                f"(speculation is disabled at spec_k=0)")
         if mesh_spec is not None and any(s > 1 for _, s in
                                          mesh_spec.sizes()):
             raise NotImplementedError(
@@ -359,6 +409,23 @@ class SlotPoolEngine:
         self._bt_np = np.full((s, self.blocks), self._shards[0].trash,
                               np.int64)
         self._bt = torch.as_tensor(self._bt_np, device=dev)
+        # draft block tables: the draft's KV pages live in the same pool
+        # (one allocator, one backpressure signal) behind their own
+        # [S, blocks] tables, trash-initialised like the target's
+        self._dbt_np = self._bt_np.copy() if self.spec_k else None
+        self._dbt = (torch.as_tensor(self._dbt_np, device=dev)
+                     if self.spec_k else None)
+        # speculative accounting: [drafted, accepted] summed on the device
+        # over the rounds since the last poll_spec, which drains it into
+        # the host counters; _stale_h marks the rows whose position mirror
+        # a round has outdated (poll_spec and admission refresh it)
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self._spec_stats = None
+        self._stale_h = np.zeros(s, bool)
+        # MoE per-expert load of every micro-step, summed on the device
+        # (empty for a dense model)
+        self._expert_load = torch.zeros(cfg.moe_experts, device=dev)
 
     @property
     def pool_bytes(self) -> int:
@@ -452,41 +519,56 @@ class SlotPoolEngine:
         return buf[idx]
 
     # -- device math ----------------------------------------------------------
-    def _forward(self) -> torch.Tensor:
-        """One token of every slot through the model: write each layer's
-        K/V at the row's position, attend over the gathered page view, and
-        return the next-token logits [S, vocab]. ``_decode_loop``'s step
-        with the scalar position replaced by the per-slot ``pos`` vector
-        and the dense cache row by the gathered pages."""
-        cfg, dt, model = self._decode_cfg, self._decode_cfg.dtype, self.model
+    def _layers(self, layers, x: torch.Tensor, pos: torch.Tensor,
+                bt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``x`` [S, Q, d] at positions ``pos`` [S, Q] through ``layers``
+        (with their pool entries): each writes its K/V through the block
+        tables ``bt`` at each (row, position), attends over the gathered
+        page view with a causal mask per query, and runs its FFN. Returns
+        (x, load): the MoE layers' per-expert load summed, None for a
+        dense model. A finished row rewrites its frozen position with the
+        value it holds and an empty row writes the trash page, both no-ops
+        in effect. Q is 1 for a micro-step, K for the speculative verify;
+        the math is ``_decode_loop``'s step with the scalar position
+        replaced by ``pos`` and the dense cache row by the gathered
+        pages."""
+        cfg, dt = self._decode_cfg, self._decode_cfg.dtype
         s, t = self.slots, self.max_total
         nh, hd = cfg.n_heads, cfg.head_dim
         scale = 1.0 / (cfg.head_dim ** 0.5)
-        pos = self._pos
-        x = F.embedding(self._buf[self._rows, pos][:, None],
-                        model.embedding).to(dt)                   # [S, 1, d]
-        # block-table routing of this step's K/V write: a finished row
-        # rewrites its frozen position with the identical value; an empty
-        # row writes the trash page — both no-ops in effect
         blk = pos // self.page
-        pg = self._bt[self._rows, blk]
+        pg = bt[self._rows[:, None], blk]
         off = pos - blk * self.page
-        visible = self._key_pos[None, None, None, :] <= pos[:, None, None, None]
-        for layer, entry in zip(model.layers, self._pools):
+        visible = (self._key_pos[None, None, None, :]
+                   <= pos[:, None, :, None])                     # [S,1,Q,T]
+        load = None
+        for layer, entry in zip(layers, self._pools):
             kp, vp, ks, vs = self._split(entry)
             h = rms_norm(x, layer.ln1.scale).to(dt)
-            q, k, v = token_qkv(layer.attn, h, dt)
-            q, k = _rope_rows(q, pos), _rope_rows(k, pos)
-            self._page_write(kp, pg, off, k[:, 0].to(dt), ks)
-            self._page_write(vp, pg, off, v[:, 0].to(dt), vs)
-            ck = self._gather_kv(kp, ks, self._bt).reshape(s, t, nh, hd)
-            cv = self._gather_kv(vp, vs, self._bt).reshape(s, t, nh, hd)
+            q, k, v = token_qkv(layer.attn, h, dt)               # [S,Q,H,D]
+            q, k = _rope_grid(q, pos), _rope_grid(k, pos)
+            self._page_write(kp, pg, off, k.to(dt), ks)
+            self._page_write(vp, pg, off, v.to(dt), vs)
+            ck = self._gather_kv(kp, ks, bt).reshape(s, t, nh, hd)
+            cv = self._gather_kv(vp, vs, bt).reshape(s, t, nh, hd)
             scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                   ck.float()) * scale
             scores = torch.where(visible, scores,
                                  torch.full_like(scores, -1e30))
-            x = attn_out_mlp(layer, x, torch.softmax(scores, dim=-1), cv, dt)
-        return final_logits(cfg, model, x)[:, 0, :]
+            x, ld = attn_out_mlp(layer, x, torch.softmax(scores, dim=-1), cv,
+                                 dt)
+            if ld is not None:
+                load = ld if load is None else load + ld
+        return x, load
+
+    def _forward(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """One token of every slot through the model at its position: the
+        next-token logits [S, vocab] and the MoE load (``_layers``)."""
+        pos = self._pos[:, None]                                 # [S, 1]
+        x = F.embedding(self._buf[self._rows[:, None], pos],
+                        self.model.embedding).to(self._decode_cfg.dtype)
+        x, load = self._layers(self.model.layers, x, pos, self._bt)
+        return final_logits(self._decode_cfg, self.model, x)[:, 0, :], load
 
     def _choose(self, logits: torch.Tensor) -> None:
         """Per-row choose and advance: the given prompt token while pos+1
@@ -513,11 +595,19 @@ class SlotPoolEngine:
 
     @torch.no_grad()
     def run_segment(self) -> None:
-        """Advance every active slot ``segment`` tokens (finished and
-        empty slots no-op in place). Enqueues device work only: no value
-        comes back to the host."""
+        """One dispatch. A plain engine advances every active slot
+        ``segment`` tokens (finished and empty slots no-op in place); a
+        speculative one runs ONE draft-K + K-wide-verify round instead,
+        moving each row 1..K tokens (``poll_spec`` reads how far).
+        Enqueues device work only: no value comes back to the host."""
+        if self.spec_k:
+            self._spec_round()
+            return
         for _ in range(self.segment):
-            self._choose(self._forward())
+            logits, load = self._forward()
+            if load is not None:
+                self._expert_load += load
+            self._choose(logits)
 
     def poll(self) -> tuple[np.ndarray, np.ndarray]:
         """ONE batched device->host fetch: (token buffers [S, max_total],
@@ -526,20 +616,164 @@ class SlotPoolEngine:
         both = torch.cat([self._buf, self._pos[:, None]], dim=1).cpu().numpy()
         return both[:, :-1], both[:, -1]
 
+    def poll_spec(self) -> tuple[np.ndarray, int, int]:
+        """After speculative rounds: ONE batched device->host fetch of
+        (positions [S], drafted, accepted), the counts summed over the
+        rounds since the last call. Refreshes the host mirror of the
+        positions and adds the counts to ``spec_draft_tokens`` /
+        ``spec_accepted_tokens``."""
+        stats = (self._spec_stats if self._spec_stats is not None
+                 else torch.zeros(2, dtype=torch.long, device=self.device))
+        both = torch.cat([self._pos, stats]).cpu().numpy()
+        pos, drafted, accepted = both[:-2], int(both[-2]), int(both[-1])
+        self._spec_stats = None
+        self._stale_h[:] = False
+        self._pos_h[:] = pos
+        self.spec_draft_tokens += drafted
+        self.spec_accepted_tokens += accepted
+        return pos, drafted, accepted
+
+    def expert_load(self) -> np.ndarray:
+        """Per-expert dispatched-token counts ([moe_experts] float32) of
+        every micro-step since the engine started, summed over layers;
+        zeros before the first segment. One device->host fetch."""
+        return self._expert_load.cpu().numpy()
+
     @torch.no_grad()
     def debug_logits(self) -> np.ndarray:
         """Test hook: the next-token logits ``[S, vocab]`` every slot would
         choose from, by the micro-step's own path (the same quantizing
         write and dequantizing gather), without advancing any slot. (Its
         page writes are the ones the next micro-step makes.)"""
-        return self._forward().cpu().numpy()
+        return self._forward()[0].cpu().numpy()
+
+    # -- speculative decoding ---------------------------------------------------
+    def _rewind(self, pos0: torch.Tensor, adv: torch.Tensor,
+                last: torch.Tensor, live: torch.Tensor) -> None:
+        """THE position rollback path: after a verify, every live row's
+        ``pos`` moves to its accepted frontier (dispatch position plus
+        its advance, clamped at ``last``); rows inactive at dispatch keep
+        theirs. Pages above the frontier are not touched: the next round
+        rewrites them before any mask exposes them, and ``release``
+        returns the lookahead with the rest of the reservation."""
+        self._pos.copy_(torch.where(live, torch.minimum(pos0 + adv, last),
+                                    pos0))
+
+    def _spec_noise(self) -> dict[int, tuple[float, torch.Tensor]]:
+        """{row: (temperature, noise [K, vocab])} for every live sampled
+        row: its Gumbel noise of positions pos0 .. pos0+K-1, keyed
+        ``(seed, 0, position)`` from the host mirror and drawn once for
+        both phases. Raises while a round has outdated the mirror."""
+        rows = np.flatnonzero((self._temp_h > 0)
+                              & (self._pos_h < self._last_h))
+        if self._stale_h[rows].any():
+            raise RuntimeError(
+                "speculative run_segment with live sampled rows needs "
+                "poll_spec() after the previous round: their draws are "
+                "keyed by the positions it fetches")
+        vocab = self.cfg.vocab_size
+        return {int(i): (float(self._temp_h[i]), gumbel_noise(
+                    [(int(self._seed_h[i]), 0, int(self._pos_h[i]) + j)
+                     for j in range(self.spec_k)],
+                    vocab, self._gen, self.device))
+                for i in rows}
+
+    @staticmethod
+    def _keyed_choice(logits: torch.Tensor, noise: dict,
+                      step: int | None = None) -> torch.Tensor:
+        """The model's choice from ``logits`` [S, V] (draft step ``step``)
+        or [S, K, V] (the verify, all steps): argmax at temperature 0, a
+        sampled row's Gumbel pick with its round's noise otherwise — the
+        same noise in both phases, which makes a sampled proposal
+        verifiable."""
+        choice = torch.argmax(logits, dim=-1)
+        for i, (temp, nz) in noise.items():
+            choice[i] = gumbel_pick(logits[i], temp,
+                                    nz if step is None else nz[step])
+        return choice
+
+    def _spec_round(self) -> None:
+        """One speculative round (the reference's ``_spec_segment_body``):
+        K draft micro-steps over layers < ``draft_layers`` through the
+        draft block tables propose positions pos+1..pos+K; ONE K-wide
+        verify pass through all layers scores them; each row commits its
+        accepted prefix plus the target's correction and ``_rewind`` moves
+        it to that frontier. Draft or verify steps past a row's ``last``
+        write their KV into the reserved lookahead and commit nothing."""
+        noise = self._spec_noise()
+        cfg, model, K = self._decode_cfg, self.model, self.spec_k
+        rows, buf, edge = self._rows, self._buf, self.max_total - 1
+        last, plen = self._last, self._plen
+        pos0 = self._pos.clone()
+        live = pos0 < last
+        steps = torch.arange(K, device=self.device)
+
+        # -- draft: K cheap micro-steps through the first draft_layers ------
+        for i in range(K):
+            dq = torch.where(live, (pos0 + i).clamp(max=edge), pos0)
+            x = F.embedding(buf[rows, dq][:, None],
+                            model.embedding).to(cfg.dtype)
+            x, _ = self._layers(model.layers[:self.draft_layers], x,
+                                dq[:, None], self._dbt)
+            logits = final_logits(cfg, model, x)[:, 0, :]
+            widx = (dq + 1).clamp(max=edge)
+            chosen = torch.where(dq + 1 < plen, buf[rows, widx],
+                                 self._keyed_choice(logits, noise, i))
+            # only proposals at or below `last` enter the buffer; the
+            # overshoot steps rewrite widx with itself
+            keep = live & (pos0 + i < last)
+            buf[rows, widx] = torch.where(keep, chosen, buf[rows, widx])
+
+        # -- verify: ONE K-wide pass through every layer ---------------------
+        # (step i sees positions <= vq_i, earlier steps' K/V included)
+        vq = torch.where(live[:, None],
+                         (pos0[:, None] + steps[None, :]).clamp(max=edge),
+                         pos0[:, None])                          # [S, K]
+        x = F.embedding(buf[rows[:, None], vq], model.embedding).to(cfg.dtype)
+        x, _ = self._layers(model.layers, x, vq, self._bt)
+        logits = final_logits(cfg, model, x)                     # [S, K, V]
+
+        # -- acceptance and commit ------------------------------------------
+        widx = (vq + 1).clamp(max=edge)
+        proposal = buf[rows[:, None], widx]
+        target = torch.where(vq + 1 < plen[:, None], proposal,
+                             self._keyed_choice(logits, noise))
+        step_live = (pos0[:, None] + steps[None, :] < last[:, None]) \
+            & live[:, None]
+        match = (proposal == target) & step_live
+        a = torch.cumprod(match.long(), dim=1).sum(dim=1)       # [S] in [0, K]
+        adv = torch.where(a == K, K, a + 1)
+        # the accepted-prefix+1 correction: the target's own choice at the
+        # first mismatch, through the ordinary masked buffer write
+        corr_tok = target[rows, a.clamp(max=K - 1)]
+        corr = live & (a < K) & (pos0 + a + 1 <= last)
+        wc = (pos0 + a + 1).clamp(max=edge)
+        buf[rows, wc] = torch.where(corr, corr_tok, buf[rows, wc])
+        self._rewind(pos0, adv, last, live)
+        drafted = torch.where(live, (last - pos0).clamp(max=K), 0).sum()
+        accepted = torch.where(live, a, 0).sum()
+        stats = torch.stack([drafted, accepted])
+        self._spec_stats = (stats if self._spec_stats is None
+                            else self._spec_stats + stats)
+        self._stale_h |= self._pos_h < self._last_h
 
     # -- host-side page accounting ------------------------------------------
+    def _target_blocks(self, prompt_len: int, max_tokens: int) -> int:
+        """Target blocks one request needs: its decode extent, plus under
+        speculation the K-token lookahead (clamped at the context), since
+        a verify dispatched near ``last`` still writes K KV rows."""
+        extent = prompt_len + max_tokens
+        if self.spec_k:
+            extent = min(extent + self.spec_k, self.max_total)
+        return -(-extent // self.page)
+
     def pages_for(self, prompt_len: int, max_tokens: int) -> int:
         """Pages one request reserves: its full decode extent, rounded up
-        to whole pages. Prefix hits only ever need fewer, so admitting
+        to whole pages, doubled under speculation for the draft's
+        mirrored run. Prefix hits only ever need fewer, so admitting
         against this number never over-commits."""
-        return -(-(int(prompt_len) + int(max_tokens)) // self.page)
+        n = self._target_blocks(int(prompt_len), int(max_tokens))
+        return 2 * n if self.spec_k else n
 
     def free_pages(self, shard: int = 0) -> int:
         return len(self._shards[shard].free)
@@ -738,6 +972,10 @@ class SlotPoolEngine:
         for s in freed:
             self._release_slot(s)
             self._bt_np[s, :] = self._shards[0].trash
+            if self.spec_k:
+                # the draft run and the over-speculated lookahead go back
+                # with the tables: no data moves
+                self._dbt_np[s, :] = self._shards[0].trash
         self._push_block_tables(freed)
 
     # -- admission ----------------------------------------------------------
@@ -780,9 +1018,31 @@ class SlotPoolEngine:
             out.update(self._admit_group(c, h, group))
         if nopass:
             out.update(self._admit_nopass(nopass))
+        if self.spec_k:
+            self._seed_draft(plans)
         self._push_block_tables([pl["slot"] for pl in plans])
         self._register_prefixes(plans)
         return out
+
+    def _seed_draft(self, plans: list[dict]) -> None:
+        """Seed each admitted slot's draft pages: the draft IS the
+        target's first ``draft_layers`` layers, so its layer-l KV over the
+        prompt equals the target's. One whole-page ``_page_copy`` of the
+        target blocks below the write frontier, for those layers (raw
+        codes and scales, so quantized pools stay bit-exact)."""
+        dst, src = [], []
+        for pl in plans:
+            n = -(-pl["pos0"] // self.page)
+            dst.extend(pl["dpages"][:n])
+            src.extend(pl["pages"][:n])
+        if not dst:
+            return
+        dj = torch.as_tensor(dst, device=self.device)
+        sj = torch.as_tensor(src, device=self.device)
+        for entry in self._pools[:self.draft_layers]:
+            kp, vp, ks, vs = self._split(entry)
+            self._page_copy(kp, dj, sj, scale=ks)
+            self._page_copy(vp, dj, sj, scale=vs)
 
     def _plan_entries(self, entries) -> tuple[list[dict],
                                               list[tuple[int, int]]]:
@@ -806,7 +1066,7 @@ class SlotPoolEngine:
             # a re-admitted slot implicitly releases its previous pages
             # (its block table is rewritten below, before any segment runs)
             self._release_slot(slot)
-            blocks_needed = self.pages_for(plen, mt)
+            blocks_needed = self._target_blocks(plen, mt)
             n_hit, hit_pages = self._lookup_prefix(sh.index, prompt)
             if sh.spill and n_hit * self.page < plen:
                 # a demoted prefix may cover more of the prompt than the
@@ -831,7 +1091,12 @@ class SlotPoolEngine:
             shared = [hit_pages[b] for b in range(n_hit) if b != cow_blk]
             for pg in shared:
                 sh.ref[pg] += 1
-            self._ensure_free(sh, blocks_needed - len(shared))
+            # the draft's mirrored run is always freshly allocated (never
+            # prefix-cached or shared), so it adds blocks_needed
+            need = blocks_needed - len(shared)
+            if self.spec_k:
+                need += blocks_needed
+            self._ensure_free(sh, need)
             if n_hit:
                 self.prefix_hits += 1
                 self.prefix_pages_reused += n_hit
@@ -846,13 +1111,21 @@ class SlotPoolEngine:
                         cow_pairs.append((pg, hit_pages[b]))
                         self.cow_copies += 1
                     pages.append(pg)
-            self._slot_pages[slot] = pages
+            dpages: list[int] = []
+            if self.spec_k:
+                for _ in range(blocks_needed):
+                    dpg = sh.free.pop()
+                    sh.ref[dpg] = 1
+                    dpages.append(dpg)
+                self._dbt_np[slot, :] = sh.trash
+                self._dbt_np[slot, :blocks_needed] = dpages
+            self._slot_pages[slot] = pages + dpages
             self._bt_np[slot, :] = sh.trash
             self._bt_np[slot, :blocks_needed] = pages
             plans.append(dict(slot=slot, prompt=prompt, plen=plen, mt=mt,
                               temp=float(temperature), seed=int(seed),
                               c=c, h=h, pos0=pos0, pages=pages,
-                              shard=sh.index))
+                              dpages=dpages, shard=sh.index))
         return plans, cow_pairs
 
     def _apply_cow(self, cow_pairs: list[tuple[int, int]]) -> None:
@@ -952,13 +1225,18 @@ class SlotPoolEngine:
         self._plen_h[slots_np] = plens_np
         self._temp_h[slots_np] = [pl["temp"] for pl in group]
         self._seed_h[slots_np] = [pl["seed"] for pl in group]
+        self._stale_h[slots_np] = False
 
     def _push_block_tables(self, slots: Sequence[int]) -> None:
         if not slots:
             return
         idx_np = np.asarray(sorted(set(int(s) for s in slots)), np.int64)
-        self._bt[torch.as_tensor(idx_np, device=self.device)] = \
-            torch.as_tensor(self._bt_np[idx_np], device=self.device)
+        idx = torch.as_tensor(idx_np, device=self.device)
+        self._bt[idx] = torch.as_tensor(self._bt_np[idx_np],
+                                        device=self.device)
+        if self.spec_k:
+            self._dbt[idx] = torch.as_tensor(self._dbt_np[idx_np],
+                                             device=self.device)
 
     def _register_prefixes(self, plans: list[dict]) -> None:
         """Publish every page-aligned prefix strictly below each plan's

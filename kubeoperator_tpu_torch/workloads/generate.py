@@ -10,6 +10,10 @@ each row keeps its given tokens until its prompt ends (``prompt_lens``).
 Sampling: greedy at temperature 0, else one Gumbel-max draw per row from a
 generator seeded by (seed, row, position), so a row's draw depends only on
 those three, never on the batch it shares. The draws are not JAX's.
+
+MoE configs decode through the same loop: each layer's tail runs the
+``MoEMlp`` at one token a step (the reference's flax token loop computes
+the same module at T = 1).
 """
 
 from __future__ import annotations
@@ -44,20 +48,36 @@ def row_seed(seed: int, row: int, pos: int) -> int:
     return h
 
 
+def gumbel_noise(keys: Sequence[tuple[int, int, int]], vocab: int,
+                 gen: torch.Generator, device) -> torch.Tensor:
+    """Gumbel noise [len(keys), vocab]: row i from ``gen`` seeded with
+    ``row_seed(*keys[i])``."""
+    noise = []
+    for key in keys:
+        gen.manual_seed(row_seed(*key))
+        u = torch.rand(vocab, generator=gen, device=device)
+        noise.append(-torch.log(-torch.log(u)))
+    return torch.stack(noise)
+
+
+def gumbel_pick(logits: torch.Tensor, temperature: float,
+                noise: torch.Tensor) -> torch.Tensor:
+    """argmax(logits / temperature + noise) over the last axis."""
+    return torch.argmax(logits / temperature + noise, -1)
+
+
 def gumbel_draw(logits: torch.Tensor, temperature: float,
                 keys: Sequence[tuple[int, int, int]],
                 gen: torch.Generator) -> torch.Tensor:
     """Temperature sample of each row of ``logits`` [B, V] by Gumbel-max:
-    row i's noise comes from ``gen`` seeded with ``row_seed(*keys[i])``,
-    so a row's draw depends on its (seed, row, position) key and its own
-    logits only. The one sampling rule of ``generate()`` and the slot-pool
-    engine (decode_loop.py)."""
-    noise = []
-    for key in keys:
-        gen.manual_seed(row_seed(*key))
-        u = torch.rand(logits.shape[-1], generator=gen, device=logits.device)
-        noise.append(-torch.log(-torch.log(u)))
-    return torch.argmax(logits / temperature + torch.stack(noise), -1)
+    row i's noise is ``gumbel_noise`` of its (seed, row, position) key, so
+    a row's draw depends on that key and its own logits only. The one
+    sampling rule of ``generate()`` and the slot-pool engine
+    (decode_loop.py, whose speculative dispatch draws the noise once and
+    picks with it in both of its phases)."""
+    return gumbel_pick(logits, temperature,
+                       gumbel_noise(keys, logits.shape[-1], gen,
+                                    logits.device))
 
 
 def generate(cfg: TransformerConfig, model: Transformer, prompt,
@@ -145,15 +165,23 @@ def generate(cfg: TransformerConfig, model: Transformer, prompt,
 
 
 def attn_out_mlp(blk: Block, x: torch.Tensor, probs: torch.Tensor,
-                 cv: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+                 cv: torch.Tensor, dt: torch.dtype
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Post-softmax tail of one decode layer: attention output projection,
-    residual add, ln2 + SwiGLU MLP, residual add."""
-    m = blk.mlp
+    residual add, ln2 + FFN, residual add. Returns ``(x, load)``: for an
+    MoE layer (``_layer_tail`` of the reference's engine) the FFN is the
+    ``MoEMlp`` on the UNCAST norm output, as the flax block feeds it, and
+    load [E] f32 counts the tokens dispatched to each expert; a dense
+    layer's load is None."""
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), cv)
     x = x + dense(out, blk.attn.o, dt, n_in=2)
+    if hasattr(blk, "moe"):
+        y, load = blk.moe.serve(rms_norm(x, blk.ln2.scale))
+        return x + y, load
+    m = blk.mlp
     h2 = rms_norm(x, blk.ln2.scale).to(dt)
     gate, up = dense(h2, m.gate, dt), dense(h2, m.up, dt)
-    return x + dense(F.silu(gate) * up, m.down, dt)
+    return x + dense(F.silu(gate) * up, m.down, dt), None
 
 
 def final_logits(cfg: TransformerConfig, model: Transformer,
@@ -185,5 +213,6 @@ def _decode_loop(cfg: TransformerConfig, model: Transformer, caches: list,
                                   ck.float()) * scale
             scores = torch.where(slots <= pos, scores,
                                  torch.full_like(scores, -1e30))
-            x = attn_out_mlp(blk, x, torch.softmax(scores, dim=-1), cv, dt)
+            x, _ = attn_out_mlp(blk, x, torch.softmax(scores, dim=-1), cv,
+                                dt)
         choose(final_logits(cfg, model, x)[:, 0, :], pos)

@@ -4,7 +4,9 @@
 The JAX trainer spreads the batch and sequence over a dp×fsdp×tp×sp mesh;
 this slice ports the single-device trainer only, so a ``MeshSpec`` with
 any axis above 1 raises. The step is eager PyTorch: forward, masked
-next-token cross-entropy on f32 logits, backward, and ``AdamW`` with
+next-token cross-entropy on f32 logits (plus, for an MoE config, the
+layers' summed load-balancing aux loss, which the reported loss
+includes, as the reference's does), backward, and ``AdamW`` with
 optax.adamw's settings, updating the model and optimizer state in place
 (the JAX step returned a new state and donated the old one).
 """
@@ -65,19 +67,27 @@ class LMTrainer:
         return {"step": 0, "model": model, "opt": opt}
 
     # -- step --------------------------------------------------------------
+    def objective(self, model: Transformer, tokens: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, aux): the next-token loss plus the MoE aux loss, and the
+        aux alone (0-d zero for a dense config)."""
+        logits, aux = model(tokens, return_aux=True)
+        return lm_loss(logits, tokens) + aux, aux
+
     def loss(self, model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-        return lm_loss(model(tokens), tokens)
+        return self.objective(model, tokens)[0]
 
     def train_step(self, state: dict, tokens: torch.Tensor):
         """One AdamW step on ``tokens`` [B, T]; updates ``state`` in place
-        and returns it with {"loss": 0-d tensor}."""
+        and returns it with {"loss": 0-d tensor, "aux": 0-d tensor}; the
+        loss includes the aux."""
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
-        loss = self.loss(model, tokens)
+        loss, aux = self.objective(model, tokens)
         loss.backward()
         opt.step()
         state["step"] += 1
-        self.last_metrics = {"loss": loss.detach()}
+        self.last_metrics = {"loss": loss.detach(), "aux": aux.detach()}
         return state, self.last_metrics
 
     # -- data / measurement ------------------------------------------------
@@ -89,7 +99,9 @@ class LMTrainer:
     def measure(self, batch: int, seq_len: int, steps: int = 10,
                 warmup: int = 2, repeats: int = 3) -> dict:
         """Train steps on a synthetic batch; tokens/s, step ms and MFU
-        against the card's bf16 peak. Needs the card."""
+        (by ``flops_per_token``, the MoE one for an MoE config) against
+        the card's bf16 peak, the final loss and its aux share. Needs the
+        card."""
         peak = peak_flops_per_chip(self.device)
         state = self.init_state()
         tokens = self.synthetic_batch(batch, seq_len)
@@ -105,4 +117,5 @@ class LMTrainer:
                 "achieved_tflops": achieved / 1e12, "chips": 1,
                 "device": torch.cuda.get_device_name(self.device),
                 "final_loss": float(self.last_metrics["loss"]),
+                "final_aux": float(self.last_metrics["aux"]),
                 "step_stats": stats}

@@ -21,7 +21,9 @@ counting the pages the engine's prefix cache could evict as free. The
 engine's prefix-cache hits, demotions and promotions reach the
 ``ko_serve_prefix_hits_total``, ``ko_serve_kv_demotions_total`` and
 ``ko_serve_kv_promoted_hits_total`` counters and its spill-tier pages the
-``ko_serve_kv_spill_pages`` gauge.
+``ko_serve_kv_spill_pages`` gauge. A speculative engine's draft and
+accept counts reach ``ko_serve_spec_*``, an MoE engine's per-expert load
+``ko_serve_moe_expert_load``.
 
 Both engines report through ``BatcherStats``, whose ``ko_serve_*``
 families live in a ``telemetry.metrics`` registry (private per batcher by
@@ -31,9 +33,8 @@ scrape).
 Left out of the reference's ``ContinuousBatcher`` (ROADMAP queue 1): the
 cluster tier's levers (``drain``, ``preempt``, ``preemptible``,
 ``readmit``, ``inject``, ``handoff``, ``requeue_sink``, ``replica``), the
-request tracer, speculative-decoding and MoE metrics, per-shard (dp mesh)
-accounting, and engines without page accounting. Only the paged engine
-exists in the port.
+request tracer, per-shard (dp mesh) accounting, and engines without page
+accounting. Only the paged engine exists in the port.
 """
 
 from __future__ import annotations
@@ -183,6 +184,25 @@ class BatcherStats:
     def kv_promoted_hit(self, n: int = 1) -> None:
         """Admissions served by promoting a demoted prefix host->device."""
         self._m["kv_promoted_hits"].inc(n)
+
+    def spec_tokens(self, drafted: int, accepted: int) -> None:
+        """One speculative dispatch's draft/accept counts; the gauge is
+        the cumulative acceptance ratio, so it converges instead of
+        following each dispatch's luck."""
+        if drafted:
+            self._m["spec_draft"].inc(drafted)
+        if accepted:
+            self._m["spec_accepted"].inc(accepted)
+        total = self._m["spec_draft"].value()
+        if total:
+            self._m["spec_acceptance"].set(
+                self._m["spec_accepted"].value() / total)
+
+    def moe_expert_load(self, loads: Sequence[float]) -> None:
+        """Cumulative per-expert dispatched-token counts from the serving
+        engine (``expert_load()``), one gauge sample per expert index."""
+        for e, v in enumerate(loads):
+            self._m["moe_expert_load"].set(float(v), expert=str(e))
 
     def ttft_mean(self) -> float:
         """Mean observed time-to-first-token in seconds (0.0 before any
@@ -381,15 +401,20 @@ class ContinuousBatcher:
     ``evictable_pages`` and ``pages_in_use``; optionally the counters
     ``prefix_hits`` / ``demotions`` / ``promoted_hits`` and, with
     ``spill_pages`` set, ``spill_pages_used``, which ``_report_pages``
-    turns into the prefix-hit and spill-tier metrics.
+    turns into the prefix-hit and spill-tier metrics; with ``spec_k > 0``,
+    ``poll_spec() -> (pos [S], drafted, accepted)``; for an MoE config
+    (``cfg.moe_experts > 0``), ``expert_load()``.
 
     The worker alternates: admit queued requests into free slots, dispatch
-    ONE segment advancing every active slot K tokens, retire finished
-    slots from one batched fetch, idle when the pool drains. Scheduling
-    needs **no** device reads: admission returns each slot's position and
-    every segment adds exactly K (clamped at the row's stop index), so the
-    host mirror of ``pos`` is exact and ``poll()`` runs only when some row
-    finished.
+    ONE segment, retire finished slots from one batched fetch, idle when
+    the pool drains. A plain engine's segment adds exactly ``segment``
+    tokens to every active row (clamped at its stop index), so the host
+    mirror of ``pos`` needs no device read and ``poll()`` runs only when
+    some row finished. A speculative engine's dispatch moves each row
+    1..K tokens, depending on the data: the worker reads the true
+    positions and the draft/accept counts back with ``poll_spec()`` after
+    every dispatch. An MoE engine's per-expert load is fetched once per
+    retirement wave.
 
     Admission reserves *pages*, not slots: a request enters when a free
     slot's pool can cover ``ceil((plen+max_tokens)/page)`` pages (counting
@@ -413,6 +438,10 @@ class ContinuousBatcher:
         # and writes this)
         self._seen = dict.fromkeys(("prefix_hits", "demotions",
                                     "promoted_hits"), 0)
+        self._spec = int(getattr(engine, "spec_k", 0) or 0)
+        self._moe_serve = (
+            hasattr(engine, "expert_load")
+            and getattr(getattr(engine, "cfg", None), "moe_experts", 0) > 0)
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="ko-serve-continuous")
         self._worker.start()
@@ -536,9 +565,15 @@ class ContinuousBatcher:
             self.stats.executed(len(active))
             self._dispatch_t0 = t0
             k = self.engine.segment
+            pos_vec = None
+            if self._spec:
+                pos_vec, drafted, accepted = self.engine.poll_spec()
+                self.stats.spec_tokens(drafted, accepted)
             for s in active:
                 t = self._track[s]
-                t["pos"] = min(t["pos"] + k, t["last"])
+                t["pos"] = (min(int(pos_vec[s]), t["last"])
+                            if pos_vec is not None
+                            else min(t["pos"] + k, t["last"]))
                 if not t["ttft"] and t["pos"] >= t["plen"]:
                     self.stats.ttft(now() - t["req"].submitted_at)
                     t["ttft"] = True
@@ -565,6 +600,8 @@ class ContinuousBatcher:
             # offered for re-admission, and report before the clients wake,
             # so a caller that reads the stats after its reply sees them
             self.engine.release(done)
+            if self._moe_serve:
+                self.stats.moe_expert_load(self.engine.expert_load())
             with self._cond:
                 self._free.extend(done)
             self._report_occupancy()

@@ -11,7 +11,10 @@ weight to ``cfg.dtype``, rope works in f32 and casts back, softmax is f32.
 
 Layers are an ``nn.ModuleList`` (the port has no ``nn.scan``); ``remat``
 wraps each block in ``torch.utils.checkpoint`` with the selective policy
-that ``remat_policy`` names.
+that ``remat_policy`` names. With ``moe_experts > 0`` each block's FFN is
+``moe.MoEMlp``, whose load-balancing aux loss each block returns beside
+its output and the model sums over layers (``return_aux``), as the flax
+model sows it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from kubeoperator_tpu_torch.workloads import ring_attention as ra
 from kubeoperator_tpu_torch.workloads.flash_attention import (
     DEFAULT_BLOCK, FLASH_OP, FLASH_PACKED_OP, flash_attention,
 )
+from kubeoperator_tpu_torch.workloads.moe import MoEMlp
 
 
 @dataclass(frozen=True)
@@ -45,7 +49,7 @@ class TransformerConfig:
     remat: bool = True
     ring: bool = False          # sequence sharding: multi-device slice
     sp_attention: str = "ring"
-    moe_experts: int = 0        # >0: MoE slice, not ported yet
+    moe_experts: int = 0        # >0: MoEMlp FFNs (moe.py)
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     decode: bool = False        # KV-cached decode (generate.py)
@@ -263,16 +267,30 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
+    """One decoder layer: a dense SwiGLU ``mlp``, or with ``moe_experts >
+    0`` a routed ``moe`` FFN. ``forward`` returns ``(x, aux)``: the MoE
+    layer's aux loss, None for a dense layer."""
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model)
         self.attn = Attention(cfg)
         self.ln2 = RMSNorm(cfg.d_model)
-        self.mlp = Mlp(cfg)
+        if cfg.moe_experts > 0:
+            self.moe = MoEMlp(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                              top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              dtype=cfg.dtype)
+        else:
+            self.mlp = Mlp(cfg)
 
     def forward(self, x, positions, cache=None):
         x = x + self.attn(self.ln1(x), positions, cache)
-        return x + self.mlp(self.ln2(x))
+        if hasattr(self, "moe"):
+            # flax hands the MoE FFN the uncast RMSNorm output
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
+        return x + self.mlp(self.ln2(x)), None
 
 
 # ops whose outputs each remat policy saves; the rest is recomputed in the
@@ -299,27 +317,30 @@ def remat_context_fn(policy: str):
 
 def run_blocks(layers: nn.ModuleList, x: torch.Tensor,
                positions: torch.Tensor, remat: bool, context_fn,
-               caches: list | None = None) -> torch.Tensor:
+               caches: list | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer loop shared by the LM and the ViT encoder: each block
     with its decode cache, under selective checkpointing (``context_fn``
-    from ``remat_context_fn``), or plain."""
+    from ``remat_context_fn``), or plain. Returns ``(x, aux)``: the sum of
+    the MoE layers' aux losses in layer order, None when no layer has
+    one."""
+    aux = None
     for i, blk in enumerate(layers):
         if caches is not None:
-            x = blk(x, positions, caches[i])
+            x, a = blk(x, positions, caches[i])
         elif remat:
-            x = checkpoint(blk, x, positions, use_reentrant=False,
-                           context_fn=context_fn)
+            x, a = checkpoint(blk, x, positions, use_reentrant=False,
+                              context_fn=context_fn)
         else:
-            x = blk(x, positions)
-    return x
+            x, a = blk(x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("MoE FFNs are not ported yet "
-                                      "(ROADMAP queue 1, MoE slice)")
         if cfg.ring:
             raise NotImplementedError("sequence-sharded attention is not "
                                       "ported yet (ROADMAP queue 1, "
@@ -342,10 +363,12 @@ class Transformer(nn.Module):
         return self
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None,
-                caches: list | None = None) -> torch.Tensor:
+                caches: list | None = None, return_aux: bool = False):
         """tokens: [B, T] integer; positions: [T] global indices (default
         0..T-1); caches: per-layer (k, v) [B, S, H, D] buffers for the
-        decode branch, updated in place. Returns f32 logits [B, T, V]."""
+        decode branch, updated in place. Returns f32 logits [B, T, V], or
+        with ``return_aux`` the pair (logits, aux): the MoE layers' summed
+        aux loss, a 0-d zero for a dense model."""
         cfg = self.cfg
         if cfg.decode and caches is None:
             raise ValueError("decode=True needs per-layer caches")
@@ -353,15 +376,24 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
-        x = run_blocks(self.layers, x, positions, remat, self._remat_ctx,
-                       caches)
-        return tied_logits(cfg, self.ln_f(x), self.embedding)
+        x, aux = run_blocks(self.layers, x, positions, remat,
+                            self._remat_ctx, caches)
+        logits = tied_logits(cfg, self.ln_f(x), self.embedding)
+        if not return_aux:
+            return logits
+        return logits, (aux if aux is not None
+                        else torch.zeros((), device=logits.device))
 
 
 def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
-    """Forward FLOPs/token: matmul term + attention term (dense FFN)."""
+    """Forward FLOPs/token: matmul term + attention term. MoE configs
+    count top_k SwiGLUs per token plus the router matmul; as in the
+    reference, the dense dispatch and combine einsums are left out."""
     d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
-    ffn = 2 * 3 * d * f
+    if cfg.moe_experts > 0:
+        ffn = cfg.moe_top_k * (2 * 3 * d * f) + 2 * d * cfg.moe_experts
+    else:
+        ffn = 2 * 3 * d * f
     per_layer = 2 * 4 * d * d + ffn
     attn = 2 * 2 * seq_len * d
     embed = 2 * d * cfg.vocab_size

@@ -111,8 +111,9 @@ class VisionTransformer(nn.Module):
         x = self.patch_embed(patchify(images.to(enc.dtype), self.cfg.patch),
                              enc.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = run_blocks(self.layers, x, positions,
-                       enc.remat and torch.is_grad_enabled(), self._remat_ctx)
+        x, _ = run_blocks(self.layers, x, positions,
+                          enc.remat and torch.is_grad_enabled(),
+                          self._remat_ctx)
         x = self.ln_f(x).float().mean(1)          # mean-pool the patches
         return self.head(x, torch.float32)
 

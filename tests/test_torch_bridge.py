@@ -101,8 +101,24 @@ def test_state_dict_names_and_shapes_match_the_port(fused_qkv):
         assert value.dtype == torch.float32, key
 
 
-def test_moe_tree_is_refused():
-    params = jax_params(JAX_TINY)
-    params["layers"] = dict(params["layers"], moe={})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_from_jax(params, JAX_TINY)
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_moe_tree_is_refused(scan_layers):
+    """MoE trees are bridged now: ``moe/router/kernel``, ``moe/w_gate``,
+    ``moe/w_up`` and ``moe/w_down`` of the stacked and the unrolled tree
+    land on the port's ``MoEMlp`` names and shapes, and the logits are
+    JAX's."""
+    jcfg = dataclasses.replace(JAX_TINY, moe_experts=4,
+                               scan_layers=scan_layers)
+    params = jax_params(jcfg, seed=4)
+    sd = params_from_jax(params, jcfg)
+    want = ttr.Transformer(port_cfg(jcfg)).state_dict()
+    assert sd.keys() == want.keys()
+    assert {k for k in sd if ".moe." in k} == {
+        f"layers.{i}.moe.{n}" for i in range(2)
+        for n in ("router", "w_gate", "w_up", "w_down")}
+    for key, value in sd.items():
+        assert value.shape == want[key].shape, key
+    toks = tokens(2, 16, jcfg.vocab_size, seed=1)
+    np.testing.assert_allclose(port_logits(port_model(jcfg, params), toks),
+                               jax_logits(jcfg, params, toks),
+                               atol=1e-4, rtol=1e-4)

@@ -22,7 +22,7 @@ from kubeoperator_tpu.workloads.transformer import TransformerConfig
 from kubeoperator_tpu_torch.workloads import decode_loop as tdl
 from kubeoperator_tpu_torch.workloads.generate import generate
 from kubeoperator_tpu_torch.workloads.train import MeshSpec
-from kubeoperator_tpu_torch.workloads.transformer import rope
+from kubeoperator_tpu_torch.workloads.transformer import Transformer, rope
 from test_torch_bridge import jax_params, port_cfg, port_model
 
 torch.set_num_threads(2)
@@ -176,15 +176,27 @@ def test_constants_and_defaults_match_jax():
 
 
 def test_rope_rows_is_rope_at_each_rows_position():
+    """The engine's rotary form over a (row, step) position grid: at one
+    step a row is ``rope`` at its position bit for bit (the micro-step's
+    case), at K steps each element too (the verify's); both within 1e-6
+    of the JAX engine's ``_rope_rows`` and ``_rope_grid``."""
     rng = np.random.default_rng(0)
-    x = torch.as_tensor(rng.standard_normal((5, 1, 4, 8)), dtype=torch.float32)
-    pos = torch.tensor([0, 3, 7, 23, 1000])
-    got = tdl._rope_rows(x, pos)
+    x = torch.as_tensor(rng.standard_normal((5, 3, 4, 8)), dtype=torch.float32)
+    grid = torch.tensor([[0, 1, 2], [3, 4, 5], [7, 8, 9], [23, 24, 25],
+                         [1000, 1001, 1002]])
+    rows = tdl._rope_grid(x[:, :1], grid[:, :1])
+    full = tdl._rope_grid(x, grid)
     for i in range(5):
-        assert torch.equal(got[i:i + 1], rope(x[i:i + 1], pos[i:i + 1]))
-    want = np.asarray(jdl._rope_rows(jnp.asarray(x.numpy()),
-                                     jnp.asarray(pos.numpy())))
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+        assert torch.equal(rows[i:i + 1], rope(x[i:i + 1, :1], grid[i, :1]))
+        for j in range(3):
+            assert torch.equal(full[i:i + 1, j:j + 1],
+                               rope(x[i:i + 1, j:j + 1], grid[i, j:j + 1]))
+    want = np.asarray(jdl._rope_rows(jnp.asarray(x[:, :1].numpy()),
+                                     jnp.asarray(grid[:, 0].numpy())))
+    np.testing.assert_allclose(rows.numpy(), want, atol=1e-6, rtol=1e-6)
+    want = np.asarray(jdl._rope_grid(jnp.asarray(x.numpy()),
+                                     jnp.asarray(grid.numpy())))
+    np.testing.assert_allclose(full.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +323,16 @@ def test_engine_validates_requests(model):
     (dict(compile_cache=object()), "item 15")])
 def test_unported_options_raise(model, kw, item):
     """Each option of a part not ported yet raises, naming its ROADMAP
-    queue 1 item. Item 7 (quantized KV pages, the host spill tier) is
-    ported: its two cases show the engine builds with the option and
-    reports it, and a quantized pool's bytes count its scale buffers."""
+    queue 1 item. Items 7 (quantized KV pages, the host spill tier) and 9
+    (speculative decoding) are ported: their cases show the engine builds
+    with the option and reports it, a quantized pool's bytes count its
+    scale buffers, and a speculative one keeps draft block tables."""
+    if item == "item 9":
+        eng = engine(model, **kw)
+        assert (eng.spec_k, eng.draft_layers) == (2, 1)
+        assert eng._dbt.shape == eng._bt.shape
+        assert eng.pages_for(5, 4) == 2 * engine(model).pages_for(5, 4 + 2)
+        return
     if item != "item 7":
         with pytest.raises(NotImplementedError, match=item):
             engine(model, **kw)
@@ -327,8 +346,16 @@ def test_unported_options_raise(model, kw, item):
 
 
 def test_moe_config_raises(model):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdl.SlotPoolEngine(dataclasses.replace(CFG, moe_experts=4), model,
+    """MoE configs are served now (an engine over an MoE model builds and
+    reports zero expert load); what still raises is speculation over MoE,
+    with the reference's ``ValueError``."""
+    moe_cfg = dataclasses.replace(CFG, moe_experts=4)
+    moe_model = Transformer(moe_cfg).reset_parameters(0)
+    eng = tdl.SlotPoolEngine(moe_cfg, moe_model, slots=2, segment=2,
+                             device="cpu")
+    np.testing.assert_array_equal(eng.expert_load(), np.zeros(4, np.float32))
+    with pytest.raises(ValueError, match="MoE"):
+        tdl.SlotPoolEngine(moe_cfg, moe_model, spec_k=2, draft_layers=1,
                            device="cpu")
 
 

@@ -51,6 +51,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "kubeoperator_tpu_torch/workloads/resnet.py",
             "kubeoperator_tpu_torch/bitcast_probe.py",
             "kubeoperator_tpu_torch/workloads/decode_loop.py",
+            "kubeoperator_tpu_torch/workloads/moe.py",
             "kubeoperator_tpu_torch/workloads/serving.py",
             "kubeoperator_tpu_torch/telemetry/metrics.py",
             "chip_smoke.py"} <= names

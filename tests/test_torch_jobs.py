@@ -58,9 +58,36 @@ def test_llm_f32_without_sampling(capsys):
 @pytest.mark.parametrize("flag,value", [
     ("--mesh", "dp:2"), ("--experts", "4"), ("--sp-attention", "ulysses"),
     ("--ckpt-dir", "ckpt"), ("--metrics-port", "8080")])
-def test_unported_flags_raise(flag, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jobs.main(["llm", *TINY, "--steps", "1", flag, value])
+def test_unported_flags_raise(flag, value, monkeypatch, capsys):
+    """Each flag of a part not ported yet raises, naming the ROADMAP.
+    ``--experts`` is ported: its case shows the job trains an MoE config
+    of that many experts."""
+    if flag != "--experts":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            jobs.main(["llm", *TINY, "--steps", "1", flag, value])
+        return
+    from kubeoperator_tpu_torch.workloads import lm as tlm
+    seen = []
+    init = tlm.LMTrainer.__init__
+
+    def spy(self, cfg, *a, **k):
+        seen.append(cfg)
+        init(self, cfg, *a, **k)
+
+    monkeypatch.setattr(tlm.LMTrainer, "__init__", spy)
+    records = run(capsys, "--steps", "1", flag, value)
+    assert seen[0].moe_experts == 4 and records[-1]["done"]
+
+
+def test_llm_moe_trains_and_samples(capsys):
+    """``llm --experts 4 --sample 4``: finite losses, which include the
+    aux, and sampled tokens from the trained MoE model."""
+    records = run(capsys, "--steps", "2", "--experts", "4", "--sample", "4")
+    losses = [r["loss"] for r in records if "loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(x) and x > 0 for x in losses)
+    sampled = next(r["sampled_tokens"] for r in records if "sampled_tokens" in r)
+    assert len(sampled) == 4 + 4 and all(0 <= t < 64 for t in sampled)
+    assert records[-1]["done"] and records[-1]["steps"] == 2
 
 
 def test_vit_trains_and_reports(capsys):
@@ -270,28 +297,78 @@ def test_serve_warms_dynamic_buckets(capsys):
     assert [w for w in warmed if w] == ["4x8x8 prefill=4", "1x16x2 prefill=8"]
 
 
+# what build_server's engine reports for each ported serve flag: (kv_dtype,
+# spill_pages, spec_k, draft_layers, moe)
+SERVE_PORTED = {"--kv-dtype": ("int8", 0, 0, 0, 0),
+                "--spill-pages": ("bf16", 4, 0, 0, 0),
+                "--spec-k": ("bf16", 0, 2, 1, 0),
+                "--moe": ("bf16", 0, 0, 0, 4)}
+
+
 @pytest.mark.parametrize("flag,value", [
     ("--mesh", "dp:2"), ("--ckpt-dir", "ckpt"), ("--kv-dtype", "int8"),
     ("--spill-pages", "4"), ("--spec-k", "2"), ("--draft-layers", "1"),
     ("--moe", "4"), ("--aot-cache", "aot")])
 def test_serve_unported_flags_raise(flag, value, capsys):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
-    ``--kv-dtype`` and ``--spill-pages`` are ported: their cases show the
-    parser takes them and ``build_server`` builds an engine with them."""
+    ``--kv-dtype``, ``--spill-pages``, ``--spec-k``, ``--draft-layers``
+    and ``--moe`` are ported: their cases show the parser takes them and
+    ``build_server`` builds an engine with them (``--spec-k`` beside
+    ``--draft-layers 1``); ``--draft-layers`` alone reaches the engine's
+    validation, which needs ``--spec-k``."""
     argv = ["serve", *SERVE_TINY, "--engine", "continuous", flag, value]
-    if flag not in ("--kv-dtype", "--spill-pages"):
+    if flag == "--draft-layers":
+        with pytest.raises(SystemExit, match="requires spec_k"):
+            jobs.main(argv)
+        return
+    if flag not in SERVE_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             jobs.main(argv)
         return
+    if flag == "--spec-k":
+        argv += ["--draft-layers", "1"]
     server, batcher = jobs.build_server(jobs.build_parser().parse_args(argv))
     server.server_close()
-    assert (batcher.engine.kv_dtype, batcher.engine.spill_pages) == (
-        {"--kv-dtype": ("int8", 0), "--spill-pages": ("bf16", 4)}[flag])
+    eng = batcher.engine
+    got = (eng.kv_dtype, eng.spill_pages, eng.spec_k, eng.draft_layers,
+           eng.cfg.moe_experts)
+    assert got == SERVE_PORTED[flag]
     pool = next(json.loads(line) for line in
                 capsys.readouterr().out.splitlines()
                 if json.loads(line).get("engine") == "continuous")
-    assert (pool["kv_dtype"], pool["spill_pages"]) == (
-        batcher.engine.kv_dtype, batcher.engine.spill_pages)
+    assert (pool["kv_dtype"], pool["spill_pages"], pool["spec_k"],
+            pool["draft_layers"], pool["moe"]) == got
+
+
+@pytest.mark.parametrize("flags", [["--spec-k", "2", "--draft-layers", "1"],
+                                   ["--moe", "4"]], ids=["spec", "moe"])
+def test_serve_spec_and_moe_engines_over_http(flags):
+    """The continuous engine with speculation, and over an MoE model,
+    answers /generate (greedy replies repeat) and its /metrics carries the
+    engine's families."""
+    with serving("--engine", "continuous", *flags) as (url, batcher):
+        prompt = [5, 9, 2, 6, 5, 3]
+        first = call(url + "/generate", {"prompt_ids": prompt,
+                                         "max_tokens": 6})
+        assert first[0] == 200, first
+        reply = json.loads(first[1])
+        assert reply["tokens"][:len(prompt)] == prompt
+        assert len(reply["new_tokens"]) == 6
+        assert call(url + "/generate", {"prompt_ids": prompt,
+                                        "max_tokens": 6}) == first
+        sampled = call(url + "/generate", {"prompt_ids": [1, 2, 3],
+                                           "max_tokens": 5,
+                                           "temperature": 0.8, "seed": 4})
+        assert sampled[0] == 200 and len(json.loads(sampled[1])[
+            "new_tokens"]) == 5
+        status, text = call(url + "/metrics")
+        assert status == 200 and "ko_serve_requests_total 3" in text
+        if "--moe" in flags:
+            assert 'ko_serve_moe_expert_load{expert="3"}' in text
+        else:
+            assert batcher.engine.spec_draft_tokens > 0
+            assert (f"ko_serve_spec_draft_tokens_total "
+                    f"{batcher.engine.spec_draft_tokens}") in text
 
 
 def test_serve_quantized_spill_engine_over_http(capsys):

@@ -124,5 +124,22 @@ def test_auto_attention_takes_dense_path_on_cpu():
 
 
 def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr.Transformer(ttr.TransformerConfig(moe_experts=4))
+    """MoE is ported: a config with experts builds ``MoEMlp`` FFNs in
+    place of the dense ``Mlp`` (JAX transformer.py:246-256), its forward
+    returns the summed aux beside the logits, and ``flops_per_token``
+    counts top_k SwiGLUs plus the router (JAX transformer.py:333-345)."""
+    cfg = ttr.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                                n_layers=2, d_ff=64, moe_experts=4,
+                                dtype=torch.float32, remat=False)
+    model = ttr.Transformer(cfg).reset_parameters(0)
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               for b in model.layers)
+    assert model.layers[0].moe.w_gate.shape == (4, 32, 64)
+    toks = torch.as_tensor(tokens(2, 16, 64, seed=1), dtype=torch.long)
+    logits, aux = model(toks, return_aux=True)
+    assert logits.shape == (2, 16, 64) and aux.dim() == 0 and aux > 0
+    assert torch.equal(model(toks), logits)
+    want = jtr.flops_per_token(
+        jtr.TransformerConfig(d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                              vocab_size=64, moe_experts=4), 16)
+    assert ttr.flops_per_token(cfg, 16) == want
