@@ -13,8 +13,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``NO_SPILLS`` spills or had its ``setmaxnreg`` ignored (C7508).
 3. kernels: each flash-attention kernel (K1 forward, K2 dQ, K3 dK/dV)
    against its plain PyTorch version within ``TOL``, at the LM's path
-   shape (BH=128, T=2048, D=128, bf16, causal) and at a ragged non-causal
-   shape (B=2, H=4, T=196 padded to 256, D=64), the backward kernels run
+   shape (BH=128, T=2048, D=128, bf16, causal), at a ragged non-causal
+   shape (B=2, H=4, T=196 padded to 256, D=64) and at the bench's LM 4k
+   and 8k points (B=4, H=16, T=4096 and B=2, H=16, T=8192; D=128,
+   causal), the backward kernels run
    twice and their outputs the same bits; so too the backward's Δ =
    rowsum(dO ∘ O) kernel (``flash_delta``) within ``DELTA_TOL``; kernel,
    plain and library (``scaled_dot_product_attention``) times by CUDA
@@ -90,6 +92,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``/stats`` and ``/metrics`` (the spec and MoE families included) on a
    free local port, then shuts down. ``serve_total`` times the serve
    phases together.
+   jobs (``jobs_total``): ``smoke`` sums a bf16 matmul of ones to 256³;
+   ``mnist`` at its defaults improves its loss (seconds a step);
+   ``llm --metrics-port`` at a tiny depth serves ``/metrics`` (200, the
+   ko_train_* families) and 404 elsewhere; checkpoints: the resnet50 job
+   (batch 64, ``--ckpt-every 1``) 2 steps then resumed to 3, the llm job
+   at the bench LM's widths 2 steps, then ``serve --ckpt-dir`` announces
+   ``checkpoint step 2`` and a greedy ``/generate`` equals ``generate()``
+   on the restored model token for token (bytes, save and restore
+   seconds).
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -116,9 +127,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``K7_SITES``.
 10. resnet_job: the ``resnet50`` entry point at its defaults (no K7/K8, as
     the JAX job), 2 steps of 64 images: finite losses, no K7/K8 launch.
+    resnet_dot2: the K7/K8 configuration with ``conv_bwd="dot2"`` and
+    ``fused_bn=False``: finite loss, no K7/K8 launch, step ms beside
+    resnet_train's.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
+12. bench: ``kubeoperator_tpu_torch.bench.main()`` once (ResNet-50 on the
+    dot path, the bench LM at T 2048, 4096 and 8192, ViT-B/16), its line
+    echoed, each point's launches read: K1-K3 and Δ at least once a layer
+    and step in the LM points, K4-K6 in the ViT point, no K7/K8 in the
+    headline; its headline step beside resnet_train's.
 
 Then the ``kernels`` line (each kernel also with the CUDA kernels behind
 it and where they are defined), and last the device line the harness
@@ -136,11 +155,14 @@ import json
 import math
 import queue
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1490,6 +1512,13 @@ def http_call(url: str, body: dict | None = None) -> tuple[int, str]:
         return r.status, r.read().decode()
 
 
+def counter_value(text: str, name: str) -> float:
+    """The value of the unlabelled counter ``name`` in Prometheus text; a
+    counter with no sample yet renders no series and counts 0."""
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
 def serve_http_phase(cfg, jobs, smi: str) -> dict:
     """Phase (b): the serve entry point with each engine, and the
     continuous one again with int8 pages and a spill tier, with
@@ -1517,6 +1546,11 @@ def serve_http_phase(cfg, jobs, smi: str) -> dict:
         t0 = time.perf_counter()
         server, batcher = jobs.build_server(args)
         up_s = time.perf_counter() - t0
+        # the serve job's stats live on the process registry, which every
+        # server of this process shares: counts are read as deltas
+        base = batcher.stats.snapshot()["requests_total"]
+        base_text = counter_value(batcher.stats.prometheus(),
+                                  "ko_serve_requests_total")
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1537,12 +1571,14 @@ def serve_http_phase(cfg, jobs, smi: str) -> dict:
             health = http_call(url + "/healthz")
             stats = json.loads(http_call(url + "/stats")[1])
             metrics = http_call(url + "/metrics")[1]
-            if health[0] != 200 or stats["requests_total"] != n:
+            if health[0] != 200 or stats["requests_total"] - base != n:
                 raise AssertionError(f"serve {label}: healthz {health}, "
-                                     f"stats {stats}")
-            if f"ko_serve_requests_total {n}" not in metrics:
-                raise AssertionError(f"serve {label}: /metrics lacks "
-                                     f"ko_serve_requests_total {n}")
+                                     f"stats {stats} (requests before: "
+                                     f"{base})")
+            if (counter_value(metrics, "ko_serve_requests_total")
+                    - base_text != n):
+                raise AssertionError(f"serve {label}: /metrics does not "
+                                     f"count {n} more ko_serve_requests_total")
             family = {"continuous_spec": "ko_serve_spec_draft_tokens_total ",
                       "continuous_moe": "ko_serve_moe_expert_load{"}.get(
                           label)
@@ -1560,6 +1596,313 @@ def serve_http_phase(cfg, jobs, smi: str) -> dict:
                       "stats": stats}
     emit({"phase": "serve_http", "nvidia_smi": smi, **out})
     return out
+
+
+def run_job(jobs, argv: list) -> tuple[int, list[dict]]:
+    """A job through its entry point, its records captured and echoed:
+    (exit code, records)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = jobs.main(argv)
+    print(out.getvalue(), end="", flush=True)
+    return rc, [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def http_get(url: str) -> tuple[int, str]:
+    """(status, body) of one GET, error statuses included."""
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def jobs_smoke_phase(jobs, smi: str) -> dict:
+    """The smoke job: a 256×256 bf16 matmul of ones on the card must sum
+    to 256³."""
+    rc, records = run_job(jobs, ["smoke"])
+    rec = records[-1]
+    emit({"phase": "jobs_smoke", "nvidia_smi": smi, "rc": rc, "record": rec})
+    if rc != 0 or not rec["ok"] or rec["matmul_sum"] != 16_777_216.0:
+        raise AssertionError(f"jobs smoke: rc {rc}, {rec}")
+    return rec
+
+
+def jobs_mnist_phase(jobs, smi: str) -> dict:
+    """The mnist job at its defaults (30 steps of a depth-18 ResNet in f32
+    on one batch of 128 28² images): exit 0 with the loss improved; a
+    step's seconds are the median gap between step starts (each step ends
+    on a host read of its loss)."""
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    starts = []
+    step = Trainer.train_step
+
+    def timed(self, *a):
+        starts.append(time.perf_counter())
+        return step(self, *a)
+
+    Trainer.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        rc, records = run_job(jobs, ["mnist"])
+    finally:
+        Trainer.train_step = step
+    seconds = time.perf_counter() - t0
+    done = records[-1]
+    gaps = [b - a for a, b in zip(starts, starts[1:])]
+    rec = {"phase": "jobs_mnist", "nvidia_smi": smi, "rc": rc,
+           "seconds": seconds, "steps": done["steps"],
+           "seconds_per_step": statistics.median(gaps),
+           "first_step_seconds": gaps[0],
+           **{k: done[k] for k in ("first_loss", "last_loss", "improved")}}
+    emit(rec)
+    if rc != 0 or not done["improved"] or done["steps"] != 30:
+        raise AssertionError(f"jobs mnist: rc {rc}, {done}")
+    return rec
+
+
+def jobs_metrics_phase(jobs, smi: str) -> dict:
+    """The llm job at a tiny depth (one layer of the default width, 256
+    tokens) with ``--metrics-port`` on a free port: after the job, its
+    daemon server answers ``/metrics`` with the process registry (the
+    ko_train_* families declared) and ``/nope`` with 404; then it is shut
+    down."""
+    servers = []
+    start = jobs.maybe_start_metrics_server
+
+    def keep(port):
+        servers.append(start(port))
+        return servers[-1]
+
+    port = free_port()
+    jobs.maybe_start_metrics_server = keep
+    try:
+        rc, records = run_job(jobs, ["llm", "--steps", "2", "--layers", "1",
+                                     "--seq-len", "256", "--batch", "2",
+                                     "--metrics-port", str(port)])
+        status, text = http_get(f"http://127.0.0.1:{port}/metrics")
+        missing = http_get(f"http://127.0.0.1:{port}/nope")[0]
+    finally:
+        jobs.maybe_start_metrics_server = start
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+    rec = {"phase": "jobs_metrics", "nvidia_smi": smi, "rc": rc,
+           "port": port, "metrics_status": status, "nope_status": missing,
+           "families": re.findall(r"^# TYPE (ko_train_\S+) (\S+)$", text,
+                                  re.M),
+           "losses": [r["loss"] for r in records if "loss" in r]}
+    emit(rec)
+    if (rc != 0 or status != 200 or missing != 404
+            or "# TYPE ko_train_step_seconds histogram" not in text):
+        raise AssertionError(f"jobs metrics: {rec}")
+    return rec
+
+
+def jobs_ckpt_phase(cfg, jobs, smi: str) -> dict:
+    """Checkpoint and resume through the jobs, in a directory under
+    ``build/`` removed after. (a) The resnet50 job at its defaults (batch
+    64) with ``--ckpt-every 1``: 2 steps, then a rerun to 3 that resumes
+    at 2. (b) The llm job at the bench LM's widths (batch 8): 2 steps,
+    checkpointed at the end. (c) ``build_server --ckpt-dir`` at those
+    widths announces ``checkpoint step 2``, and a greedy ``/generate``
+    equals ``generate()`` on the checkpoint restored here, token for token
+    (a 64-token prompt and 16 new tokens, so the dynamic batcher's bucket
+    is the call made here). Checkpoint bytes, save and restore seconds."""
+    from kubeoperator_tpu_torch.workloads.checkpoint import (
+        WorkloadCheckpointer,
+    )
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+    from kubeoperator_tpu_torch.workloads.serving import plan_bucket
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        TransformerConfig,
+    )
+
+    # the model as the llm and serve jobs build it from these widths
+    job_cfg = TransformerConfig(vocab_size=cfg.vocab_size,
+                                d_model=cfg.d_model, n_heads=cfg.n_heads,
+                                n_layers=cfg.n_layers, d_ff=cfg.d_ff,
+                                max_seq_len=cfg.max_seq_len)
+    saves = []
+    save = WorkloadCheckpointer.save
+
+    def timed_save(self, step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, step, state)
+        saves.append({"dir": Path(self.directory).name, "step": step,
+                      "seconds": time.perf_counter() - t0,
+                      "bytes": Path(self.path(step)).stat().st_size})
+
+    widths = ["--vocab", str(cfg.vocab_size), "--d-model", str(cfg.d_model),
+              "--heads", str(cfg.n_heads), "--layers", str(cfg.n_layers),
+              "--d-ff", str(cfg.d_ff)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    WorkloadCheckpointer.save = timed_save
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            rn = str(Path(tmp) / "resnet50")
+            resnet = ["resnet50", "--batch-per-chip", "64", "--ckpt-dir", rn,
+                      "--ckpt-every", "1"]
+            rc1, first = run_job(jobs, [*resnet, "--steps", "2"])
+            rc2, again = run_job(jobs, [*resnet, "--steps", "3"])
+            resnet_steps = WorkloadCheckpointer(rn).steps()
+            llm_dir = str(Path(tmp) / "llm")
+            rc3, lm_records = run_job(jobs, [
+                "llm", "--steps", "2", *widths, "--seq-len",
+                str(cfg.max_seq_len), "--batch", "8", "--ckpt-dir", llm_dir])
+            state = LMTrainer(job_cfg).init_state(seed=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            WorkloadCheckpointer(llm_dir).restore(state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            model = state["model"].eval()
+            del state
+            gc.collect()
+            out = io.StringIO()
+            args = jobs.build_parser().parse_args([
+                "serve", *widths, "--max-seq-len", str(cfg.max_seq_len),
+                "--ckpt-dir", llm_dir, "--host", "127.0.0.1", "--port", "0"])
+            with contextlib.redirect_stdout(out):
+                server, _ = jobs.build_server(args)
+            print(out.getvalue(), end="", flush=True)
+            announced = json.loads(out.getvalue().splitlines()[0])
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            prompt = np.random.default_rng(2).integers(
+                0, cfg.vocab_size, 64).tolist()
+            try:
+                status, body = http_call(
+                    f"http://127.0.0.1:{server.server_address[1]}/generate",
+                    {"prompt_ids": prompt, "max_tokens": 16})
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+            p, n, prefill = plan_bucket([64], [16], cfg.max_seq_len)
+            want = generate(job_cfg, model, [prompt + [0] * (p - 64)], n,
+                            temperature=0.0, seed=0, prompt_lens=[64],
+                            prefill_len=prefill)[0, :64 + 16].tolist()
+            del model
+    finally:
+        WorkloadCheckpointer.save = save
+    got = json.loads(body)["tokens"] if status == 200 else None
+    rec = {"phase": "jobs_ckpt", "nvidia_smi": smi,
+           "resnet50": {"rc": [rc1, rc2], "resumed": again[0],
+                        "done": again[-1], "kept_steps": resnet_steps},
+           "llm": {"rc": rc3, "done": lm_records[-1]},
+           "saves": saves, "llm_restore_seconds": restore_s,
+           "serve_weights": announced.get("weights"),
+           "generate_equal": got == want, "tokens": got, "want": want}
+    emit(rec)
+    if (rc1 or rc2 or rc3 or again[0] != {"job": "resnet50", "resumed_at": 2}
+            or again[-1]["steps"] != 3 or lm_records[-1]["steps"] != 2):
+        raise AssertionError(f"jobs ckpt: the jobs did not resume: {rec}")
+    if announced.get("weights") != "checkpoint step 2" or got != want:
+        raise AssertionError(f"jobs ckpt: serve --ckpt-dir: {rec}")
+    return rec
+
+
+def resnet_dot2_phase(rcfg, smi: str, resnet_ms: float, conv_launches,
+                      reset_conv) -> dict:
+    """ResNet-50 in the K7/K8 configuration with ``conv_bwd="dot2"`` and
+    ``fused_bn=False``: a few measured steps, a finite loss, no K7/K8 and
+    no flash launch; its step ms beside ``resnet_train``'s."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    cfg = dataclasses.replace(rcfg, conv_bwd="dot2", fused_bn=False)
+    fa.reset_launches()
+    reset_conv()
+    m = Trainer(cfg).measure(batch=cfg.batch_size, steps=2, warmup=1,
+                             steps_per_call=8, repeats=3)
+    launches = {**conv_launches(), **fa.LAUNCHES}
+    rec = {"phase": "resnet_dot2", "nvidia_smi": smi,
+           "config": {**dataclasses.asdict(cfg), "dtype": str(cfg.dtype)},
+           "launches": launches, "resnet_train_step_time_ms": resnet_ms,
+           **{k: v for k, v in m.items() if k != "step_stats"},
+           "step_stats": m["step_stats"]}
+    emit(rec)
+    if not math.isfinite(m["final_loss"]) or any(launches.values()):
+        raise AssertionError(f"resnet_dot2: loss {m['final_loss']}, "
+                             f"launches {launches}")
+    return rec
+
+
+def bench_phase(smi: str, resnet_ms: float, conv_launches,
+                reset_conv) -> dict:
+    """``kubeoperator_tpu_torch.bench.main()`` once, its line echoed, with
+    each point's launches: K1-K3 and Δ at least once a layer and step in
+    the three LM points, K4-K6 and Δ in the ViT point, and no K7/K8 or
+    flash kernel in the ResNet headline. Its headline step ms beside
+    ``resnet_train``'s (the same model, batch and stem with K7 and K8)."""
+    from kubeoperator_tpu_torch import bench
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+
+    points = {}
+
+    def on_point(name, result):
+        points[name] = {"flash": dict(fa.LAUNCHES), "conv": conv_launches(),
+                        "step_time_ms": result["step_time_ms"],
+                        "mfu": result["mfu"]}
+        fa.reset_launches()
+        reset_conv()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    reset_conv()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(on_point)
+    seconds = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    line = json.loads(out.getvalue().splitlines()[-1])
+    head = points.get("resnet") or points.get("resnet-fallback") or {}
+    rec = {"phase": "bench", "nvidia_smi": smi, "rc": rc, "seconds": seconds,
+           "points": points, "headline_step_time_ms": line.get(
+               "step_time_ms"), "resnet_train_step_time_ms": resnet_ms,
+           "k7_k8_saves_ms": (line["step_time_ms"] - resnet_ms
+                              if "step_time_ms" in line else None)}
+    emit(rec)
+    if rc != 0 or line.get("metric") != "resnet50_img_per_sec_per_chip":
+        raise AssertionError(f"bench: rc {rc}, line {line}")
+    if not (line["value"] > 0 and 0 < line["mfu"] < 1):
+        raise AssertionError(f"bench: value {line['value']}, mfu "
+                             f"{line['mfu']}")
+    if [c["config"] for c in line["configs"]] != [
+            "resnet", "llm", "llm4k", "llm8k", "vit"]:
+        raise AssertionError(f"bench: configs {line['configs']}")
+    if any(head["conv"].values()) or any(head["flash"].values()):
+        raise AssertionError(f"bench: the headline launched port kernels: "
+                             f"{head}")
+    for name, _, _, _, steps in bench.LM_POINTS:
+        want = 4 * (bench.LM_WARMUP + 3 * steps)     # 4 layers
+        got = points[name]["flash"]
+        for kname in (*(k for k, _ in KERNELS), "flash_delta"):
+            if got[kname] < want:
+                raise AssertionError(f"bench {name}: {kname} launched "
+                                     f"{got[kname]} times, expected >= "
+                                     f"{want}")
+    vm = bench.VIT_MEASURE
+    want = 12 * (vm["warmup"] + 3 * vm["steps"]) * vm["steps_per_call"]
+    for kname in (*(k for k, _ in PACKED_KERNELS), "flash_delta"):
+        if points["vit"]["flash"][kname] < want:
+            raise AssertionError(f"bench vit: {kname} launched "
+                                 f"{points['vit']['flash'][kname]} times, "
+                                 f"expected >= {want}")
+    return line
 
 
 def main() -> int:
@@ -1613,6 +1956,13 @@ def main() -> int:
                             timed=True, layout="packed")
     kernel_phase(fa, peaks, "causal_d128", 2, 4, 512, 128, True,
                  timed=True, layout="packed")
+    # K1-K3 at the bench's LM 4k and 8k points (B·H 64 at T 4096, B·H 32
+    # at T 8192): the causal grid, tensor-map extents, lse and Δ sizes at
+    # 32 and 64 q-tiles, against the path's 16
+    kernel_phase(fa, peaks, "causal_t4096", 4, 16, 4096, 128, True,
+                 timed=True)
+    kernel_phase(fa, peaks, "causal_t8192", 2, 16, 8192, 128, True,
+                 timed=True)
 
     # -- 4. main path: train -------------------------------------------------
     steps, warmup, repeats = 3, 2, 3
@@ -1717,6 +2067,14 @@ def main() -> int:
     serve_moe_phase(moe_cfg, smi)
     serve_http_phase(cfg, jobs, smi)
     emit({"phase": "serve_total", "seconds": time.perf_counter() - serve_t0})
+
+    # -- 5c. the one-device jobs: smoke, mnist, /metrics, checkpoints -------
+    jobs_t0 = time.perf_counter()
+    jobs_smoke_phase(jobs, smi)
+    jobs_mnist_phase(jobs, smi)
+    jobs_metrics_phase(jobs, smi)
+    jobs_ckpt_phase(cfg, jobs, smi)
+    emit({"phase": "jobs_total", "seconds": time.perf_counter() - jobs_t0})
 
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
     vcfg = ViTConfig()
@@ -1868,6 +2226,10 @@ def main() -> int:
           "img_per_sec": records[-1]["img_per_sec"],
           "launches": job_launches})
 
+    # -- 10b. ResNet-50 with the dot2 backward -------------------------------
+    resnet_dot2_phase(rcfg, smi, rm["step_time_ms"], conv_launches,
+                      reset_conv)
+
     # -- 11. K9's probe -----------------------------------------------------
     bp.reset_launches()
     probe = bp.probe()
@@ -1877,6 +2239,9 @@ def main() -> int:
         err = probe[variant]
         if not err["max_abs_err"] <= 1e-5 * err["max_abs_want"] + 1e-2:
             raise AssertionError(f"bitcast_probe {variant}: {err}")
+
+    # -- 12. the port's bench -------------------------------------------------
+    bench_phase(smi, rm["step_time_ms"], conv_launches, reset_conv)
 
     # -- the kernels line and the device line --------------------------------
     # each kernel with its own main path's launches and its own path shape;

@@ -1,9 +1,12 @@
 """In-process metrics registry with Prometheus text exposition: the part
-of ``kubeoperator_tpu/telemetry/metrics.py`` the serving batchers need
-(``Counter``, ``Gauge``, ``Histogram``, ``Summary``, ``Registry`` and the
-``ko_serve_*`` vocabulary), copied so the port imports nothing of the JAX
-package. The families, names, labels and exposition format are the
-reference's, so one ``/metrics`` scrape reads the same on both.
+of ``kubeoperator_tpu/telemetry/metrics.py`` the workload layer needs
+(``Counter``, ``Gauge``, ``Histogram``, ``Summary``, ``Registry``, the
+process-wide ``REGISTRY``, the ``ko_serve_*`` vocabulary and the
+``ko_train_*`` one with ``record_train_step``), copied so the port imports
+nothing of the JAX package. The families, names, labels and exposition
+format are the reference's, so one ``/metrics`` scrape reads the same on
+both. The control-plane families the reference declares on its
+``REGISTRY`` are not part of the workload layer and are not copied.
 
 Design points:
 
@@ -321,6 +324,11 @@ class Registry:
         return "\n".join(out) + "\n"
 
 
+# the process-wide registry: the serve job's batcher stats and the training
+# jobs' step metrics record here, so one /metrics scrape covers a pod
+REGISTRY = Registry()
+
+
 # -- serving-plane families (workloads/serving.BatcherStats) ----------------
 # Fused-batch sizes and continuous-engine slot counts; power-of-two edges
 # matching the batcher's bucketing rule.
@@ -437,3 +445,58 @@ def declare_serve_metrics(registry: Registry, window: int = 512) -> dict:
             "serving engine, per expert index.",
             labels=("expert",)),
     }
+
+
+# -- training-plane families (train/jobs.py) --------------------------------
+# One training step spans ~1 ms (tiny CPU runs) to minutes (large models
+# through cold caches); start finer than DEFAULT_BUCKETS.
+TRAIN_STEP_BUCKETS: tuple[float, ...] = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0)
+
+
+def declare_train_metrics(registry: Registry) -> dict:
+    """Declare the ``ko_train_*`` vocabulary on ``registry`` and return the
+    families keyed by short name: the train-plane mirror of
+    :func:`declare_serve_metrics`."""
+    return {
+        "step": registry.histogram(
+            "ko_train_step_seconds",
+            "Wall-clock duration of one optimizer step (fwd + bwd + "
+            "update), per workload.",
+            labels=("workload",), buckets=TRAIN_STEP_BUCKETS),
+        "collective": registry.counter(
+            "ko_train_collective_seconds",
+            "Seconds attributed to inter-chip collectives per step, by "
+            "collective family (all_gather | reduce_scatter | ppermute | "
+            "all_reduce); cost-model derived on CPU meshes, profiler-"
+            "derived on device.",
+            labels=("workload", "collective")),
+        "mfu": registry.gauge(
+            "ko_train_mfu",
+            "Model FLOPs utilization of the last measured step window, "
+            "per workload (model FLOPs / peak FLOPs of the mesh).",
+            labels=("workload",)),
+    }
+
+
+def record_train_step(workload: str, step_seconds: float,
+                      mfu: float | None = None,
+                      collective_seconds: dict[str, float] | None = None,
+                      registry: Registry | None = None) -> None:
+    """One call per measured step window: observes the step histogram and
+    updates the collective counters and the MFU gauge, on ``registry`` or
+    the process ``REGISTRY``."""
+    fams = declare_train_metrics(registry if registry is not None else REGISTRY)
+    fams["step"].observe(float(step_seconds), workload=workload)
+    if mfu is not None:
+        fams["mfu"].set(float(mfu), workload=workload)
+    for kind, secs in (collective_seconds or {}).items():
+        if secs > 0:
+            fams["collective"].inc(float(secs), workload=workload,
+                                   collective=kind)
+
+
+# declared at import, as the reference does, so a scrape of the process
+# registry shows both vocabularies from boot
+declare_serve_metrics(REGISTRY)
+declare_train_metrics(REGISTRY)

@@ -1,12 +1,21 @@
-"""Job entry points of the PyTorch port: ``llm`` (train the transformer
-LM, then optionally sample from it), ``resnet50`` (train a ResNet on a
-synthetic image stream or an ``.npy`` dataset), ``vit`` (train the
-Vision Transformer classifier on a synthetic image stream) and ``serve``
-(the token-generation HTTP endpoint). The counterparts of ``cmd_llm``,
+"""Job entry points of the PyTorch port: ``smoke`` (a matmul on the
+card), ``mnist`` (a small ResNet on one MNIST-shaped batch), ``llm``
+(train the transformer LM, then optionally sample from it), ``resnet50``
+(train a ResNet on a synthetic image stream or an ``.npy`` dataset),
+``vit`` (train the Vision Transformer classifier on a synthetic image
+stream) and ``serve`` (the token-generation HTTP endpoint). The
+counterparts of ``cmd_smoke``, ``cmd_mnist``, ``cmd_llm``,
 ``cmd_resnet50``, ``cmd_vit`` and ``cmd_serve`` in
 ``kubeoperator_tpu/train/jobs.py``, with the same flags plus ``--device``.
+``llm`` and ``resnet50`` checkpoint to ``--ckpt-dir`` and resume from its
+latest checkpoint; ``serve --ckpt-dir`` serves the llm job's weights;
+``llm --metrics-port`` serves the process registry on ``/metrics``.
 
-    python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16
+    python -m kubeoperator_tpu_torch.train.jobs smoke
+    python -m kubeoperator_tpu_torch.train.jobs mnist [--device cpu --steps 6 \\
+        --batch 16]
+    python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16 \\
+        [--ckpt-dir DIR --ckpt-every 50] [--metrics-port 8080]
     python -m kubeoperator_tpu_torch.train.jobs llm --device cpu --steps 2 \\
         --d-model 64 --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256 \\
         [--experts 4 --sample 4]
@@ -40,12 +49,9 @@ import torch
 # flags of the JAX command whose non-default values need a part of the
 # system this port does not have yet, and where the ROADMAP queues it
 NOT_PORTED = {
-    "mesh": (None, "multi-device meshes (ROADMAP queue 1, multi-device)"),
+    "mesh": (None, "multi-device meshes (ROADMAP queue 1, item 14)"),
     "sp_attention": ("ring", "sequence-parallel attention (ROADMAP queue 1, "
-                             "multi-device)"),
-    "ckpt_dir": (None, "checkpointing (ROADMAP queue 1, checkpoint)"),
-    "metrics_port": (0, "the ko_train_* metrics server (ROADMAP queue 1, "
-                        "serving and jobs)"),
+                             "item 14)"),
     "aot_cache": (None, "the AOT compile cache (ROADMAP queue 1, item 15)"),
 }
 
@@ -63,11 +69,115 @@ def refuse_unported(args: argparse.Namespace) -> None:
                 f"--{flag.replace('_', '-')} is not ported yet: {what}")
 
 
+def maybe_start_metrics_server(port: int):
+    """Serve the process registry (``telemetry.metrics.REGISTRY``: the
+    ``ko_train_*`` and ``ko_serve_*`` families) as Prometheus text on
+    ``/metrics``, 404 elsewhere, from a daemon thread, so the job's exit
+    never waits on it. ``port <= 0`` disables it. Returns the server, or
+    None."""
+    if port <= 0:
+        return None
+    import http.server
+    import threading
+
+    from kubeoperator_tpu_torch.telemetry.metrics import REGISTRY
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802
+            if self.path != "/metrics":
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = REGISTRY.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):  # noqa: D102 — scrape noise
+            pass
+
+    server = http.server.ThreadingHTTPServer(("0.0.0.0", port), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def open_checkpoint(args: argparse.Namespace, state: dict, job: str):
+    """The job's ``WorkloadCheckpointer`` under ``--ckpt-dir`` (None
+    without one), with ``state`` restored in place from its latest
+    checkpoint, if any, announced as ``{"job", "resumed_at"}``."""
+    if not args.ckpt_dir:
+        return None
+    from kubeoperator_tpu_torch.workloads.checkpoint import (
+        WorkloadCheckpointer,
+    )
+
+    ckpt = WorkloadCheckpointer(args.ckpt_dir, max_to_keep=args.ckpt_keep)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        emit({"job": job, "resumed_at": state["step"]})
+    return ckpt
+
+
+def cmd_smoke(args: argparse.Namespace) -> int:
+    """Device sanity: a 256×256 bf16 matmul of ones whose sum must be
+    256³. The collective half of the reference's job (a psum across
+    devices) needs the multi-device slice, so more than one visible card
+    raises."""
+    from kubeoperator_tpu_torch.workloads.train import resolve_device
+
+    dev = resolve_device(args.device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > 1:
+        raise NotImplementedError(
+            f"smoke over {n} cards needs the psum half, on torch.distributed "
+            f"(ROADMAP queue 1, item 14)")
+    x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
+    y = float((x @ x).sum())
+    ok = y == 256.0 * 256 * 256
+    emit({"job": "smoke", "devices": n,
+          "device_kind": (torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else dev.type),
+          "platform": "gpu" if dev.type == "cuda" else dev.type,
+          "matmul_sum": y, "psum": None, "ok": ok})
+    return 0 if ok else 1
+
+
+def cmd_mnist(args: argparse.Namespace) -> int:
+    """A depth-18 ResNet in f32 on one MNIST-shaped synthetic batch (28²,
+    10 classes): the reference's stand-in for the TF-MNIST chart. Exits 1
+    unless the last loss is below the first."""
+    from kubeoperator_tpu_torch.workloads.train import TrainConfig, Trainer
+
+    args.steps = max(1, args.steps)
+    cfg = TrainConfig(batch_size=args.batch, image_size=28, num_classes=10,
+                      depth=18, learning_rate=0.05, warmup_steps=5,
+                      total_steps=max(args.steps, 6), dtype=torch.float32,
+                      stem="conv")
+    tr = Trainer(cfg, device=args.device)
+    state = tr.init_state()
+    images, labels = tr.synthetic_batch()
+    first_loss = None
+    for step in range(args.steps):
+        state, metrics = tr.train_step(state, images, labels)
+        loss = float(metrics["loss"])
+        first_loss = first_loss if first_loss is not None else loss
+        if step % max(1, args.steps // 10) == 0:
+            emit({"job": "mnist", "step": step, "loss": round(loss, 4)})
+    emit({"job": "mnist", "done": True, "steps": args.steps,
+          "first_loss": round(first_loss, 4), "last_loss": round(loss, 4),
+          "improved": bool(loss < first_loss)})
+    return 0 if loss < first_loss else 1
+
+
 def cmd_llm(args: argparse.Namespace) -> int:
     """Train the transformer LM (``--experts`` > 0: MoE FFNs) for
-    ``--steps`` on a synthetic batch, then sample ``--sample`` tokens from
-    the trained model."""
+    ``--steps`` on a synthetic batch, checkpointing to ``--ckpt-dir`` and
+    resuming from it, then sample ``--sample`` tokens from the trained
+    model."""
     refuse_unported(args)
+    maybe_start_metrics_server(args.metrics_port)
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
     from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
@@ -80,13 +190,20 @@ def cmd_llm(args: argparse.Namespace) -> int:
                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
     lt = LMTrainer(cfg, device=args.device)
     state = lt.init_state()
+    ckpt = open_checkpoint(args, state, "llm")
     tokens = lt.synthetic_batch(args.batch or 1, args.seq_len)
     while state["step"] < args.steps:
         state, metrics = lt.train_step(state, tokens)
         step = state["step"]
+        if ckpt and args.ckpt_every and step % args.ckpt_every == 0:
+            ckpt.save(step, state)
         if step % max(1, args.steps // 10) == 0 or step == args.steps:
             emit({"job": "llm", "step": step,
                   "loss": round(float(metrics["loss"]), 4)})
+    if ckpt:
+        if ckpt.latest_step() != state["step"]:    # not saved in the loop
+            ckpt.save(state["step"], state)
+        ckpt.close()
     if args.sample > 0:
         # decode path smoke: KV-cached generation from the trained params
         sampled = generate(cfg, state["model"], tokens[:1, :4],
@@ -100,9 +217,11 @@ def cmd_llm(args: argparse.Namespace) -> int:
 
 def cmd_resnet50(args: argparse.Namespace) -> int:
     """ResNet classification for ``--steps`` on the synthetic image stream
-    or ``--data-dir``, copied to the device with prefetch. The config is
-    the JAX job's: ``TrainConfig`` defaults (so no K7/K8 backward), the
-    s2d stem for even images of at least 64, warmup min(100, steps)."""
+    or ``--data-dir``, copied to the device with prefetch, checkpointing
+    to ``--ckpt-dir`` and resuming from it (step count and data stream
+    continue). The config is the JAX job's: ``TrainConfig`` defaults (so
+    no K7/K8 backward), the s2d stem for even images of at least 64,
+    warmup min(100, steps)."""
     refuse_unported(args)
     from kubeoperator_tpu_torch.workloads import data as data_pipe
     from kubeoperator_tpu_torch.workloads.train import TrainConfig, Trainer
@@ -115,24 +234,32 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
                       stem="space_to_depth" if s2d_ok else "conv")
     tr = Trainer(cfg, device=args.device)
     state = tr.init_state()
+    ckpt = open_checkpoint(args, state, "resnet50")
+    start = state["step"]
     if args.data_dir:
         source = data_pipe.NpyDataset(args.data_dir).batches(
-            cfg.batch_size, seed=0)
+            cfg.batch_size, seed=0, skip_batches=start)
     else:
         source = data_pipe.synthetic_image_batches(
             cfg.batch_size, cfg.image_size, cfg.num_classes, seed=0,
-            steps=args.steps)
+            steps=args.steps - start, start=start)
     t0 = time.perf_counter()
     for images, labels in data_pipe.prefetch_to_device(source, tr.device):
         if state["step"] >= args.steps:
             break
         state, metrics = tr.train_step(state, images, labels)
         step = state["step"]
+        if ckpt and args.ckpt_every and step % args.ckpt_every == 0:
+            ckpt.save(step, state)
         if step % max(1, args.steps // 10) == 0 or step == args.steps:
             emit({"job": "resnet50", "step": step,
                   "loss": round(float(metrics["loss"]), 4)})
     dt = time.perf_counter() - t0
-    img_s = cfg.batch_size * state["step"] / dt if dt > 0 else 0.0
+    img_s = cfg.batch_size * (state["step"] - start) / dt if dt > 0 else 0.0
+    if ckpt:
+        if ckpt.latest_step() != state["step"]:    # not saved in the loop
+            ckpt.save(state["step"], state)
+        ckpt.close()
     emit({"job": "resnet50", "done": True, "steps": state["step"],
           "chips": 1, "device": str(tr.device), "img_per_sec": round(img_s, 1),
           "img_per_sec_per_chip": round(img_s, 1)})
@@ -178,8 +305,10 @@ def cmd_vit(args: argparse.Namespace) -> int:
 
 
 def build_server(args: argparse.Namespace):
-    """The serve job up to the point where it listens: the model (fresh
-    weights from ``--seed``), the engine and its batcher, warm-up, and a
+    """The serve job up to the point where it listens: the model (the llm
+    job's latest checkpoint under ``--ckpt-dir``, else fresh weights from
+    ``--seed``), the engine and its batcher (its stats on the process
+    ``REGISTRY``), warm-up, and a
     ``ThreadingHTTPServer`` bound to ``--host``/``--port`` (port 0 takes a
     free one). Returns ``(server, batcher)``; the caller runs
     ``server.serve_forever()`` and ends it with ``server.shutdown()``.
@@ -192,7 +321,7 @@ def build_server(args: argparse.Namespace):
     refuse_unported(args)
     import http.server
 
-    from kubeoperator_tpu_torch.telemetry.metrics import Registry
+    from kubeoperator_tpu_torch.telemetry.metrics import REGISTRY
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.serving import (
         BatcherStats, ContinuousBatcher, DynamicBatcher, _pow2_at_least,
@@ -213,11 +342,25 @@ def build_server(args: argparse.Namespace):
         dtype=torch.bfloat16 if args.bf16 else torch.float32)
     with torch.device(dev):
         model = Transformer(cfg)
-    model.reset_parameters(args.seed).eval()
-    emit({"job": "serve", "weights": "fresh-init (no checkpoint)",
-          "device": str(dev)})
-    # one registry for the process: /metrics is one scrape
-    stats = BatcherStats(registry=Registry())
+    weights = "fresh-init (no checkpoint)"
+    if args.ckpt_dir:
+        from kubeoperator_tpu_torch.workloads.checkpoint import (
+            WorkloadCheckpointer,
+        )
+
+        # the llm job wrote its full trainer state: only the model's
+        # weights are read, the AdamW moments stay on disk
+        ckpt = WorkloadCheckpointer(args.ckpt_dir)
+        if ckpt.latest_step() is not None:
+            weights = f"checkpoint step {ckpt.restore_model(model)}"
+        ckpt.close()
+    if weights.startswith("fresh"):
+        model.reset_parameters(args.seed)
+    model.eval()
+    emit({"job": "serve", "weights": weights, "device": str(dev)})
+    # both engines report into the process registry: one /metrics scrape
+    # covers the serve plane and the train plane
+    stats = BatcherStats(registry=REGISTRY)
 
     if args.engine == "continuous":
         from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
@@ -261,7 +404,7 @@ def build_server(args: argparse.Namespace):
         # run each expected bucket once before readiness, bucketed exactly
         # as the batcher buckets real traffic (plan_bucket)
         for spec in (args.warm.split(",") if args.warm else []):
-            b, p_raw, n_raw = (int(x) for x in spec.lower().split("x"))
+            b, p_raw, n_raw = parse_warm(spec)
             b = _pow2_at_least(b)
             p, n, prefill = plan_bucket([p_raw] * b, [n_raw] * b,
                                         cfg.max_seq_len)
@@ -326,6 +469,19 @@ def build_server(args: argparse.Namespace):
     return server, batcher
 
 
+def parse_warm(spec: str) -> tuple[int, int, int]:
+    """One ``--warm`` element, ``BxPxN`` (batch, prompt length, new
+    tokens, each a positive integer). Anything else exits naming the
+    element: the reference's unpacking raised a bare ``ValueError``."""
+    parts = [p.strip() for p in spec.lower().split("x")]
+    if len(parts) != 3 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise SystemExit(f"serve: --warm element {spec!r} is not BxPxN "
+                         f"(batch x prompt length x new tokens, e.g. "
+                         f"'8x128x64')")
+    b, p, n = (int(x) for x in parts)
+    return b, p, n
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     """Token-generation HTTP endpoint (the jax-serve chart's entry point):
     ``build_server``, then serve until interrupted."""
@@ -345,11 +501,22 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kubeoperator_tpu_torch.train.jobs",
                                 description="PyTorch port workload jobs")
     sub = p.add_subparsers(dest="cmd", required=True)
+    sm = sub.add_parser("smoke", help="device sanity check (one device)")
+    sm.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+
+    mn = sub.add_parser("mnist", help="small convnet on synthetic MNIST "
+                                      "shapes")
+    mn.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    mn.add_argument("--steps", type=int, default=30)
+    mn.add_argument("--batch", type=int, default=128)
+
     lm = sub.add_parser("llm", help="transformer LM (one device)")
     lm.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
     lm.add_argument("--metrics-port", type=int, default=0,
-                    help="not ported: must stay 0")
+                    help=">0: serve ko_train_* prometheus text on this port")
     lm.add_argument("--steps", type=int, default=100)
     lm.add_argument("--seq-len", type=int, default=2048)
     lm.add_argument("--batch", type=int, default=None)
@@ -371,7 +538,8 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--mesh", type=str, default=None,
                     help="not ported: must stay unset")
     lm.add_argument("--ckpt-dir", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="checkpoint here every --ckpt-every steps and at "
+                         "the end; resume from the latest on restart")
     lm.add_argument("--ckpt-every", type=int, default=50)
     lm.add_argument("--ckpt-keep", type=int, default=3)
 
@@ -387,7 +555,8 @@ def build_parser() -> argparse.ArgumentParser:
     rn.add_argument("--mesh", type=str, default=None,
                     help="not ported: must stay unset")
     rn.add_argument("--ckpt-dir", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="checkpoint here every --ckpt-every steps and at "
+                         "the end; resume from the latest on restart")
     rn.add_argument("--ckpt-every", type=int, default=50)
     rn.add_argument("--ckpt-keep", type=int, default=3)
     rn.add_argument("--data-dir", type=str, default=None,
@@ -422,7 +591,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--d-ff", type=int, default=None)
     sv.add_argument("--max-seq-len", type=int, default=2048)
     sv.add_argument("--ckpt-dir", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="serve the llm job's latest checkpoint here "
+                         "(fresh weights from --seed without one)")
     sv.add_argument("--seed", type=int, default=0)
     sv.add_argument("--bf16", action="store_true", default=True)
     sv.add_argument("--no-bf16", dest="bf16", action="store_false")
@@ -478,8 +648,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-COMMANDS = {"llm": cmd_llm, "resnet50": cmd_resnet50, "vit": cmd_vit,
-            "serve": cmd_serve}
+COMMANDS = {"smoke": cmd_smoke, "mnist": cmd_mnist, "llm": cmd_llm,
+            "resnet50": cmd_resnet50, "vit": cmd_vit, "serve": cmd_serve}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -13,6 +13,10 @@ memory, so no layout copy is made; padding follows XLA's SAME rule (see
 - backward, mode ``"pallas"``, 1×1 stride 1 and N = B·H·W a multiple of
   128 (``conv_vjp.py:164-165``): kernel K7 (``conv1x1_bwd``), dx = g·wᵀ
   and dW = xᵀ·g in f32 from the ``[N, C]`` views;
+- backward, mode ``"dot2"``, 1×1 stride 1 (``conv_vjp.py:168-178``): both
+  gradients as library products of the ``[N, C]`` views, dx = g·wᵀ and
+  dW = xᵀ·g, in the operands' dtype as ``_dw_dot`` takes its products (no
+  kernel: the JAX package computes them as XLA dots);
 - backward otherwise (mode ``"dot"``, and every other shape): dInput as
   the transposed conv and dW as one product per kernel tap (``_dw_dot``).
 
@@ -285,12 +289,8 @@ def _dx_transposed(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 @lru_cache(maxsize=None)
 def make_conv(strides: tuple, padding, mode: str = "dot") -> Callable:
     """The differentiable conv ``fn(x NHWC, w HWIO)`` for one (strides,
-    padding, mode); ``mode`` is ``"dot"`` or ``"pallas"``."""
-    if mode == "dot2":
-        raise NotImplementedError(
-            'conv_bwd="dot2" (both 1×1 gradients as dots) is not ported: '
-            "ROADMAP queue 1, item 11's remainder")
-    if mode not in ("dot", "pallas"):
+    padding, mode); ``mode`` is ``"dot"``, ``"pallas"`` or ``"dot2"``."""
+    if mode not in ("dot", "pallas", "dot2"):
         raise ValueError(f"unknown conv backward mode {mode!r}")
 
     class _Conv(torch.autograd.Function):
@@ -313,6 +313,12 @@ def make_conv(strides: tuple, padding, mode: str = "dot") -> Callable:
                 dx, dw = conv1x1_bwd(x.reshape(n, x.shape[-1]),
                                      g.reshape(n, g.shape[-1]), w[0, 0])
                 return dx.view(x.shape), dw.to(w.dtype).view(w.shape)
+            if (mode == "dot2" and kshape == (1, 1)
+                    and tuple(strides) == (1, 1)):
+                g2 = g.reshape(n, g.shape[-1])
+                dx = torch.matmul(g2, w[0, 0].t())
+                dw = torch.matmul(x.reshape(n, x.shape[-1]).t(), g2)
+                return dx.view(x.shape), dw.to(w.dtype).view(w.shape)
             dx = _dx_transposed(x, w, g, strides, ctx.pads)
             dw = _dw_dot(x, g, kshape, strides, ctx.pads).to(w.dtype)
             return dx, dw
@@ -323,7 +329,7 @@ def make_conv(strides: tuple, padding, mode: str = "dot") -> Callable:
 class Conv(nn.Module):
     """A bias-free NHWC conv with flax's HWIO ``kernel`` parameter (f32),
     cast with its input to ``dtype`` before the conv. ``bwd_impl`` set
-    (``"dot"`` or ``"pallas"``) takes ``make_conv``'s backward, the
+    (``"dot"``, ``"pallas"`` or ``"dot2"``) takes ``make_conv``'s backward, the
     counterpart of ``conv_vjp.Conv``; ``None`` is flax's ``nn.Conv`` under
     plain autograd of the library conv."""
 

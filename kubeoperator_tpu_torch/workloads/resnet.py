@@ -16,7 +16,11 @@ f32 masters. Convs, the max pool and BatchNorm follow the JAX model:
   with backward ``conv_bwd`` (``"pallas"``: kernel K7 on 1×1 stride-1
   convs); with ``fused_bn`` the (1×1 stride-1 conv, BN, relu)
   neighbourhoods of blocks whose input has H·W ≥ 3136 are
-  ``bn_fused.FusedConvBN`` units (kernel K8).
+  ``bn_fused.FusedConvBN`` units (kernel K8);
+- ``pad_min_channels`` widens the stem and each bottleneck's inner width
+  to at least that many channels and zeroes the added channels after
+  BN + relu (``mask_channels``), so the wide model computes the narrow
+  one's numbers (resnet.py:34-42, 184-217).
 
 The fused choice and the projections depend on the activations' sizes, so
 a model is built for one image size and refuses others. The head's mean
@@ -100,6 +104,17 @@ def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
                                                c * block * block)
 
 
+def mask_channels(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x with every channel index >= n zeroed (x itself when it has at
+    most n channels): a conv widened past its nominal channels computes
+    the narrow one's outputs while the added activations are zero, and
+    masking after BN + relu also zeroes the added params' gradients."""
+    if n >= x.shape[-1]:
+        return x
+    keep = torch.arange(x.shape[-1], device=x.device) < n
+    return x * keep.to(x.dtype)
+
+
 def _after(hw: tuple, strides: int) -> tuple:
     """Spatial size after a SAME op of this stride."""
     return tuple(-(-n // strides) for n in hw)
@@ -109,24 +124,28 @@ class BottleneckBlock(nn.Module):
     """1×1 → 3×3 (stride here, v1.5) → 1×1 (4× wider, zero-init scale),
     plus a projection where the residual's shape changes. ``fused`` (a
     ``FusedConvBN`` constructor) replaces the 1×1 conv + BN (+ relu)
-    pairs, and a stride-1 projection, by fused units."""
+    pairs, and a stride-1 projection, by fused units. ``pad_to`` widens
+    the inner width to at least that many channels, masked back to
+    ``features`` (unfused only)."""
 
     def __init__(self, in_features: int, features: int, strides: int,
-                 conv, norm, hw: tuple, fused=None):
+                 conv, norm, hw: tuple, fused=None, pad_to: int = 0):
         super().__init__()
         out = features * 4
+        width = max(features, pad_to)
+        self.features = features
         self.fused = fused is not None
         if self.fused:
-            self.fused1 = fused(in_features, features, relu=True)
+            self.fused1 = fused(in_features, width, relu=True)
         else:
-            self.conv1 = conv(in_features, features, (1, 1))
-            self.bn1 = norm(features)
-        self.conv2 = conv(features, features, (3, 3), (strides, strides))
-        self.bn2 = norm(features)
+            self.conv1 = conv(in_features, width, (1, 1))
+            self.bn1 = norm(width)
+        self.conv2 = conv(width, width, (3, 3), (strides, strides))
+        self.bn2 = norm(width)
         if self.fused:
-            self.fused3 = fused(features, out, relu=False, zero_scale=True)
+            self.fused3 = fused(width, out, relu=False, zero_scale=True)
         else:
-            self.conv3 = conv(features, out, (1, 1))
+            self.conv3 = conv(width, out, (1, 1))
             self.bn3 = norm(out, zero_scale=True)
         self.project = in_features != out or _after(hw, strides) != hw
         self.fused_proj = self.project and self.fused and strides == 1
@@ -140,8 +159,9 @@ class BottleneckBlock(nn.Module):
         if self.fused:
             y = self.fused1(x)
         else:
-            y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
+            y = mask_channels(torch.relu(self.bn1(self.conv1(x))),
+                              self.features)
+        y = mask_channels(torch.relu(self.bn2(self.conv2(y))), self.features)
         y = self.fused3(y) if self.fused else self.bn3(self.conv3(y))
         residual = x
         if self.fused_proj:
@@ -195,8 +215,9 @@ class ResNet(nn.Module):
     """The JAX package's ``ResNet`` built for ``image_size`` × ``image_size``
     × 3 NHWC images. Modes as there: ``stem`` ``"conv"`` (7×7 stride 2) or
     ``"space_to_depth"`` (2×2 s2d, then a 4×4 stride-1 conv; even sizes),
-    ``dw_dot_max_k``, ``conv_bwd`` (``"dot"`` or ``"pallas"``) and
-    ``fused_bn`` (depth ≥ 50). ``pad_min_channels`` is not ported."""
+    ``dw_dot_max_k``, ``conv_bwd`` (``"dot"``, ``"pallas"`` or ``"dot2"``),
+    ``pad_min_channels`` and ``fused_bn`` (each depth ≥ 50, and not
+    together)."""
 
     def __init__(self, num_classes: int = 1000, depth: int = 50,
                  width: int = 64, dtype: torch.dtype = torch.bfloat16,
@@ -204,17 +225,23 @@ class ResNet(nn.Module):
                  conv_bwd: str = "dot", pad_min_channels: int = 0,
                  fused_bn: bool = False, image_size: int = 224):
         super().__init__()
-        if pad_min_channels:
-            raise NotImplementedError(
-                "pad_min_channels is not ported (ROADMAP queue 1, item 11's "
-                "remainder)")
         if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}")
         bottleneck = depth >= 50
+        if fused_bn and pad_min_channels:
+            raise ValueError("fused_bn is incompatible with "
+                             "pad_min_channels (mask semantics)")
         if fused_bn and not bottleneck:
             raise ValueError("fused_bn requires depth >= 50 (bottleneck "
                              "blocks)")
+        if pad_min_channels and not bottleneck:
+            # BasicBlock has no pad_to: a widened stem would change the
+            # stage-0 residual shapes and add projections
+            raise ValueError("pad_min_channels requires depth >= 50 "
+                             "(bottleneck blocks)")
         self.dtype, self.stem, self.image_size = dtype, stem, image_size
+        self.width = width
+        stem_width = max(width, pad_min_channels)
 
         def conv(cin, cout, kernel, strides=(1, 1)):
             impl = conv_bwd if max(kernel) <= dw_dot_max_k else None
@@ -227,15 +254,16 @@ class ResNet(nn.Module):
             if image_size % 2:
                 raise ValueError("the space_to_depth stem needs an even "
                                  "image size")
-            self.stem_conv_s2d = conv(12, width, (4, 4))
+            self.stem_conv_s2d = conv(12, stem_width, (4, 4))
             hw = (image_size // 2,) * 2
         else:
-            self.stem_conv = conv(3, width, (7, 7), (2, 2))
+            self.stem_conv = conv(3, stem_width, (7, 7), (2, 2))
             hw = _after((image_size, image_size), 2)
-        self.stem_bn = norm(width)
+        self.stem_bn = norm(stem_width)
         hw = _after(hw, 2)                               # max pool
-        block = BottleneckBlock if bottleneck else BasicBlock
-        blocks, cin = [], width
+        block = (partial(BottleneckBlock, pad_to=pad_min_channels)
+                 if bottleneck else BasicBlock)
+        blocks, cin = [], stem_width
         for stage, n_blocks in enumerate(STAGE_SIZES[depth]):
             for i in range(n_blocks):
                 features = width * 2 ** stage
@@ -268,7 +296,8 @@ class ResNet(nn.Module):
             x = self.stem_conv_s2d(space_to_depth(x, 2))
         else:
             x = self.stem_conv(x)
-        x = max_pool_same(torch.relu(self.stem_bn(x)), 3, 2)
+        x = mask_channels(torch.relu(self.stem_bn(x)), self.width)
+        x = max_pool_same(x, 3, 2)
         for blk in self.blocks:
             x = blk(x)
         return self.head(x.mean((1, 2)))

@@ -357,6 +357,10 @@ class DynamicBatcher:
             self._execute(temp, sub)
 
     def _execute(self, temp: float, group: list[_Pending]) -> None:
+        # whether this batch is counted: the reference infers it from the
+        # rows' done flags, which double-counts a batch whose result loop
+        # fails before its first row is done
+        executed = False
         try:
             lens = [len(r.prompt_ids) for r in group]
             p_bucket, new_bucket, prefill = plan_bucket(
@@ -370,6 +374,7 @@ class DynamicBatcher:
             out = np.asarray(self.run_fn(prompts, lens, new_bucket, temp,
                                          prefill, seed))
             self.stats.executed(len(group))
+            executed = True
             for i, (r, n) in enumerate(zip(group, lens)):
                 # rows are contiguous: generate() overwrites a short row's
                 # pad positions with its own continuation as decode
@@ -381,10 +386,9 @@ class DynamicBatcher:
             # fail only the rows still pending: a late per-row error must
             # not poison requests already completed above (and their stats
             # must not double-count)
-            pending = [r for r in group if not r.done.is_set()]
-            if pending and not any(r.done.is_set() for r in group):
+            if not executed:
                 self.stats.executed(len(group))   # run_fn itself failed
-            for r in pending:
+            for r in (r for r in group if not r.done.is_set()):
                 r.error = e
                 self.stats.finished(r, ok=False)
                 r.done.set()

@@ -167,8 +167,8 @@ class TrainConfig:
     dtype: Any = torch.bfloat16
     stem: str = "conv"               # or "space_to_depth"
     dw_dot_max_k: int = 0            # custom-backward convs up to this size
-    conv_bwd: str = "dot"            # "dot" | "pallas" (kernel K7)
-    pad_min_channels: int = 0        # not ported: must stay 0
+    conv_bwd: str = "dot"            # "dot" | "pallas" (kernel K7) | "dot2"
+    pad_min_channels: int = 0        # widen narrow widths, masked back
     fused_bn: bool = False           # 1×1 conv+BN(+relu) units (kernel K8)
 
 
@@ -222,10 +222,6 @@ class Trainer:
         self.device = resolve_device(device)
         refuse_mesh(spec)
         self.cfg = cfg or TrainConfig()
-        if self.cfg.pad_min_channels:
-            raise NotImplementedError(
-                "pad_min_channels is not ported (ROADMAP queue 1, item 11's "
-                "remainder)")
         self.schedule = lr_schedule(self.cfg)
         self.last_metrics: dict = {}
 
@@ -240,6 +236,7 @@ class Trainer:
                 num_classes=cfg.num_classes, depth=cfg.depth, dtype=cfg.dtype,
                 stem=cfg.stem, dw_dot_max_k=cfg.dw_dot_max_k,
                 conv_bwd=cfg.conv_bwd, fused_bn=cfg.fused_bn,
+                pad_min_channels=cfg.pad_min_channels,
                 image_size=cfg.image_size)
         if params is None:
             model.reset_parameters(seed)

@@ -1,8 +1,8 @@
 """The port's conv with a custom backward against the JAX package's
 (``workloads/conv_vjp.py``), on the CPU in f32: K7's plain version against
 the Pallas kernel run as the JAX tests run it (interpret mode), and
-``make_conv`` in modes ``dot`` and ``pallas`` over the kernel and stride
-cases ResNet uses, forward and both gradients. Padding follows XLA's SAME
+``make_conv`` in modes ``dot``, ``pallas`` and ``dot2`` over the kernel
+and stride cases ResNet uses, forward and both gradients. Padding follows XLA's SAME
 rule, asymmetric at odd sizes and strides."""
 
 import jax
@@ -66,7 +66,7 @@ def conv_pair(mode, kernel, strides, b, h, cin, cout, seed=0):
             (y.detach().numpy(), xt.grad.numpy(), wt.grad.numpy()))
 
 
-@pytest.mark.parametrize("mode", ["dot", "pallas"])
+@pytest.mark.parametrize("mode", ["dot", "pallas", "dot2"])
 @pytest.mark.parametrize("kernel,strides,h,cin,cout", CASES)
 def test_make_conv_matches_jax(mode, kernel, strides, h, cin, cout):
     want, got = conv_pair(mode, kernel, strides, 2, h, cin, cout)
@@ -92,7 +92,7 @@ def test_pallas_mode_takes_k7_where_jax_does(monkeypatch, b, h, takes_k7):
 
 def test_dw_is_rounded_to_the_kernel_dtype():
     x, w, ct = arrays((2, 8, 8, 8), (1, 1, 8, 8), (2, 8, 8, 8))
-    for mode in ("dot", "pallas"):
+    for mode in ("dot", "pallas", "dot2"):
         wt = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
         xt = torch.from_numpy(x).to(torch.bfloat16)
         y = tcv.make_conv((1, 1), "SAME", mode)(xt, wt)
@@ -100,11 +100,57 @@ def test_dw_is_rounded_to_the_kernel_dtype():
         assert wt.grad.dtype == torch.bfloat16
 
 
-def test_dot2_is_not_ported_and_unknown_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.make_conv((1, 1), "SAME", "dot2")
+def test_dot2_is_not_ported_and_unknown_modes_raise(monkeypatch):
+    """``dot2`` is ported (this test pinned its refusal before): a 1×1
+    stride-1 conv takes both gradients as products, with no K7 launch
+    and no transposed conv, and matches the JAX mode at 2e-5 in f32.
+    Unknown modes still raise."""
+    calls = []
+    monkeypatch.setattr(tcv, "conv1x1_bwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(tcv, "_dx_transposed", lambda *a: calls.append(a))
+    want, got = conv_pair("dot2", (1, 1), (1, 1), 2, 8, 16, 24, seed=5)
+    assert calls == []
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="unknown"):
         tcv.make_conv((1, 1), "SAME", "fast")
+
+
+@pytest.mark.parametrize("kernel,strides,h,takes_dots", [
+    ((1, 1), (1, 1), 9, True),       # N = 162: no multiple-of-128 rule
+    ((1, 1), (2, 2), 8, False), ((3, 3), (1, 1), 8, False)])
+def test_dot2_takes_products_only_for_1x1_stride_1(monkeypatch, kernel,
+                                                   strides, h, takes_dots):
+    """dot2 gives both 1×1 stride-1 gradients as products, at any N;
+    every other shape falls through to the dot path (the transposed conv
+    for dx), as the JAX mode does; f32 within 2e-5 of JAX's."""
+    calls = []
+    real = tcv._dx_transposed
+    monkeypatch.setattr(tcv, "_dx_transposed",
+                        lambda *a: calls.append(a) or real(*a))
+    want, got = conv_pair("dot2", kernel, strides, 2, h, 8, 16, seed=6)
+    assert len(calls) == int(not takes_dots)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a, w, atol=2e-5, rtol=2e-5)
+
+
+def test_dot2_in_bf16_matches_jax():
+    """bf16 operands, as the model runs them: dx and dW are f32-accumulated
+    products rounded once to bf16 on both sides, so they differ by a bf16
+    step at most (2⁻⁸ relative) where the two sums round differently."""
+    x, w, ct = arrays((2, 8, 8, 64), (1, 1, 64, 32), (2, 8, 8, 32), seed=7)
+    bf = jnp.bfloat16
+    fn = jcv.make_conv((1, 1), "SAME", "dot2")
+    _, vjp = jax.vjp(fn, jnp.asarray(x, bf), jnp.asarray(w * 0.3, bf))
+    want = [np.asarray(a.astype(jnp.float32)) for a in vjp(jnp.asarray(ct, bf))]
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    wt = (torch.from_numpy(w * 0.3).to(torch.bfloat16)).requires_grad_()
+    tcv.make_conv((1, 1), "SAME", "dot2")(xt, wt).backward(
+        torch.from_numpy(ct).to(torch.bfloat16))
+    for got, w_ in zip((xt.grad, wt.grad), want):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), w_, rtol=2 ** -7,
+                                   atol=1e-2)
 
 
 @pytest.mark.parametrize("size,k,s", [(224, 7, 2), (112, 4, 1), (112, 3, 2),

@@ -54,6 +54,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "kubeoperator_tpu_torch/workloads/moe.py",
             "kubeoperator_tpu_torch/workloads/serving.py",
             "kubeoperator_tpu_torch/telemetry/metrics.py",
+            "kubeoperator_tpu_torch/workloads/checkpoint.py",
+            "kubeoperator_tpu_torch/workloads/costmodel.py",
+            "kubeoperator_tpu_torch/bench.py",
             "chip_smoke.py"} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
@@ -161,3 +164,12 @@ def test_no_kernel_uses_mma_sync():
                                         "sm90.cuh"}
     for path in sources:
         assert "mma.sync" not in path.read_text(), path.name
+
+
+@pytest.mark.parametrize("argv", [["smoke"], ["mnist", "--steps", "1",
+                                              "--batch", "2"]])
+def test_one_device_jobs_default_to_cuda(argv):
+    if torch.cuda.is_available():
+        pytest.skip("with a card the default run is the full job")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jobs.main(argv)

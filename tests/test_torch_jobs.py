@@ -1,12 +1,16 @@
-"""The port's ``llm``, ``resnet50``, ``vit`` and ``serve`` job entry
-points on the CPU at a tiny size: the training jobs emit loss lines (and
-the llm job its sampled tokens) and a done record, the serve job answers
-over HTTP with both engines, and each refuses the flags whose parts are
-not ported yet."""
+"""The port's ``smoke``, ``mnist``, ``llm``, ``resnet50``, ``vit`` and
+``serve`` job entry points on the CPU at a tiny size: the training jobs
+emit loss lines (and the llm job its sampled tokens) and a done record,
+checkpoint and resume (a resumed run ends on the bits of an uninterrupted
+one), the llm job serves ``/metrics``, the serve job answers over HTTP
+with both engines and from a checkpoint, and each refuses the flags whose
+parts are not ported yet."""
 
 import contextlib
 import http.server
 import json
+import re
+import socket
 import threading
 import urllib.error
 import urllib.request
@@ -15,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from kubeoperator_tpu_torch.telemetry.metrics import REGISTRY
 from kubeoperator_tpu_torch.train import jobs
+from kubeoperator_tpu_torch.workloads import lm as tlm
+from kubeoperator_tpu_torch.workloads import train as ttrain
 
 torch.set_num_threads(2)
 
@@ -38,6 +45,99 @@ def run(capsys, *argv, cmd="llm"):
     return [json.loads(line) for line in capsys.readouterr().out.splitlines()]
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def metrics_servers(monkeypatch):
+    """Collects the servers ``maybe_start_metrics_server`` starts, and
+    shuts them down on exit."""
+    started = []
+    start = jobs.maybe_start_metrics_server
+
+    def keep(port):
+        server = start(port)
+        if server is not None:
+            started.append(server)
+        return server
+
+    monkeypatch.setattr(jobs, "maybe_start_metrics_server", keep)
+    try:
+        yield started
+    finally:
+        for server in started:
+            server.shutdown()
+            server.server_close()
+
+
+def test_smoke_reports_ok(capsys):
+    """The one-device half of the reference's smoke job: a 256×256 bf16
+    matmul of ones sums to 256³; the record has the reference's keys."""
+    assert jobs.main(["smoke", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec == {"job": "smoke", "devices": 1, "device_kind": "cpu",
+                   "platform": "cpu", "matmul_sum": 16_777_216.0,
+                   "psum": None, "ok": True}
+
+
+def test_smoke_over_several_cards_needs_the_multi_device_slice(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        jobs.main(["smoke", "--device", "cuda:0"])
+
+
+def test_mnist_improves(capsys):
+    """``mnist --steps 6 --batch 16`` on the CPU: the last loss is below
+    the first, as tests/test_jobs.py checks the JAX job."""
+    assert jobs.main(["mnist", "--device", "cpu", "--steps", "6",
+                      "--batch", "16"]) == 0
+    records = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in records if "loss" in r] == list(range(6))
+    done = records[-1]
+    assert done["job"] == "mnist" and done["done"] and done["steps"] == 6
+    assert done["improved"] and done["last_loss"] < done["first_loss"]
+
+
+def test_mnist_exits_1_unless_the_loss_fell(monkeypatch, capsys):
+    monkeypatch.setattr(ttrain.Trainer, "train_step",
+                        lambda self, state, x, y: (
+                            state, {"loss": torch.tensor(2.0)}))
+    assert jobs.main(["mnist", "--device", "cpu", "--steps", "2",
+                      "--batch", "2"]) == 1
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])[
+        "improved"] is False
+
+
+def http_get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_metrics_server_serves_the_process_registry():
+    """``/metrics`` answers 200 with the registry's text (the ko_train_*
+    and ko_serve_* vocabularies declared from boot), any other path 404;
+    port 0 starts nothing."""
+    assert jobs.maybe_start_metrics_server(0) is None
+    port = free_port()
+    server = jobs.maybe_start_metrics_server(port)
+    try:
+        status, text = http_get(f"http://127.0.0.1:{port}/metrics")
+        assert status == 200 and text == REGISTRY.render()
+        assert "# TYPE ko_train_step_seconds histogram" in text
+        assert "# TYPE ko_serve_requests_total counter" in text
+        assert http_get(f"http://127.0.0.1:{port}/nope")[0] == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
 def test_llm_trains_and_samples(capsys):
     records = run(capsys, "--steps", "3", "--sample", "5")
     losses = [r["loss"] for r in records if "loss" in r]
@@ -58,15 +158,41 @@ def test_llm_f32_without_sampling(capsys):
 @pytest.mark.parametrize("flag,value", [
     ("--mesh", "dp:2"), ("--experts", "4"), ("--sp-attention", "ulysses"),
     ("--ckpt-dir", "ckpt"), ("--metrics-port", "8080")])
-def test_unported_flags_raise(flag, value, monkeypatch, capsys):
+def test_unported_flags_raise(flag, value, monkeypatch, capsys, tmp_path):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
-    ``--experts`` is ported: its case shows the job trains an MoE config
-    of that many experts."""
+    ``--experts``, ``--ckpt-dir`` and ``--metrics-port`` are ported: their
+    cases show the job trains an MoE config of that many experts, writes
+    a checkpoint that a rerun resumes from (under ``tmp_path``), and
+    serves ``/metrics`` while it trains (on a free port)."""
+    if flag == "--ckpt-dir":
+        ckpt = str(tmp_path / value)
+        run(capsys, "--steps", "1", flag, ckpt)
+        records = run(capsys, "--steps", "2", flag, ckpt)
+        assert records[0] == {"job": "llm", "resumed_at": 1}
+        assert records[-1]["steps"] == 2
+        assert sorted(p.name for p in (tmp_path / value).iterdir()) == [
+            "step_1.pt", "step_2.pt"]
+        return
+    if flag == "--metrics-port":
+        port = free_port()
+        seen = []
+        step = tlm.LMTrainer.train_step
+
+        def scrape(self, state, tokens):
+            seen.append(http_get(f"http://127.0.0.1:{port}/metrics"))
+            return step(self, state, tokens)
+
+        monkeypatch.setattr(tlm.LMTrainer, "train_step", scrape)
+        with metrics_servers(monkeypatch) as started:
+            records = run(capsys, "--steps", "1", flag, str(port))
+            assert len(started) == 1 and started[0].server_address[1] == port
+        assert records[-1]["done"] and seen[0][0] == 200
+        assert "# TYPE ko_train_step_seconds histogram" in seen[0][1]
+        return
     if flag != "--experts":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             jobs.main(["llm", *TINY, "--steps", "1", flag, value])
         return
-    from kubeoperator_tpu_torch.workloads import lm as tlm
     seen = []
     init = tlm.LMTrainer.__init__
 
@@ -153,7 +279,6 @@ def test_resnet50_reads_a_data_dir(capsys, tmp_path):
 def test_resnet50_config_is_the_jax_job_s(monkeypatch, capsys, size, stem):
     """TrainConfig defaults (no K7/K8 modes), s2d stem for even sizes of
     at least 64, warmup min(100, steps), batch per chip on one chip."""
-    from kubeoperator_tpu_torch.workloads import train as ttrain
     seen = []
     init = ttrain.Trainer.__init__
 
@@ -178,9 +303,103 @@ def test_resnet50_config_is_the_jax_job_s(monkeypatch, capsys, size, stem):
 
 @pytest.mark.parametrize("flag,value", [("--mesh", "dp:2"),
                                         ("--ckpt-dir", "ckpt")])
-def test_resnet50_unported_flags_raise(flag, value):
+def test_resnet50_unported_flags_raise(flag, value, capsys, tmp_path):
+    """``--mesh`` raises, naming the ROADMAP. ``--ckpt-dir`` is ported: the
+    job checkpoints its last step under it (here ``tmp_path``), and a
+    rerun resumes from it and continues the step count."""
+    if flag == "--ckpt-dir":
+        ckpt = str(tmp_path / value)
+        run(capsys, "--steps", "1", flag, ckpt, cmd="resnet50")
+        records = run(capsys, "--steps", "2", flag, ckpt, cmd="resnet50")
+        assert records[0] == {"job": "resnet50", "resumed_at": 1}
+        assert [r["step"] for r in records if "loss" in r] == [2]
+        assert records[-1]["steps"] == 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         jobs.main(["resnet50", *RESNET_TINY, "--steps", "1", flag, value])
+
+
+class Preempted(Exception):
+    """Stands for a pod killed between two steps."""
+
+
+def exact_losses(monkeypatch, trainer_cls):
+    """Record each step's loss as a float, bit for bit."""
+    losses = []
+    step = trainer_cls.train_step
+
+    def spy(self, state, *batch):
+        state, metrics = step(self, state, *batch)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+
+    monkeypatch.setattr(trainer_cls, "train_step", spy)
+    return losses
+
+
+def final_state(path):
+    return torch.load(path, weights_only=True)
+
+
+def assert_same_bits(a, b, where=""):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            assert_same_bits(a[k], b[k], f"{where}/{k}")
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("cmd,data", [("llm", False), ("resnet50", False),
+                                      ("resnet50", True)],
+                         ids=["llm", "resnet50", "resnet50_npy"])
+def test_resumed_run_ends_on_the_uninterrupted_bits(cmd, data, monkeypatch,
+                                                    capsys, tmp_path):
+    """A run preempted after step 2 (checkpoints every step) and restarted
+    to 3 gives step 3 the loss of 3 uninterrupted steps and ends on the
+    same model and optimizer bits, on the CPU. The resnet50 job's data
+    stream continues too: synthetic from ``start=2``, an ``.npy`` dataset
+    from ``skip_batches=2``. (The schedule's length is ``--steps``, so the
+    preempted run is the 3-step run cut short, not a 2-step run.)"""
+    trainer_cls = tlm.LMTrainer if cmd == "llm" else ttrain.Trainer
+    extra = []
+    if data:
+        rng = np.random.default_rng(0)
+        np.save(tmp_path / "images.npy",
+                rng.standard_normal((5, 32, 32, 3)).astype(np.float32))
+        np.save(tmp_path / "labels.npy",
+                rng.integers(0, 1000, 5).astype(np.int32))
+        extra = ["--data-dir", str(tmp_path)]
+    losses = exact_losses(monkeypatch, trainer_cls)
+    run(capsys, "--steps", "3", "--ckpt-dir", str(tmp_path / "whole"),
+        *extra, cmd=cmd)
+    whole = list(losses)
+    assert len(whole) == 3
+
+    spy = trainer_cls.train_step
+
+    def preempted(self, state, *batch):
+        if state["step"] == 2:
+            raise Preempted
+        return spy(self, state, *batch)
+
+    cut = str(tmp_path / "cut")
+    monkeypatch.setattr(trainer_cls, "train_step", preempted)
+    with pytest.raises(Preempted):
+        jobs.main([cmd, *{"llm": TINY, "resnet50": RESNET_TINY}[cmd],
+                   "--steps", "3", "--ckpt-dir", cut, "--ckpt-every", "1",
+                   *extra])
+    capsys.readouterr()
+    monkeypatch.setattr(trainer_cls, "train_step", spy)
+    del losses[:]
+    records = run(capsys, "--steps", "3", "--ckpt-dir", cut, *extra, cmd=cmd)
+    assert records[0] == {"job": cmd, "resumed_at": 2}
+    assert losses == whole[2:]
+    assert records[-1]["steps"] == 3
+    assert_same_bits(final_state(tmp_path / "whole" / "step_3.pt"),
+                     final_state(tmp_path / "cut" / "step_3.pt"))
 
 
 SERVE_TINY = ["--device", "cpu", "--vocab", "64", "--d-model", "32",
@@ -190,11 +409,41 @@ SERVE_TINY = ["--device", "cpu", "--vocab", "64", "--d-model", "32",
 HTTP_WAIT = 120.0     # seconds one HTTP exchange or join may take here
 
 
+def series(text: str) -> dict[str, float]:
+    """The samples of a Prometheus text exposition, by series."""
+    return {k: float(v) for k, v in re.findall(r"^([^#\s]\S*) (\S+)$",
+                                               text, re.M)}
+
+
+class Counted:
+    """The serve job's stats live on the process ``REGISTRY``, which every
+    server of this process shares: counts are read as deltas from the
+    moment the server was built."""
+
+    def __init__(self, batcher):
+        self.batcher = batcher
+        self.snapshot = batcher.stats.snapshot()
+        self.series = series(batcher.stats.prometheus())
+
+    def stats(self, body: str) -> dict:
+        """A ``/stats`` reply with each count taken since the build."""
+        now = json.loads(body)
+        return {k: v - self.snapshot[k] if k.endswith("_total") else v
+                for k, v in now.items()}
+
+    def metrics(self, text: str) -> dict:
+        """A ``/metrics`` reply's series, counters taken since the build."""
+        return {k: v - self.series.get(k, 0.0)
+                if k.split("{")[0].endswith("_total") else v
+                for k, v in series(text).items()}
+
+
 @contextlib.contextmanager
 def serving(*argv):
     """The serve job's server on a free port, serving from a thread."""
     args = jobs.build_parser().parse_args(["serve", *SERVE_TINY, *argv])
     server, batcher = jobs.build_server(args)
+    batcher.counted = Counted(batcher)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -261,14 +510,14 @@ def test_serve_answers_over_http(capsys, engine):
         assert call(url + "/nowhere")[0] == 404
         assert call(url + "/nowhere", {})[0] == 404
         status, body = call(url + "/stats")
-        stats = json.loads(body)
+        stats = batcher.counted.stats(body)
         assert status == 200 and stats["requests_total"] == 8
         assert stats["tokens_generated_total"] == 48
         status, text = call(url + "/metrics")
         assert status == 200
-        assert "ko_serve_requests_total 8" in text
+        assert batcher.counted.metrics(text)["ko_serve_requests_total"] == 8
         assert "# TYPE ko_serve_ttft_seconds histogram" in text
-        assert batcher.stats.snapshot()["errors_total"] == 0
+        assert stats["errors_total"] == 0
     records = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert records[0]["device"] == "cpu"
     assert records[1]["engine"] == engine
@@ -309,14 +558,25 @@ SERVE_PORTED = {"--kv-dtype": ("int8", 0, 0, 0, 0),
     ("--mesh", "dp:2"), ("--ckpt-dir", "ckpt"), ("--kv-dtype", "int8"),
     ("--spill-pages", "4"), ("--spec-k", "2"), ("--draft-layers", "1"),
     ("--moe", "4"), ("--aot-cache", "aot")])
-def test_serve_unported_flags_raise(flag, value, capsys):
+def test_serve_unported_flags_raise(flag, value, capsys, tmp_path):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
-    ``--kv-dtype``, ``--spill-pages``, ``--spec-k``, ``--draft-layers``
-    and ``--moe`` are ported: their cases show the parser takes them and
-    ``build_server`` builds an engine with them (``--spec-k`` beside
-    ``--draft-layers 1``); ``--draft-layers`` alone reaches the engine's
-    validation, which needs ``--spec-k``."""
+    ``--ckpt-dir``, ``--kv-dtype``, ``--spill-pages``, ``--spec-k``,
+    ``--draft-layers`` and ``--moe`` are ported: their cases show the
+    parser takes them and ``build_server`` builds an engine with them
+    (``--spec-k`` beside ``--draft-layers 1``; ``--ckpt-dir`` on an empty
+    directory under ``tmp_path`` serves fresh weights and says so);
+    ``--draft-layers`` alone reaches the engine's validation, which needs
+    ``--spec-k``."""
     argv = ["serve", *SERVE_TINY, "--engine", "continuous", flag, value]
+    if flag == "--ckpt-dir":
+        argv[-1] = str(tmp_path / value)
+        server, batcher = jobs.build_server(
+            jobs.build_parser().parse_args(argv))
+        server.server_close()
+        records = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+        assert records[0]["weights"] == "fresh-init (no checkpoint)"
+        assert batcher.engine.slots == 16
+        return
     if flag == "--draft-layers":
         with pytest.raises(SystemExit, match="requires spec_k"):
             jobs.main(argv)
@@ -362,13 +622,14 @@ def test_serve_spec_and_moe_engines_over_http(flags):
         assert sampled[0] == 200 and len(json.loads(sampled[1])[
             "new_tokens"]) == 5
         status, text = call(url + "/metrics")
-        assert status == 200 and "ko_serve_requests_total 3" in text
+        got = batcher.counted.metrics(text)
+        assert status == 200 and got["ko_serve_requests_total"] == 3
         if "--moe" in flags:
             assert 'ko_serve_moe_expert_load{expert="3"}' in text
         else:
             assert batcher.engine.spec_draft_tokens > 0
-            assert (f"ko_serve_spec_draft_tokens_total "
-                    f"{batcher.engine.spec_draft_tokens}") in text
+            assert got["ko_serve_spec_draft_tokens_total"] == (
+                batcher.engine.spec_draft_tokens)
 
 
 def test_serve_quantized_spill_engine_over_http(capsys):
@@ -387,7 +648,7 @@ def test_serve_quantized_spill_engine_over_http(capsys):
         assert reply["tokens"][:len(prompt)] == prompt
         assert len(reply["new_tokens"]) == 6
         status, body = call(url + "/stats")
-        stats = json.loads(body)
+        stats = batcher.counted.stats(body)
         assert status == 200 and stats["requests_total"] == 2
         assert stats["prefix_hits_total"] == 1
         assert stats["kv_spill_pages"] == 0
@@ -395,3 +656,69 @@ def test_serve_quantized_spill_engine_over_http(capsys):
     pool = next(r for r in records if r.get("engine") == "continuous")
     assert (pool["kv_dtype"], pool["spill_pages"], pool["page"]) == (
         "int8", 8, 4)
+
+
+@pytest.mark.parametrize("spec", ["8x128", "abc", "3x5x6,", "2x0x4"])
+def test_serve_refuses_a_bad_warm_spec(spec, capsys):
+    """A ``--warm`` element that is not three positive integers exits
+    naming the element and the BxPxN form (the reference raises a bare
+    ValueError from its unpacking). The good spec of
+    test_serve_warms_dynamic_buckets still warms 4x8x8 prefill=4."""
+    bad = spec.split(",")[-1] if spec.endswith(",") else spec
+    with pytest.raises(SystemExit, match=rf"{re.escape(repr(bad))} is not "
+                                         rf"BxPxN"):
+        with serving("--warm", spec):
+            pass
+    assert jobs.parse_warm(" 3 x 5 x 6") == (3, 5, 6)
+
+
+@pytest.mark.parametrize("engine", ["continuous", "dynamic"])
+def test_serve_stats_are_on_the_process_registry(engine):
+    """As in the reference, the serve job's batcher records into the
+    process ``REGISTRY``, so the llm job's ``/metrics`` server and the
+    serve job's ``/metrics`` read one registry."""
+    with serving("--engine", engine) as (url, batcher):
+        assert batcher.stats.registry is REGISTRY
+        assert call(url + "/generate", {"prompt_ids": [1, 2],
+                                        "max_tokens": 2})[0] == 200
+        text = call(url + "/metrics")[1]
+        assert "# TYPE ko_train_step_seconds histogram" in text
+        assert batcher.counted.metrics(text)["ko_serve_requests_total"] == 1
+
+
+def test_serve_answers_from_the_llm_jobs_checkpoint(capsys, tmp_path):
+    """``serve --ckpt-dir`` over the llm job's checkpoint (2 steps at the
+    serve widths): it announces the checkpoint's step, and a greedy
+    ``/generate`` equals ``generate()`` on the checkpoint's model, token
+    for token, and differs from the fresh weights' reply."""
+    from kubeoperator_tpu_torch.workloads.checkpoint import (
+        WorkloadCheckpointer,
+    )
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        TransformerConfig,
+    )
+
+    ckpt = str(tmp_path / "ckpt")
+    assert jobs.main(["llm", *TINY, "--no-bf16", "--steps", "2",
+                      "--ckpt-dir", ckpt]) == 0
+    capsys.readouterr()
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                            d_ff=64, max_seq_len=32, dtype=torch.float32)
+    state = WorkloadCheckpointer(ckpt).restore(
+        tlm.LMTrainer(cfg, device="cpu").init_state())
+    prompt = [5, 9, 2, 6, 5, 3]
+    want = generate(cfg, state["model"].eval(), [prompt], 8,
+                    device="cpu")[0].tolist()
+    replies = {}
+    for label, flags in (("checkpoint", ["--ckpt-dir", ckpt]), ("fresh", [])):
+        with serving(*flags) as (url, _):
+            status, body = call(url + "/generate", {"prompt_ids": prompt,
+                                                    "max_tokens": 8})
+            assert status == 200, body
+            replies[label] = json.loads(body)["tokens"]
+        records = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+        assert records[0]["weights"] == (
+            "checkpoint step 2" if flags else "fresh-init (no checkpoint)")
+    assert replies["checkpoint"] == want
+    assert replies["fresh"] != want

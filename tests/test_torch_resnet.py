@@ -342,13 +342,28 @@ def test_trainer_config_is_the_jax_one():
 
 
 def test_unported_and_invalid_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trn.ResNet(pad_min_channels=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.Trainer(ttrain.TrainConfig(pad_min_channels=128), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trn.ResNet(depth=18, width=8, image_size=32, dw_dot_max_k=1,
-                   conv_bwd="dot2")
+    """``pad_min_channels`` and ``conv_bwd="dot2"`` are ported (this test
+    pinned their refusal before): they build, widened where the JAX model
+    widens and with the dot2 backward on the 1×1 convs, and the
+    reference's invalid combinations raise its ``ValueError``s."""
+    model = trn.ResNet(depth=50, width=8, image_size=32, pad_min_channels=16)
+    assert tuple(model.stem_bn.scale.shape) == (16,)
+    assert tuple(model.blocks[0].conv2.kernel.shape) == (3, 3, 16, 16)
+    assert tuple(model.blocks[1].conv1.kernel.shape) == (1, 1, 32, 16)
+    assert tuple(model.blocks[-1].conv1.kernel.shape) == (1, 1, 256, 64)
+    tr = ttrain.Trainer(ttrain.TrainConfig(
+        batch_size=2, image_size=32, depth=50, pad_min_channels=128),
+        device="cpu")
+    assert tr.init_state()["model"].blocks[0].bn1.scale.shape == (128,)
+    with pytest.raises(ValueError, match="incompatible"):
+        trn.ResNet(pad_min_channels=128, fused_bn=True)
+    with pytest.raises(ValueError, match="depth >= 50"):
+        trn.ResNet(depth=18, width=8, image_size=32, pad_min_channels=16)
+    model = trn.ResNet(depth=18, width=8, image_size=32, dw_dot_max_k=1,
+                       conv_bwd="dot2")
+    impls = {m.kernel.shape[:2]: m.bwd_impl for m in model.modules()
+             if isinstance(m, tcv.Conv)}
+    assert impls[(1, 1)] == "dot2" and impls[(3, 3)] is None
     with pytest.raises(ValueError, match="depth >= 50"):
         trn.ResNet(depth=18, fused_bn=True)
     with pytest.raises(NotImplementedError, match="multi-device"):
@@ -425,3 +440,113 @@ def test_measure_needs_the_card():
                              depth=18, dtype=torch.float32)
     with pytest.raises(ValueError, match="no published peak"):
         ttrain.Trainer(cfg, device="cpu").measure(steps=1, warmup=1)
+
+
+@pytest.fixture
+def short_resnet50(monkeypatch):
+    """ResNet-50 with one block a stage in both packages (CPU speed), as
+    tests/test_workloads.py::test_padded_resnet_is_exactly_resnet cuts it."""
+    for module in (jrn, trn):
+        monkeypatch.setitem(module.STAGE_SIZES, 50, [1, 1, 1, 1])
+
+
+def test_padded_resnet_is_exactly_resnet(short_resnet50):
+    """pad_min_channels is a pure layout knob. The narrow model's
+    variables embedded in the padded one (zeros elsewhere) give the narrow
+    model's logits, eval and train, and every padded parameter an exactly
+    zero gradient (exactly, as in the JAX test). On bridged variables the
+    padded port model's eval logits match the padded JAX model's at 1e-5,
+    so the bridge carries the widened params."""
+    kw = dict(num_classes=7, depth=50, width=8)
+    jw = jrn.ResNet(**kw, dtype=jnp.float32, pad_min_channels=16)
+    x = np.random.default_rng(1).standard_normal(
+        (2, 16, 16, 3)).astype(np.float32)
+    vw = jax_variables(jw, 16)
+    want_eval = jw.apply(vw, x, train=False)
+    want, _ = jw.apply(vw, x, train=True, mutable=["batch_stats"])
+    cfg = ttrain.TrainConfig(depth=50)
+    wide = trn.ResNet(**kw, dtype=torch.float32, image_size=16,
+                      pad_min_channels=16)
+    wide.load_state_dict(resnet_params_from_jax(vw, cfg))
+    xt = torch.from_numpy(x)
+    np.testing.assert_allclose(wide.eval()(xt).detach().numpy(), want_eval,
+                               atol=1e-5, rtol=1e-5)
+    # train mode: batch statistics over 2 images amplify f32 rounding, as
+    # test_logits_and_batch_stats_match_flax's depth-50 limit says
+    np.testing.assert_allclose(wide.train()(xt).detach().numpy(), want,
+                               atol=2e-3, rtol=2e-3)
+
+    narrow = trn.ResNet(**kw, dtype=torch.float32, image_size=16)
+    narrow.load_state_dict(resnet_params_from_jax(
+        jax_variables(jrn.ResNet(**kw, dtype=jnp.float32), 16), cfg))
+    sd = {}
+    for name, w in wide.state_dict().items():
+        n = narrow.state_dict()[name]
+        sd[name] = torch.zeros_like(w)
+        sd[name][tuple(slice(0, k) for k in n.shape)] = n
+    wide.load_state_dict(sd)
+    for train in (False, True):
+        narrow.train(train), wide.train(train)
+        assert torch.equal(wide(xt), narrow(xt)), f"train={train}"
+    wide.zero_grad()
+    wide(xt).square().sum().backward()
+    for name, p in wide.named_parameters():
+        n = narrow.state_dict()[name].shape
+        grad = p.grad.clone()
+        grad[tuple(slice(0, k) for k in n)] = 0
+        assert not grad.any(), f"{name}: a padded entry has a gradient"
+
+
+def test_padded_trainer_step_matches_jax(short_resnet50):
+    """f32 steps of the JAX Trainer and of the port's with
+    pad_min_channels=128 (ResNet-50's width 64 padded, one block a stage,
+    8 images of 64²; fewer make the batch statistics ill-conditioned) from
+    the same variables: the losses at 1e-5. Step 0 runs at lr 0, so the
+    third loss is the first after an update."""
+    fields = dict(batch_size=8, image_size=64, num_classes=10, depth=50,
+                  warmup_steps=1, total_steps=4, pad_min_channels=128)
+    jt = jtrain.Trainer(jtrain.TrainConfig(dtype=jnp.float32, **fields),
+                        devices=jax.devices()[:1])
+    state = jt.init_state(jax.random.key(0))
+    start = jax.tree.map(np.asarray, {"params": state.params,
+                                      "batch_stats": state.batch_stats})
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8, 64, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 8).astype(np.int32)
+    cfg = ttrain.TrainConfig(dtype=torch.float32, **fields)
+    pt = ttrain.Trainer(cfg, device="cpu")
+    pstate = pt.init_state(params=resnet_params_from_jax(start, cfg))
+    for _ in range(3):
+        state, metrics = jt.train_step(state, jnp.asarray(x), jnp.asarray(y))
+        pstate, pmetrics = pt.train_step(pstate, torch.from_numpy(x),
+                                         torch.from_numpy(y))
+        np.testing.assert_allclose(float(pmetrics["loss"]),
+                                   float(metrics["loss"]), rtol=1e-5)
+
+
+def test_mnist_trainer_steps_match_jax():
+    """The mnist job's config (depth-18 BasicBlocks, f32, 28², the conv
+    stem, lr 0.05, warmup 5) on one batch: three steps of the JAX Trainer
+    and of the port's from the same variables give the same losses at
+    1e-5 (step 0 runs at lr 0, so the third loss is the first after an
+    update)."""
+    fields = dict(batch_size=8, image_size=28, num_classes=10, depth=18,
+                  learning_rate=0.05, warmup_steps=5, total_steps=6,
+                  stem="conv")
+    jt = jtrain.Trainer(jtrain.TrainConfig(dtype=jnp.float32, **fields),
+                        devices=jax.devices()[:1])
+    state = jt.init_state(jax.random.key(0))
+    start = jax.tree.map(np.asarray, {"params": state.params,
+                                      "batch_stats": state.batch_stats})
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((8, 28, 28, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 8).astype(np.int32)
+    cfg = ttrain.TrainConfig(dtype=torch.float32, **fields)
+    pt = ttrain.Trainer(cfg, device="cpu")
+    pstate = pt.init_state(params=resnet_params_from_jax(start, cfg))
+    for _ in range(3):
+        state, metrics = jt.train_step(state, jnp.asarray(x), jnp.asarray(y))
+        pstate, pmetrics = pt.train_step(pstate, torch.from_numpy(x),
+                                         torch.from_numpy(y))
+        np.testing.assert_allclose(float(pmetrics["loss"]),
+                                   float(metrics["loss"]), rtol=1e-5)

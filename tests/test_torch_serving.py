@@ -10,6 +10,7 @@ import threading
 import time
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -354,3 +355,50 @@ def test_dynamic_batcher_splits_temperatures_and_reports_errors(model):
     with pytest.raises(RuntimeError, match="decode failed"):
         bad.submit([1, 2], 3, timeout=WAIT)
     assert bad.stats.snapshot()["errors_total"] == 1
+
+
+def test_train_metrics_render_like_jax():
+    """``record_train_step`` on a fresh registry of each package renders
+    the same ko_train_* text."""
+    from kubeoperator_tpu.telemetry import metrics as jm
+    from kubeoperator_tpu_torch.telemetry import metrics as tm
+
+    got, want = tm.Registry(), jm.Registry()
+    tm.record_train_step("w", 0.5, 0.3, {"all_reduce": 0.1}, registry=got)
+    jm.record_train_step("w", 0.5, 0.3, {"all_reduce": 0.1}, registry=want)
+    assert got.render() == want.render()
+    assert 'ko_train_step_seconds_count{workload="w"} 1' in got.render()
+    assert tm.TRAIN_STEP_BUCKETS == jm.TRAIN_STEP_BUCKETS
+
+
+def test_process_registry_holds_the_workload_vocabularies():
+    """The port's ``REGISTRY`` declares the reference's workload families
+    (``declare_serve_metrics``, ``declare_train_metrics``) from import,
+    and none of its control plane's."""
+    from kubeoperator_tpu.telemetry import metrics as jm
+    from kubeoperator_tpu_torch.telemetry import metrics as tm
+
+    ref = jm.Registry()
+    jm.declare_serve_metrics(ref)
+    jm.declare_train_metrics(ref)
+    assert tm.REGISTRY.names() == ref.names()
+    assert set(ref.names()) <= set(jm.REGISTRY.names())
+    assert len(ref.names()) == 25
+
+
+def test_dynamic_batcher_counts_a_batch_once_when_its_rows_fail():
+    """run_fn succeeds and the result loop fails at row 0: the port counts
+    the batch once in ``batches_total`` and the batch-size histogram and
+    fails the row. The reference infers from the rows' done flags whether
+    it counted the batch, and counts this one twice."""
+    def rows_fail(prompts, lens, max_new, temp, prefill, seed):
+        return np.full((len(prompts), 16), "x")     # int("x") raises
+
+    for pkg, want in ((tserving, 1), (jserving, 2)):
+        db = pkg.DynamicBatcher(rows_fail, window_ms=1.0)
+        with pytest.raises(ValueError):
+            db.submit([1, 2, 3], 4, timeout=WAIT)
+        snap = db.stats.snapshot()
+        assert snap["batches_total"] == want, pkg.__name__
+        assert snap["errors_total"] == snap["requests_total"] == 1
+        assert f"ko_serve_batch_size_count {want}" in db.stats.prometheus()
