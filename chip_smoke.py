@@ -24,7 +24,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and the bound at the card's own peak and HBM rate.
 4. train: the main path, ``LMTrainer(cfg).measure`` at the full width of
    the bench LM (d2048, 16 heads, 4 layers, d_ff 8192, seq 2048, batch 8,
-   bf16, remat dots+attn, bf16 logits), launch counts reset before and
+   bf16, remat dots+attn, bf16 logits) with the bench's settings for that
+   point (3 repeats of 6 steps after 2), launch counts reset before and
    read after; every kernel must have launched, Δ once per dQ launch.
    kernels_packed: K4-K6 (K1-K3's kernels on the packed [B, T, H·D]
    layout) and Δ the same way, at ViT-B/16's path shape (B=128, H=12,
@@ -101,6 +102,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``checkpoint step 2`` and a greedy ``/generate`` equals ``generate()``
    on the restored model token for token (bytes, save and restore
    seconds).
+   dist (phases ``dist_smoke``, ``dist_llm``, ``dist_multi``): the smoke
+   job joins an NCCL group from ``torchrun``'s environment (one rank,
+   this process): its psum must equal the world; then the llm job at the
+   bench LM's widths through ``--mesh dp:auto`` in that group for as
+   many steps as phase ``train``, from the same weights and batch: K1-K3
+   each at least once a layer and step, finite losses, the last within
+   ``TOL`` of ``train``'s, step ms and MFU beside ``train``'s. With two or
+   more cards, ``dist_multi`` spawns two NCCL ranks (``launch.spawn``)
+   running ``MULTI_CASES`` — smoke, the LM at dp 2, sp 2 (ring and
+   Ulysses) and tp 2, the fsdp job with and without overlap and the
+   pipeline job — each against its one-rank run; with one card it says
+   so and runs nothing.
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -137,7 +150,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     dot path, the bench LM at T 2048, 4096 and 8192, ViT-B/16), its line
     echoed, each point's launches read: K1-K3 and Δ at least once a layer
     and step in the LM points, K4-K6 in the ViT point, no K7/K8 in the
-    headline; its headline step beside resnet_train's.
+    headline; its headline step beside resnet_train's. The 2k LM and
+    ViT-B/16 points take phases ``train``'s and ``vit_train``'s numbers
+    and launches (measured with the bench's settings), so each
+    configuration is measured once.
 
 Then the ``kernels`` line (each kernel also with the CUDA kernels behind
 it and where they are defined), and last the device line the harness
@@ -1839,22 +1855,239 @@ def resnet_dot2_phase(rcfg, smi: str, resnet_ms: float, conv_launches,
     return rec
 
 
+@contextlib.contextmanager
+def torchrun_env():
+    """The environment ``torchrun`` gives rank 0 of a world of one (a free
+    local port), and the process group the job joins from it destroyed,
+    and the environment restored, after."""
+    import os
+
+    import torch.distributed as dist
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_smoke_phase(jobs, smi: str) -> dict:
+    """The smoke job joining an NCCL group from ``torchrun``'s
+    environment (one rank: this process, one card): the matmul sums to
+    256³ and the psum equals the world's size. Leaves the group joined
+    for ``dist_llm``."""
+    import torch.distributed as dist
+
+    rc, records = run_job(jobs, ["smoke"])
+    rec = records[-1]
+    backend = dist.get_backend() if dist.is_initialized() else None
+    emit({"phase": "dist_smoke", "nvidia_smi": smi, "rc": rc,
+          "backend": backend, "record": rec})
+    if (rc != 0 or not rec["ok"] or backend != "nccl"
+            or rec["psum"] != float(rec["num_processes"])
+            or rec["num_processes"] != dist.get_world_size()):
+        raise AssertionError(f"dist_smoke: rc {rc}, backend {backend}, "
+                             f"{rec}")
+    return rec
+
+
+def dist_llm_phase(cfg, jobs, smi: str, train: dict, steps: int) -> dict:
+    """The llm job at the bench LM's widths (batch 8 × 2,048) through
+    ``--mesh dp:auto`` in the NCCL group ``dist_smoke`` joined, as many
+    steps as phase ``train`` ran from the same seeded weights and batch:
+    K1-K3 each at least once a layer and step, every loss finite, the last
+    one within ``TOL`` of ``train``'s final loss (the job's config leaves
+    the logits f32, ``train``'s takes them from bf16 operands), step ms
+    and MFU beside ``train``'s."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+
+    fa.reset_launches()
+    rc, records = run_job(jobs, [
+        "llm", "--mesh", "dp:auto", "--steps", str(steps), "--d-model",
+        str(cfg.d_model), "--heads", str(cfg.n_heads), "--layers",
+        str(cfg.n_layers), "--d-ff", str(cfg.d_ff), "--seq-len",
+        str(cfg.max_seq_len), "--batch", "8"])
+    launches = dict(fa.LAUNCHES)
+    losses = [r["loss"] for r in records if "loss" in r]
+    done = records[-1]
+    want = train["final_loss"]
+    emit({"phase": "dist_llm", "nvidia_smi": smi, "rc": rc,
+          "mesh": done.get("mesh"), "num_processes": done.get(
+              "num_processes"), "steps": done.get("steps"),
+          "launches": launches, "losses": losses,
+          "train_final_loss": want, "step_time_ms": done.get("step_time_ms"),
+          "mfu": done.get("mfu"), "train_step_time_ms": train["step_time_ms"],
+          "train_mfu": train["mfu"]})
+    if rc != 0 or not done.get("done") or done["steps"] != steps:
+        raise AssertionError(f"dist_llm: rc {rc}, {done}")
+    for kname, _ in KERNELS:
+        if launches[kname] < cfg.n_layers * steps:
+            raise AssertionError(f"dist_llm: {kname} launched "
+                                 f"{launches[kname]} times, expected >= "
+                                 f"{cfg.n_layers * steps}")
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"dist_llm: losses {losses}")
+    if abs(losses[-1] - want) > TOL["atol"] + TOL["rtol"] * abs(want):
+        raise AssertionError(f"dist_llm: final loss {losses[-1]}, train's "
+                             f"{want}")
+    return done
+
+
+# dist_multi's cases: (name, job argv); the LM at the bench LM's widths,
+# 2 layers, batch 4 × 2,048, bf16; the MLP jobs print every step, the
+# warm-up ones (NCCL's first collectives) included, and time the rest
+MULTI_LM = ["--d-model", "2048", "--heads", "16", "--layers", "2", "--d-ff",
+            "8192", "--seq-len", "2048", "--batch", "4", "--steps", "3"]
+MULTI_MLP = ["--steps", "5"]
+MULTI_CASES = (
+    ("smoke", ["smoke"]),
+    ("llm_dp2", ["llm", *MULTI_LM, "--mesh", "dp:2"]),
+    ("llm_sp2_ring", ["llm", *MULTI_LM, "--mesh", "sp:2"]),
+    ("llm_sp2_ulysses", ["llm", *MULTI_LM, "--mesh", "sp:2",
+                         "--sp-attention", "ulysses"]),
+    ("llm_tp2", ["llm", *MULTI_LM, "--mesh", "tp:2"]),
+    ("fsdp", ["fsdp", "--mesh", "fsdp:2", *MULTI_MLP]),
+    ("fsdp_no_overlap", ["fsdp", "--mesh", "fsdp:2", "--no-overlap",
+                         *MULTI_MLP]),
+    ("pipeline", ["pipeline", "--mesh", "pp:2", *MULTI_MLP]),
+)
+
+
+def dist_multi_rank(rank: int, world: int, out: str, cases: tuple) -> None:
+    """One NCCL rank of ``dist_multi``: every case's job; rank 0 writes
+    the records and each case's flash launches to ``out``."""
+    from kubeoperator_tpu_torch.train import jobs
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+
+    results = {}
+    for name, argv in cases:
+        fa.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = jobs.main(argv)
+        if rc != 0:
+            raise AssertionError(f"dist_multi {name}: rank {rank} rc {rc}")
+        results[name] = {"records": [json.loads(x) for x in
+                                     buf.getvalue().splitlines()],
+                         "launches": dict(fa.LAUNCHES)}
+    if rank == 0:
+        Path(out, "rank0.json").write_text(json.dumps(results))
+
+
+def mlp_serial_loss(jobs, argv: list) -> float:
+    """The two-rank fsdp or pipeline job's first loss on one device: its
+    seeded weights and batch through the layers in order."""
+    args = jobs.build_parser().parse_args(argv)
+    dev = torch.device("cuda")
+    fsdp = argv[0] == "fsdp"
+    embed, stages, head, fns = jobs.mlp_lm(args, args.layers if fsdp else 2,
+                                           dev)
+    batch = args.batch or (8 * 2 if fsdp else args.microbatches)
+    x = jobs.synthetic_ids(batch, args.vocab, 1, dev)
+    y = jobs.synthetic_ids(batch, args.vocab, 2, dev)
+    h = fns["embed_fn"](embed, x)
+    for p in stages:
+        h = fns["stage_fn"](p, h)
+    return float(fns["loss_fn"](fns["head_fn"](head, h), y).mean())
+
+
+def dist_multi_phase(smi: str) -> dict:
+    """With two or more cards: ``MULTI_CASES`` on two NCCL ranks spawned
+    by ``launch.spawn``, each against its one-rank run in this process:
+    the LM's losses against the job without ``--mesh`` (within ``TOL``),
+    K1-K3 launched on every rank that runs flash (dp, tp: T 2,048 a rank;
+    sp runs ring or Ulysses einsums), the fsdp and pipeline jobs' first
+    loss against their layers run in order, overlap or not the same
+    losses, smoke's psum 2. With one card it says so and runs nothing."""
+    from kubeoperator_tpu_torch.train import jobs, launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        rec = {"phase": "dist_multi", "ran": False, "cards": cards,
+               "why": f"needs two cards; {cards} visible"}
+        emit(rec)
+        return rec
+    out = ROOT / "build" / "dist_multi"
+    if out.exists():
+        for f in out.iterdir():
+            f.unlink()
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    launch.spawn(dist_multi_rank, 2, (str(out), MULTI_CASES), backend="nccl",
+                 store=str(out / "store"), timeout_s=300.0, deadline_s=900.0)
+    seconds = time.perf_counter() - t0
+    res = json.loads((out / "rank0.json").read_text())
+    _, one = run_job(jobs, ["llm", *MULTI_LM])
+    one_losses = [r["loss"] for r in one if "loss" in r]
+    checks = {}
+    for name, argv in MULTI_CASES:
+        records = res[name]["records"]
+        losses = [r["loss"] for r in records if "loss" in r and "step" in r]
+        if name == "smoke":
+            ok = records[-1]["ok"] and records[-1]["psum"] == 2.0
+            checks[name] = {"ok": ok, "record": records[-1]}
+        elif name.startswith("llm"):
+            ok = len(losses) == len(one_losses) and all(
+                abs(a - b) <= TOL["atol"] + TOL["rtol"] * abs(b)
+                for a, b in zip(losses, one_losses))
+            flash = min(res[name]["launches"][k] for k, _ in KERNELS)
+            if name in ("llm_dp2", "llm_tp2"):
+                ok = ok and flash >= 2 * 3
+            checks[name] = {"ok": ok, "losses": losses,
+                            "one_rank_losses": one_losses,
+                            "step_time_ms": records[-1]["step_time_ms"],
+                            "mfu": records[-1]["mfu"],
+                            "launches": res[name]["launches"]}
+        else:
+            want = mlp_serial_loss(jobs, argv)
+            ok = abs(losses[0] - want) <= 1e-4 * abs(want)
+            checks[name] = {"ok": ok, "first_loss": losses[0],
+                            "serial_first_loss": want, "losses": losses,
+                            "step_time_s": records[-1]["step_time_s"]}
+    if checks["fsdp"]["losses"] != checks["fsdp_no_overlap"]["losses"]:
+        checks["fsdp"]["ok"] = False
+    rec = {"phase": "dist_multi", "ran": True, "cards": cards, "world": 2,
+           "nvidia_smi": smi, "seconds": seconds, "cases": checks}
+    emit(rec)
+    bad = [n for n, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"dist_multi: {bad} disagree with their "
+                             f"one-rank runs")
+    return rec
+
+
 def bench_phase(smi: str, resnet_ms: float, conv_launches,
-                reset_conv) -> dict:
+                reset_conv, measured: dict) -> dict:
     """``kubeoperator_tpu_torch.bench.main()`` once, its line echoed, with
     each point's launches: K1-K3 and Δ at least once a layer and step in
     the three LM points, K4-K6 and Δ in the ViT point, and no K7/K8 or
     flash kernel in the ResNet headline. Its headline step ms beside
-    ``resnet_train``'s (the same model, batch and stem with K7 and K8)."""
+    ``resnet_train``'s (the same model, batch and stem with K7 and K8).
+    ``measured`` maps "llm" and "vit" to (result, flash launches) of
+    phases ``train`` and ``vit_train``, which measured those points with
+    the bench's settings: the bench takes their numbers instead of
+    measuring the same configurations again."""
     from kubeoperator_tpu_torch import bench
     from kubeoperator_tpu_torch.workloads import flash_attention as fa
 
     points = {}
 
     def on_point(name, result):
-        points[name] = {"flash": dict(fa.LAUNCHES), "conv": conv_launches(),
+        flash = (measured[name][1] if name in measured
+                 else dict(fa.LAUNCHES))
+        points[name] = {"flash": flash, "conv": conv_launches(),
                         "step_time_ms": result["step_time_ms"],
-                        "mfu": result["mfu"]}
+                        "mfu": result["mfu"], "reused": name in measured}
         fa.reset_launches()
         reset_conv()
 
@@ -1865,7 +2098,7 @@ def bench_phase(smi: str, resnet_ms: float, conv_launches,
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = bench.main(on_point)
+        rc = bench.main(on_point, {k: v[0] for k, v in measured.items()})
     seconds = time.perf_counter() - t0
     print(out.getvalue(), end="", flush=True)
     line = json.loads(out.getvalue().splitlines()[-1])
@@ -1965,7 +2198,10 @@ def main() -> int:
                  timed=True)
 
     # -- 4. main path: train -------------------------------------------------
-    steps, warmup, repeats = 3, 2, 3
+    # the bench's 2k LM point's settings, so phase bench takes this number
+    from kubeoperator_tpu_torch import bench
+
+    steps, warmup, repeats = bench.LM_POINTS[0][4], bench.LM_WARMUP, 3
     fa.reset_launches()
     m = LMTrainer(cfg).measure(batch=8, seq_len=2048, steps=steps,
                                warmup=warmup, repeats=repeats)
@@ -2076,9 +2312,18 @@ def main() -> int:
     jobs_ckpt_phase(cfg, jobs, smi)
     emit({"phase": "jobs_total", "seconds": time.perf_counter() - jobs_t0})
 
+    # -- 5d. multi-device: the smoke and llm jobs in an NCCL group ----------
+    with torchrun_env():
+        dist_smoke_phase(jobs, smi)
+        dist_llm_phase(cfg, jobs, smi, m, total_steps)
+    dist_multi_phase(smi)
+
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
     vcfg = ViTConfig()
-    v_steps, v_warmup, v_repeats, per_call, v_batch = 4, 2, 3, 8, 128
+    # the bench's ViT point's settings, so phase bench takes this number
+    v_steps, v_warmup, per_call = (bench.VIT_MEASURE[k] for k in (
+        "steps", "warmup", "steps_per_call"))
+    v_repeats, v_batch = 3, bench.VIT_BATCH
     fa.reset_launches()
     vm = ViTTrainer(vcfg).measure(batch=v_batch, steps=v_steps,
                                   warmup=v_warmup, steps_per_call=per_call,
@@ -2241,7 +2486,8 @@ def main() -> int:
             raise AssertionError(f"bitcast_probe {variant}: {err}")
 
     # -- 12. the port's bench -------------------------------------------------
-    bench_phase(smi, rm["step_time_ms"], conv_launches, reset_conv)
+    bench_phase(smi, rm["step_time_ms"], conv_launches, reset_conv,
+                {"llm": (m, train_launches), "vit": (vm, vit_launches)})
 
     # -- the kernels line and the device line --------------------------------
     # each kernel with its own main path's launches and its own path shape;

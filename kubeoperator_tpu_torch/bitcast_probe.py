@@ -54,7 +54,7 @@ def channel_sum(y2: torch.Tensor) -> torch.Tensor:
     """K9: f32 [C] column sums of y2 [N, C]. CPU tensors take
     ``channel_sum_plain``; CUDA tensors (bf16, C a multiple of 8) launch
     ``ko_channel_sum`` or raise."""
-    if y2.device.type == "cpu":
+    if kernels.runs_plain(y2):
         return channel_sum_plain(y2)
     n, c = y2.shape
     check_cuda("channel_sum", (y2, (n, c), torch.bfloat16))

@@ -1,7 +1,9 @@
 """Parameters from the JAX package's flax models to the port's state dicts:
 ``params_from_jax`` for the ``Transformer``, ``vit_params_from_jax`` for
 the ``VisionTransformer``, ``resnet_params_from_jax`` for the ``ResNet``
-(params and batch stats).
+(params and batch stats), and ``stage_params_from_jax`` for the
+``{embed, stages, head}`` trees of the fsdp and pipeline jobs. The
+weights go in whole: a meshed model or job shards them after loading.
 
 The port keeps the flax layouts, so the bridge is a copy: it walks the
 (``nn.unbox``-ed, numpy) param tree and names each leaf the way the port's
@@ -126,3 +128,31 @@ def resnet_params_from_jax(variables: Mapping, cfg) -> dict[str, torch.Tensor]:
             copy(f"blocks.{i}.{table.get(sub, sub)}", leaves,
                  stats.get(name, {}).get(sub, {}))
     return sd
+
+
+def _tree(x: Any):
+    if isinstance(x, Mapping):
+        return {k: _tree(v) for k, v in x.items()}
+    return _tensor(x)
+
+
+def stage_params_from_jax(params: Mapping) -> dict:
+    """The ``{embed, stages, head}`` tree of the reference's fsdp and
+    pipeline jobs (``pack_stages``, ``stack_stages``) for the port's
+    loss builders: embed and head as tensors (or dicts of them), and the
+    stages either as the packed ``[S, P]`` matrix (the fsdp job's, one
+    tensor: the port's ``pack_stages`` ravels in the same order) or, from
+    a dict of stacked ``[S, ...]`` leaves (the pipeline job's) or a list
+    of per-stage dicts (``pack_stages``' input), as a list of S per-stage
+    dicts."""
+    stages = params["stages"]
+    if isinstance(stages, Mapping):
+        n = len(np.asarray(next(iter(stages.values()))))
+        stages = [{k: _tensor(np.asarray(v)[i]) for k, v in stages.items()}
+                  for i in range(n)]
+    elif isinstance(stages, (list, tuple)):
+        stages = [_tree(s) for s in stages]
+    else:
+        stages = _tensor(stages)
+    return {"embed": _tree(params["embed"]), "stages": stages,
+            "head": _tree(params["head"])}

@@ -22,6 +22,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -178,3 +180,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def runs_plain(x) -> bool:
+    """Whether a wrapper given ``x`` (its first tensor) takes the plain
+    PyTorch version: only for a plain tensor on the CPU. A tensor
+    subclass such as a DTensor raises on any device: the kernels read
+    plain contiguous memory through ctypes, and a sharded tensor's local
+    block is not the tensor the caller means. A CUDA tensor returns False:
+    the wrapper launches its kernel or raises."""
+    if type(x) is not torch.Tensor:
+        raise TypeError(f"the port's kernels take plain tensors, not "
+                        f"{type(x).__name__}: call them on local blocks")
+    return x.device.type == "cpu"

@@ -1,17 +1,32 @@
 """Job entry points of the PyTorch port: ``smoke`` (a matmul on the
-card), ``mnist`` (a small ResNet on one MNIST-shaped batch), ``llm``
-(train the transformer LM, then optionally sample from it), ``resnet50``
-(train a ResNet on a synthetic image stream or an ``.npy`` dataset),
-``vit`` (train the Vision Transformer classifier on a synthetic image
-stream) and ``serve`` (the token-generation HTTP endpoint). The
-counterparts of ``cmd_smoke``, ``cmd_mnist``, ``cmd_llm``,
-``cmd_resnet50``, ``cmd_vit`` and ``cmd_serve`` in
-``kubeoperator_tpu/train/jobs.py``, with the same flags plus ``--device``.
-``llm`` and ``resnet50`` checkpoint to ``--ckpt-dir`` and resume from its
-latest checkpoint; ``serve --ckpt-dir`` serves the llm job's weights;
-``llm --metrics-port`` serves the process registry on ``/metrics``.
+card and a psum over the ranks), ``mnist`` (a small ResNet on one
+MNIST-shaped batch), ``llm`` (train the transformer LM over a
+dp×fsdp×tp×sp mesh, then optionally sample from it), ``fsdp`` (the
+chunked ZeRO-3 MLP LM with gather/compute overlap), ``pipeline`` (the
+MLP LM pipelined over a pp axis), ``resnet50`` (train a ResNet on a
+synthetic image stream or an ``.npy`` dataset), ``vit`` (train the Vision
+Transformer classifier on a synthetic image stream) and ``serve`` (the
+token-generation HTTP endpoint). The counterparts of the ``cmd_*``
+functions in ``kubeoperator_tpu/train/jobs.py``, with the same flags plus
+``--device``. ``llm`` and ``resnet50`` checkpoint to ``--ckpt-dir`` and
+resume from its latest checkpoint (one device); ``serve --ckpt-dir``
+serves the llm job's weights; ``--metrics-port`` serves the process
+registry on ``/metrics``.
+
+A multi-device job is one process per device: ``torchrun
+--nproc-per-node N -m kubeoperator_tpu_torch.train.jobs ...`` (NCCL on N
+cards; gloo with ``--device cpu``). ``--mesh`` names the degrees
+(``dp:auto,tp:2``; ``auto`` takes the ranks the others leave). Only rank
+0 prints the records.
 
     python -m kubeoperator_tpu_torch.train.jobs smoke
+    torchrun --nproc-per-node 4 -m kubeoperator_tpu_torch.train.jobs llm \\
+        --device cpu --mesh dp:2,sp:2 --steps 2 --d-model 64 --heads 4 \\
+        --layers 2 --d-ff 128 --seq-len 32 --vocab 256 --batch 2
+    torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs fsdp \\
+        --device cpu --mesh fsdp:2 [--no-overlap]
+    torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs \\
+        pipeline --device cpu --mesh pp:2
     python -m kubeoperator_tpu_torch.train.jobs mnist [--device cpu --steps 6 \\
         --batch 16]
     python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16 \\
@@ -41,23 +56,55 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
 import torch
 
+from kubeoperator_tpu_torch.train.launch import maybe_initialize_distributed
+
 # flags of the JAX command whose non-default values need a part of the
 # system this port does not have yet, and where the ROADMAP queues it
 NOT_PORTED = {
-    "mesh": (None, "multi-device meshes (ROADMAP queue 1, item 14)"),
-    "sp_attention": ("ring", "sequence-parallel attention (ROADMAP queue 1, "
-                             "item 14)"),
     "aot_cache": (None, "the AOT compile cache (ROADMAP queue 1, item 15)"),
 }
 
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def parse_mesh(arg: str | None, n_devices: int):
+    """``dp:auto,tp:4,sp:2`` → MeshSpec; ``auto`` (at most one axis)
+    absorbs whatever devices the explicit axes leave over. No ``--mesh``
+    is dp over every device."""
+    from kubeoperator_tpu_torch.workloads.sharding import AXES, MeshSpec
+
+    if not arg:
+        return MeshSpec(dp=n_devices) if n_devices > 1 else MeshSpec()
+    sizes: dict[str, int] = {}
+    auto_axis = None
+    for part in arg.split(","):
+        name, _, val = part.strip().partition(":")
+        if name not in AXES:
+            raise SystemExit(
+                f"unknown mesh axis {name!r} (want dp/fsdp/pp/ep/tp/sp)")
+        if val == "auto":
+            if auto_axis:
+                raise SystemExit("only one mesh axis may be 'auto'")
+            auto_axis = name
+        else:
+            sizes[name] = int(val)
+    fixed = 1
+    for v in sizes.values():
+        fixed *= v
+    if auto_axis:
+        if n_devices % fixed:
+            raise SystemExit(f"{n_devices} devices not divisible by fixed "
+                             f"axes ({fixed})")
+        sizes[auto_axis] = n_devices // fixed
+    return MeshSpec(**sizes)
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
@@ -121,26 +168,30 @@ def open_checkpoint(args: argparse.Namespace, state: dict, job: str):
 
 
 def cmd_smoke(args: argparse.Namespace) -> int:
-    """Device sanity: a 256×256 bf16 matmul of ones whose sum must be
-    256³. The collective half of the reference's job (a psum across
-    devices) needs the multi-device slice, so more than one visible card
-    raises."""
+    """Device and collective sanity: a 256×256 bf16 matmul of ones whose
+    sum must be 256³ on every rank, and a psum of ones over the ranks
+    that must equal their number. Under ``torchrun`` the ranks are the
+    group's; a lone process is a world of one."""
+    import torch.distributed as dist
+
     from kubeoperator_tpu_torch.workloads.train import resolve_device
 
+    dist_info = maybe_initialize_distributed(args.device)
     dev = resolve_device(args.device)
-    n = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if n > 1:
-        raise NotImplementedError(
-            f"smoke over {n} cards needs the psum half, on torch.distributed "
-            f"(ROADMAP queue 1, item 14)")
+    n = dist_info["num_processes"]
     x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
     y = float((x @ x).sum())
-    ok = y == 256.0 * 256 * 256
-    emit({"job": "smoke", "devices": n,
-          "device_kind": (torch.cuda.get_device_name(dev)
-                          if dev.type == "cuda" else dev.type),
-          "platform": "gpu" if dev.type == "cuda" else dev.type,
-          "matmul_sum": y, "psum": None, "ok": ok})
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    if dist.is_initialized():
+        dist.all_reduce(one)
+    psum = float(one)
+    ok = y == 256.0 * 256 * 256 and psum == float(n)
+    if dist_info["process_id"] == 0:
+        emit({"job": "smoke", "devices": n,
+              "device_kind": (torch.cuda.get_device_name(dev)
+                              if dev.type == "cuda" else dev.type),
+              "platform": "gpu" if dev.type == "cuda" else dev.type,
+              "matmul_sum": y, "psum": psum, **dist_info, "ok": ok})
     return 0 if ok else 1
 
 
@@ -172,46 +223,84 @@ def cmd_mnist(args: argparse.Namespace) -> int:
 
 
 def cmd_llm(args: argparse.Namespace) -> int:
-    """Train the transformer LM (``--experts`` > 0: MoE FFNs) for
-    ``--steps`` on a synthetic batch, checkpointing to ``--ckpt-dir`` and
-    resuming from it, then sample ``--sample`` tokens from the trained
-    model."""
+    """Train the transformer LM (``--experts`` > 0: MoE FFNs) over the
+    ``--mesh`` of the ranks (ring or Ulysses attention when sp > 1,
+    ``--sp-attention``) for ``--steps`` on a synthetic global batch,
+    checkpointing to ``--ckpt-dir`` and resuming from it (one device),
+    then sample ``--sample`` tokens from the trained model. The done
+    record carries the median step ms after the first step and, on a
+    card, MFU against the world's peak."""
     refuse_unported(args)
-    maybe_start_metrics_server(args.metrics_port)
+    dist_info = maybe_initialize_distributed(args.device)
+    lead = dist_info["process_id"] == 0
+    if lead:
+        maybe_start_metrics_server(args.metrics_port)
     from kubeoperator_tpu_torch.workloads.generate import generate
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
-    from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
+    from kubeoperator_tpu_torch.workloads.train import peak_flops_per_chip
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        Transformer, TransformerConfig, flops_per_token,
+    )
 
+    world = dist_info["num_processes"]
+    spec = parse_mesh(args.mesh, world)
+    if args.ckpt_dir and spec.n_devices > 1:
+        raise NotImplementedError(
+            f"--ckpt-dir under a mesh of {spec.n_devices} devices is not "
+            f"ported yet (ROADMAP queue 1, item 14f)")
     cfg = TransformerConfig(vocab_size=args.vocab, d_model=args.d_model,
                             n_heads=args.heads, n_layers=args.layers,
                             d_ff=args.d_ff or int(args.d_model * 8 / 3 / 32) * 32,
                             max_seq_len=args.seq_len,
                             moe_experts=args.experts,
+                            sp_attention=args.sp_attention,
                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
-    lt = LMTrainer(cfg, device=args.device)
+    lt = LMTrainer(cfg, spec, device=args.device)
     state = lt.init_state()
     ckpt = open_checkpoint(args, state, "llm")
-    tokens = lt.synthetic_batch(args.batch or 1, args.seq_len)
+    batch = args.batch or max(1, spec.dp * spec.fsdp)
+    tokens = lt.synthetic_batch(batch, args.seq_len)
+    times = []
     while state["step"] < args.steps:
+        t0 = time.perf_counter()
         state, metrics = lt.train_step(state, tokens)
+        loss = float(metrics["loss"])          # fences the step
+        times.append(time.perf_counter() - t0)
         step = state["step"]
         if ckpt and args.ckpt_every and step % args.ckpt_every == 0:
             ckpt.save(step, state)
-        if step % max(1, args.steps // 10) == 0 or step == args.steps:
-            emit({"job": "llm", "step": step,
-                  "loss": round(float(metrics["loss"]), 4)})
+        if lead and (step % max(1, args.steps // 10) == 0
+                     or step == args.steps):
+            emit({"job": "llm", "step": step, "loss": round(loss, 4)})
     if ckpt:
         if ckpt.latest_step() != state["step"]:    # not saved in the loop
             ckpt.save(state["step"], state)
         ckpt.close()
-    if args.sample > 0:
+    model = state["model"]
+    if args.sample > 0 and spec.n_devices > 1:
+        # every rank gathers the shards; rank 0 samples on one device
+        whole = lt.full_params(model)
+        with torch.device(lt.device):
+            model = Transformer(cfg)
+        model.load_state_dict(whole)
+    if args.sample > 0 and lead:
         # decode path smoke: KV-cached generation from the trained params
-        sampled = generate(cfg, state["model"], tokens[:1, :4],
+        sampled = generate(cfg, model, tokens[:1, :4],
                            max_new_tokens=min(args.sample, cfg.max_seq_len - 4),
                            temperature=0.8, device=lt.device)
         emit({"job": "llm", "sampled_tokens": sampled[0].tolist()})
-    emit({"job": "llm", "done": True, "steps": state["step"], "chips": 1,
-          "device": str(lt.device), "seq_len": args.seq_len})
+    step_s = statistics.median(times[1:] or times) if times else None
+    mfu = None
+    if step_s and lt.device.type == "cuda":
+        mfu = (3 * flops_per_token(cfg, args.seq_len) * batch * args.seq_len
+               / step_s / (peak_flops_per_chip(lt.device) * world))
+    if lead:
+        emit({"job": "llm", "done": True, "steps": state["step"],
+              "chips": world, "mesh": dict(spec.sizes()),
+              "device": str(lt.device), "seq_len": args.seq_len,
+              "batch": batch,
+              "step_time_ms": step_s * 1e3 if step_s else None,
+              "mfu": mfu, **dist_info})
     return 0
 
 
@@ -232,7 +321,9 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
                       total_steps=args.steps,
                       warmup_steps=min(100, args.steps),
                       stem="space_to_depth" if s2d_ok else "conv")
-    tr = Trainer(cfg, device=args.device)
+    # a mesh above one device raises in the trainer (ROADMAP item 14b)
+    spec = parse_mesh(args.mesh, 1) if args.mesh else None
+    tr = Trainer(cfg, spec, device=args.device)
     state = tr.init_state()
     ckpt = open_checkpoint(args, state, "resnet50")
     start = state["step"]
@@ -285,7 +376,9 @@ def cmd_vit(args: argparse.Namespace) -> int:
         max_seq_len=(args.image_size // args.patch) ** 2)
     cfg = ViTConfig(num_classes=args.classes, image_size=args.image_size,
                     patch=args.patch, encoder=enc)
-    tr = ViTTrainer(cfg, device=args.device)
+    # a mesh above one device raises in the trainer (ROADMAP item 14b)
+    spec = parse_mesh(args.mesh, 1) if args.mesh else None
+    tr = ViTTrainer(cfg, spec, device=args.device)
     state = tr.init_state()
     batch = args.batch_per_chip
     source = synthetic_image_batches(batch, args.image_size, args.classes,
@@ -332,6 +425,11 @@ def build_server(args: argparse.Namespace):
         Transformer, TransformerConfig,
     )
 
+    spec = parse_mesh(args.mesh, 1) if args.mesh else None
+    if spec is not None and spec.n_devices > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: the serving mesh is not ported yet "
+            f"(ROADMAP queue 1, item 14d)")
     dev = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.heads,
@@ -497,11 +595,191 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def mlp_lm(args: argparse.Namespace, n_stages: int, dev: torch.device):
+    """The fsdp and pipeline jobs' MLP LM from ``--seed``: embedding [V, d]
+    and head [d, V], and ``n_stages`` residual tanh MLPs {w1, w2} [d, d],
+    all N(0, 0.1²) from one CPU generator, so every rank draws the same
+    weights. Returns (embed, stages, head, fns) with the jobs' functions
+    for the loss builders."""
+    d, vocab = args.d_model, args.vocab
+    gen = torch.Generator().manual_seed(args.seed)
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).to(dev)
+
+    embed = draw(vocab, d)
+    stages = [{"w1": draw(d, d), "w2": draw(d, d)} for _ in range(n_stages)]
+    head = draw(d, vocab)
+    fns = dict(
+        embed_fn=lambda e, t: e[t],
+        stage_fn=lambda p, h: h + torch.tanh(h @ p["w1"]) @ p["w2"],
+        head_fn=lambda p, h: h @ p,
+        loss_fn=lambda out, y: -torch.log_softmax(out, -1)[
+            torch.arange(y.shape[0], device=y.device), y])
+    return embed, stages, head, fns
+
+
+def synthetic_ids(batch: int, vocab: int, seed: int,
+                  dev: torch.device) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (batch,), generator=gen).to(dev)
+
+
+def sgd_step(loss_fn, params: dict, x, y, lr: float) -> torch.Tensor:
+    """loss and one plain SGD step on every leaf of ``params`` in place."""
+    leaves = [v for v in params.values() if isinstance(v, torch.Tensor)] + [
+        w for v in params.values() if isinstance(v, dict)
+        for w in v.values()]
+    loss = loss_fn(params, x, y)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            p.sub_(lr * g)
+    return loss.detach()
+
+
+def cmd_fsdp(args: argparse.Namespace) -> int:
+    """Chunked ZeRO-3 MLP LM over an fsdp (or dp×fsdp) mesh with the
+    latency-hiding schedule (``sharding.fsdp_overlapped_loss_fn``): the
+    gather of layer i+1's chunk is issued before layer i's compute.
+    ``--no-overlap`` gathers each chunk in the tick that uses it. On a
+    card the done record carries MFU and a collective-time attribution:
+    the cost model's shares (``costmodel.fsdp_step_model`` with the card's
+    NVLink) scaled onto the measured step, or the NCCL kernels' device
+    time from the profiler when it traces any. Records ``ko_train_*``."""
+    refuse_unported(args)
+    dist_info = maybe_initialize_distributed(args.device)
+    lead = dist_info["process_id"] == 0
+    if lead:
+        maybe_start_metrics_server(args.metrics_port)
+    from kubeoperator_tpu_torch.telemetry.metrics import record_train_step
+    from kubeoperator_tpu_torch.workloads import costmodel
+    from kubeoperator_tpu_torch.workloads.sharding import (
+        build_mesh, fsdp_overlapped_loss_fn, fsdp_overlapped_shardings,
+        pack_stages, shard_tensor,
+    )
+    from kubeoperator_tpu_torch.workloads.train import (
+        peak_flops_per_chip, resolve_device,
+    )
+
+    world = dist_info["num_processes"]
+    spec = parse_mesh(args.mesh or f"fsdp:{world}", world)
+    if spec.fsdp < 2:
+        raise SystemExit("the fsdp job needs an fsdp axis >= 2 "
+                         "(e.g. --mesh dp:2,fsdp:4)")
+    dev = resolve_device(args.device)
+    mesh = build_mesh(spec, dev.type)
+    d, vocab = args.d_model, args.vocab
+    embed, stages, head, fns = mlp_lm(args, args.layers, dev)
+    stacked, unpack = pack_stages(stages, multiple=spec.fsdp)
+    shd = fsdp_overlapped_shardings(mesh)
+    params = {"embed": embed.requires_grad_(),
+              "stages": shard_tensor(stacked, shd["stages"],
+                                     mesh).requires_grad_(),
+              "head": head.requires_grad_()}
+    loss_fn = fsdp_overlapped_loss_fn(mesh, unpack=unpack,
+                                      prefetch=not args.no_overlap, **fns)
+    batch = args.batch or 8 * max(1, spec.dp * spec.fsdp)
+    x = synthetic_ids(batch, vocab, 1, dev)
+    y = synthetic_ids(batch, vocab, 2, dev)
+    times: list[float] = []
+    total = args.warmup + args.steps
+    for i in range(total):
+        t0 = time.perf_counter()
+        loss = float(sgd_step(loss_fn, params, x, y, args.lr))
+        if i >= args.warmup:
+            times.append(time.perf_counter() - t0)
+        if lead and (i + 1) % max(1, total // 5) == 0:
+            emit({"job": "fsdp", "step": i + 1, "loss": round(loss, 4)})
+    step_s = sum(times) / len(times)
+    record = {"job": "fsdp", "done": True, "mesh": dict(spec.sizes()),
+              "layers": args.layers, "overlap": not args.no_overlap,
+              "step_time_s": round(step_s, 6), "loss": round(loss, 4)}
+    if dev.type == "cuda":
+        peak = peak_flops_per_chip(dev)
+        local_batch = batch // (spec.dp * spec.fsdp)
+        model = costmodel.fsdp_step_model(
+            n_layers=args.layers, layer_param_bytes=4.0 * stacked.shape[1],
+            fwd_flops_per_layer=4.0 * local_batch * d * d,
+            n_fsdp=spec.fsdp, peak_flops=peak,
+            link=costmodel.link_for(torch.cuda.get_device_name(dev)),
+            overlap=not args.no_overlap)
+        att = costmodel.attribute(step_s, model)
+        prof = costmodel.profiled_collective_seconds(loss_fn, params, x, y)
+        if prof is not None:
+            att.collective_s, att.source = prof, "profiler"
+        mfu = 3 * (args.layers * 4 * batch * d * d
+                   + 2 * batch * d * vocab) / (peak * world * step_s)
+        record |= {"mfu": round(mfu, 6), **att.as_dict()}
+        record_train_step("fsdp", step_s, mfu, att.collective_s)
+    else:
+        # the CPU has no device time or peak to attribute against
+        record |= {"mfu": None, "attribution_source": None}
+        record_train_step("fsdp", step_s)
+    if lead:
+        emit({**record, **dist_info})
+    return 0
+
+
+def cmd_pipeline(args: argparse.Namespace) -> int:
+    """Device-pipelined MLP LM over a ``pp`` mesh axis (GPipe fill/drain,
+    ``pipeline.gpipe_loss_fn``), composing with dp: ``--mesh dp:2,pp:4``.
+    Each rank holds its stage. Records ``ko_train_*``."""
+    dist_info = maybe_initialize_distributed(args.device)
+    lead = dist_info["process_id"] == 0
+    if lead:
+        maybe_start_metrics_server(args.metrics_port)
+    from kubeoperator_tpu_torch.telemetry.metrics import record_train_step
+    from kubeoperator_tpu_torch.workloads import pipeline as pipe
+    from kubeoperator_tpu_torch.workloads.sharding import (
+        axis_index, build_mesh,
+    )
+    from kubeoperator_tpu_torch.workloads.train import resolve_device
+
+    world = dist_info["num_processes"]
+    spec = parse_mesh(args.mesh or f"pp:{world}", world)
+    if spec.pp < 2:
+        raise SystemExit("the pipeline job needs a pp axis >= 2 "
+                         "(e.g. --mesh dp:2,pp:4); for the scan-over-"
+                         "stages stance use the llm job instead")
+    dev = resolve_device(args.device)
+    mesh = build_mesh(spec, dev.type)
+    embed, stages, head, fns = mlp_lm(args, spec.pp, dev)
+    mine = stages[axis_index(mesh, "pp")]
+    params = {"embed": embed.requires_grad_(),
+              "stages": {k: v.requires_grad_() for k, v in mine.items()},
+              "head": head.requires_grad_()}
+    loss_fn = pipe.gpipe_loss_fn(mesh, n_micro=args.microbatches, **fns)
+    batch = args.batch or args.microbatches * max(1, spec.dp * spec.fsdp)
+    x = synthetic_ids(batch, args.vocab, 1, dev)
+    y = synthetic_ids(batch, args.vocab, 2, dev)
+    times = []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        loss = float(sgd_step(loss_fn, params, x, y, args.lr))
+        times.append(time.perf_counter() - t0)
+        if lead and (i + 1) % max(1, args.steps // 5) == 0:
+            emit({"job": "pipeline", "step": i + 1, "loss": round(loss, 4)})
+    # drop the first steps (allocator and NCCL set-up) when there are
+    # enough to spare
+    measured = times[min(2, len(times) - 1):]
+    step_s = sum(measured) / len(measured)
+    record_train_step("pipeline", step_s)
+    if lead:
+        emit({"job": "pipeline", "done": True, "mesh": dict(spec.sizes()),
+              "stages": spec.pp, "microbatches": args.microbatches,
+              "step_time_s": round(step_s, 6), "loss": round(loss, 4),
+              "bubble_fraction": round(
+                  pipe.bubble_fraction(spec.pp, args.microbatches), 3),
+              **dist_info})
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kubeoperator_tpu_torch.train.jobs",
                                 description="PyTorch port workload jobs")
     sub = p.add_subparsers(dest="cmd", required=True)
-    sm = sub.add_parser("smoke", help="device sanity check (one device)")
+    sm = sub.add_parser("smoke", help="device + collective sanity check")
     sm.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
 
@@ -512,7 +790,8 @@ def build_parser() -> argparse.ArgumentParser:
     mn.add_argument("--steps", type=int, default=30)
     mn.add_argument("--batch", type=int, default=128)
 
-    lm = sub.add_parser("llm", help="transformer LM (one device)")
+    lm = sub.add_parser("llm", help="transformer LM (ring or Ulysses "
+                                    "attention for long context)")
     lm.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
     lm.add_argument("--metrics-port", type=int, default=0,
@@ -532,14 +811,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help=">0: generate this many tokens after training "
                          "(KV-cached decode smoke)")
     lm.add_argument("--sp-attention", choices=("ring", "ulysses"),
-                    default="ring", help="not ported: must stay ring")
+                    default="ring",
+                    help="sequence-parallel attention: ring (ppermute K/V) "
+                         "or ulysses (all-to-all seq<->heads)")
     lm.add_argument("--bf16", action="store_true", default=True)
     lm.add_argument("--no-bf16", dest="bf16", action="store_false")
     lm.add_argument("--mesh", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="e.g. dp:auto,tp:2 or dp:2,tp:2,sp:2 (default dp "
+                         "over every rank)")
     lm.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint here every --ckpt-every steps and at "
-                         "the end; resume from the latest on restart")
+                         "the end; resume from the latest on restart (one "
+                         "device)")
     lm.add_argument("--ckpt-every", type=int, default=50)
     lm.add_argument("--ckpt-keep", type=int, default=3)
 
@@ -553,7 +836,7 @@ def build_parser() -> argparse.ArgumentParser:
     rn.add_argument("--depth", type=int, default=50,
                     help="ResNet depth (18/34/50/101/152)")
     rn.add_argument("--mesh", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="not ported: a mesh above one device raises")
     rn.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint here every --ckpt-every steps and at "
                          "the end; resume from the latest on restart")
@@ -576,7 +859,7 @@ def build_parser() -> argparse.ArgumentParser:
     vt.add_argument("--layers", type=int, default=12)
     vt.add_argument("--classes", type=int, default=1000)
     vt.add_argument("--mesh", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="not ported: a mesh above one device raises")
 
     sv = sub.add_parser("serve", help="KV-cached generation HTTP endpoint "
                                       "(one device)")
@@ -613,7 +896,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--segment", type=int, default=8,
                     help="continuous engine: tokens per segment")
     sv.add_argument("--mesh", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="not ported: a mesh above one device raises")
     sv.add_argument("--page", type=int, default=None,
                     help="continuous engine: tokens per KV-cache page "
                          "(power of two dividing max_seq_len; default "
@@ -645,11 +928,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 disables)")
     sv.add_argument("--aot-cache", type=str, default=None,
                     help="not ported: must stay unset")
+
+    fs = sub.add_parser("fsdp", help="chunked ZeRO-3 training with "
+                                     "gather/compute overlap")
+    fs.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    fs.add_argument("--mesh", help="e.g. fsdp:8 or dp:2,fsdp:4 "
+                                   "(default fsdp:<all ranks>)")
+    fs.add_argument("--steps", type=int, default=10,
+                    help="measured steps (after --warmup)")
+    fs.add_argument("--warmup", type=int, default=2)
+    fs.add_argument("--batch", type=int, default=0)
+    fs.add_argument("--layers", type=int, default=4)
+    fs.add_argument("--d-model", type=int, default=64)
+    fs.add_argument("--vocab", type=int, default=256)
+    fs.add_argument("--lr", type=float, default=0.1)
+    fs.add_argument("--seed", type=int, default=0)
+    fs.add_argument("--metrics-port", type=int, default=0,
+                    help=">0: serve ko_train_* prometheus text on this port")
+    fs.add_argument("--no-overlap", action="store_true",
+                    help="gather each layer chunk in the tick that uses it "
+                         "(the A/B baseline schedule)")
+    fs.add_argument("--aot-cache", type=str, default=None,
+                    help="not ported: must stay unset")
+
+    pp = sub.add_parser("pipeline",
+                        help="device-pipelined training over a pp mesh axis")
+    pp.add_argument("--device", type=str, default=None,
+                    help="torch device; default cuda (raises without a card)")
+    pp.add_argument("--mesh", help="e.g. dp:2,pp:4 (default pp:<all ranks>)")
+    pp.add_argument("--steps", type=int, default=10)
+    pp.add_argument("--batch", type=int, default=0)
+    pp.add_argument("--microbatches", type=int, default=4)
+    pp.add_argument("--d-model", type=int, default=64)
+    pp.add_argument("--vocab", type=int, default=256)
+    pp.add_argument("--lr", type=float, default=0.1)
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--metrics-port", type=int, default=0,
+                    help=">0: serve ko_train_* prometheus text on this port")
     return p
 
 
 COMMANDS = {"smoke": cmd_smoke, "mnist": cmd_mnist, "llm": cmd_llm,
-            "resnet50": cmd_resnet50, "vit": cmd_vit, "serve": cmd_serve}
+            "resnet50": cmd_resnet50, "vit": cmd_vit, "serve": cmd_serve,
+            "fsdp": cmd_fsdp, "pipeline": cmd_pipeline}
 
 
 def main(argv: list[str] | None = None) -> int:

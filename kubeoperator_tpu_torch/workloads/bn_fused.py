@@ -129,7 +129,7 @@ def _check_bn(name, g2, y2, vecs, *more) -> None:
 def bn_bwd_stats(g2, y2, gamma, beta, mu, inv, relu: bool) -> torch.Tensor:
     """K8's phase 0, ``ko_bn_bwd_stats`` for CUDA tensors (bf16 g and y,
     f32 vectors, Co a multiple of 64), the plain version for CPU ones."""
-    if g2.device.type == "cpu":
+    if kernels.runs_plain(g2):
         return bn_bwd_stats_plain(g2, y2, gamma, beta, mu, inv, relu)
     vecs = (gamma, beta, mu, inv)
     _check_bn("bn_bwd_stats", g2, y2, vecs)
@@ -150,7 +150,7 @@ def bn_bwd_stats(g2, y2, gamma, beta, mu, inv, relu: bool) -> torch.Tensor:
 def bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool):
     """K8's phase-1 dx, ``ko_bn_bwd_dx`` for CUDA tensors, the plain
     version for CPU ones."""
-    if g2.device.type == "cpu":
+    if kernels.runs_plain(g2):
         return bn_bwd_dx_plain(g2, y2, w, gamma, beta, mu, inv, sums, relu)
     n, co = g2.shape
     ci = w.shape[0]
@@ -171,7 +171,7 @@ def bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool):
 def bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool):
     """K8's phase-1 dW (f32), ``ko_bn_bwd_dw`` for CUDA tensors, the plain
     version for CPU ones."""
-    if x2.device.type == "cpu":
+    if kernels.runs_plain(x2):
         return bn_bwd_dw_plain(x2, g2, y2, gamma, beta, mu, inv, sums, relu)
     n, ci = x2.shape
     co = g2.shape[1]

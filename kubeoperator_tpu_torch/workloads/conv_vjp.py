@@ -203,7 +203,7 @@ def conv1x1_bwd_dx(g2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K7's dx [N, Ci] = g2 [N, Co] · w [Ci, Co]ᵀ: ``ko_conv1x1_bwd_dx``
     for CUDA tensors (bf16, channels multiples of 64), the plain version
     for CPU ones."""
-    if g2.device.type == "cpu":
+    if kernels.runs_plain(g2):
         return conv1x1_bwd_dx_plain(g2, w)
     n, co = g2.shape
     ci = w.shape[0]
@@ -223,7 +223,7 @@ def conv1x1_bwd_dw(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     """K7's dW [Ci, Co] f32 = x2 [N, Ci]ᵀ · g2 [N, Co]:
     ``ko_conv1x1_bwd_dw`` for CUDA tensors, the plain version for CPU
     ones."""
-    if x2.device.type == "cpu":
+    if kernels.runs_plain(x2):
         return conv1x1_bwd_dw_plain(x2, g2)
     n, ci = x2.shape
     co = g2.shape[1]

@@ -1,27 +1,220 @@
-"""Benchmark records: ``config_record`` from ``kubeoperator_tpu/workloads/
-costmodel.py``, the one per-config schema the reference's benches share.
-The rest of that module (``StepAttribution``, the collective cost model)
-belongs to the multi-device slice and is not ported yet;
-``attribution`` here takes its ``as_dict()`` form, a plain dict.
+"""Collective cost model, step attribution and benchmark records: the
+parts of ``kubeoperator_tpu/workloads/costmodel.py`` the port's jobs use.
+
+One ``LinkModel`` (per-hop latency + per-link rate) prices each
+collective a schedule issues; ``fsdp_step_model`` splits the chunked
+ZeRO-3 step into compute, all-gather and reduce-scatter; ``attribute``
+scales those shares onto a measured step; and on a card
+``profiled_collective_seconds`` reads the NCCL kernels' device time from
+``torch.profiler`` instead. The link comes from the card's own table
+(``LINKS``), never from the reference's TPU constants.
+``config_record`` is the one per-config schema the benches share. The
+reference's ``gpipe_step_model``, ``ring_attention_model`` and overlap-win
+helpers belong to its benches and are not ported yet (ROADMAP queue 1,
+item 16).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
+COLLECTIVES = ("all_gather", "reduce_scatter", "ppermute", "all_reduce")
+
+
+@dataclass(frozen=True)
+class LinkModel:
+    """One inter-device link: fixed per-hop cost + streaming rate (bytes/s
+    each way)."""
+
+    latency_s: float
+    bytes_per_s: float
+
+
+# NVLink rate each way between two cards of one host, by device-name
+# substring (NVIDIA's H100 and H200 data sheets: 900 GB/s NVLink per card,
+# 450 GB/s each way). The data sheets give no per-hop latency, so the
+# model carries none. Order matters: the first match wins.
+LINKS = (
+    ("h100 pcie", None),                   # NVLink bridge pairs only
+    ("h100", LinkModel(latency_s=0.0, bytes_per_s=450e9)),
+    ("h200", LinkModel(latency_s=0.0, bytes_per_s=450e9)),
+)
+
+
+def link_for(device_name: str) -> LinkModel:
+    """The card's NVLink model from ``LINKS``; raises for a card the
+    table does not know rather than guessing."""
+    name = device_name.lower()
+    for key, link in LINKS:
+        if key in name:
+            if link is None:
+                break
+            return link
+    raise ValueError(f"no NVLink rate for {device_name!r}: add it to LINKS")
+
+
+def ici_hops(kind: str, n_devices: int) -> int:
+    """Hops on the critical path of one collective over ``n_devices``
+    (ring algorithms for gather/scatter/reduce, one hop for a permute)."""
+    if n_devices <= 1:
+        return 0
+    if kind in ("all_gather", "reduce_scatter"):
+        return n_devices - 1
+    if kind == "all_reduce":                   # reduce-scatter + all-gather
+        return 2 * (n_devices - 1)
+    if kind == "ppermute":
+        return 1
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+def collective_seconds(kind: str, n_bytes: float, n_devices: int,
+                       link: LinkModel) -> float:
+    """Ring-algorithm time for one collective moving ``n_bytes`` of
+    payload (the full logical array for gather/scatter/reduce, the
+    per-hop message for ppermute)."""
+    hops = ici_hops(kind, n_devices)
+    if hops == 0:
+        return 0.0
+    if kind in ("all_gather", "reduce_scatter"):
+        wire = n_bytes * (n_devices - 1) / n_devices
+    elif kind == "all_reduce":
+        wire = 2 * n_bytes * (n_devices - 1) / n_devices
+    else:
+        wire = n_bytes
+    return hops * link.latency_s + wire / link.bytes_per_s
+
+
+@dataclass
+class StepAttribution:
+    """One schedule's priced step: where the seconds went.
+    ``collective_s`` totals every collective the schedule issues;
+    ``exposed_collective_s`` is what overlap leaves on the critical path.
+    """
+
+    step_s: float
+    compute_s: float
+    collective_s: dict[str, float] = field(default_factory=dict)
+    exposed_collective_s: float = 0.0
+    ici_hops: int = 0
+    bubble_fraction: float = 0.0
+    source: str = "cost-model"
+
+    def as_dict(self) -> dict:
+        return {
+            "step_time_s": round(self.step_s, 6),
+            "compute_s": round(self.compute_s, 6),
+            "collective_seconds": {k: round(v, 6)
+                                   for k, v in self.collective_s.items()},
+            "exposed_collective_s": round(self.exposed_collective_s, 6),
+            "ici_hops": self.ici_hops,
+            "bubble_fraction": round(self.bubble_fraction, 4),
+            "attribution_source": self.source,
+        }
+
+
+def attribute(measured_step_s: float, model: StepAttribution
+              ) -> StepAttribution:
+    """Scale a cost-model attribution onto a measured step: the model
+    supplies the shares, the measurement the total."""
+    if model.step_s <= 0:
+        raise ValueError("model step time must be positive")
+    s = measured_step_s / model.step_s
+    return StepAttribution(
+        step_s=measured_step_s, compute_s=model.compute_s * s,
+        collective_s={k: v * s for k, v in model.collective_s.items()},
+        exposed_collective_s=model.exposed_collective_s * s,
+        ici_hops=model.ici_hops, bubble_fraction=model.bubble_fraction,
+        source="cost-model")
+
+
+def fsdp_step_model(*, n_layers: int, layer_param_bytes: float,
+                    fwd_flops_per_layer: float, n_fsdp: int,
+                    peak_flops: float, link: LinkModel,
+                    overlap: bool = True) -> StepAttribution:
+    """Chunked ZeRO-3 step time (fwd + bwd) per device. Per layer the
+    schedule gathers the chunk (fwd), re-gathers it under remat and
+    reduce-scatters the gradient (bwd); backward costs 2× the forward's
+    FLOPs. Overlapped, each direction exposes one gather and then runs
+    ``max(compute, comm)`` a layer; otherwise it pays the sum."""
+    if n_layers < 1:
+        raise ValueError("need at least one layer")
+    g = collective_seconds("all_gather", layer_param_bytes, n_fsdp, link)
+    rs = collective_seconds("reduce_scatter", layer_param_bytes, n_fsdp,
+                            link)
+    c_f = fwd_flops_per_layer / peak_flops
+    c_b = 2 * c_f
+    fwd_comm, bwd_comm = g, g + rs
+    compute = n_layers * (c_f + c_b)
+    if overlap:
+        step = (fwd_comm + (n_layers - 1) * max(c_f, fwd_comm) + c_f
+                + bwd_comm + (n_layers - 1) * max(c_b, bwd_comm) + c_b)
+    else:
+        step = n_layers * (c_f + fwd_comm) + n_layers * (c_b + bwd_comm)
+    return StepAttribution(
+        step_s=step, compute_s=compute,
+        collective_s={"all_gather": 2 * n_layers * g,
+                      "reduce_scatter": n_layers * rs},
+        exposed_collective_s=max(step - compute, 0.0),
+        ici_hops=n_layers * (2 * ici_hops("all_gather", n_fsdp)
+                             + ici_hops("reduce_scatter", n_fsdp)))
+
+
+# substrings of NCCL's kernel names (lower case, no underscores) → keys
+_NCCL_KERNELS = (("allgather", "all_gather"),
+                 ("reducescatter", "reduce_scatter"),
+                 ("sendrecv", "ppermute"), ("allreduce", "all_reduce"))
+
+
+def profiled_collective_seconds(step_fn, *args) -> dict[str, float] | None:
+    """Run ``step_fn(*args)`` once under ``torch.profiler`` and sum the
+    device time of NCCL's kernels per collective. None when the arguments
+    hold no CUDA tensor (the CPU has no device time to read) or the run
+    launched no NCCL kernel; a profiler failure on the card raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def on_cuda(x) -> bool:
+        if isinstance(x, dict):
+            return any(on_cuda(v) for v in x.values())
+        return isinstance(x, torch.Tensor) and x.is_cuda
+
+    if not any(on_cuda(a) for a in args):
+        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(*args)
+        torch.cuda.synchronize()
+    totals = {key: 0.0 for _, key in _NCCL_KERNELS}
+    for evt in prof.key_averages():
+        name = evt.key.lower().replace("_", "")
+        if "nccl" not in name:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        for needle, key in _NCCL_KERNELS:
+            if needle in name:
+                totals[key] += us / 1e6
+                break
+    return totals if any(totals.values()) else None
+
 
 def config_record(*, config: str, n_devices: int, mesh: dict | None = None,
                   step_time_s: float | None = None, mfu: float | None = None,
-                  attribution: dict | None = None,
+                  attribution: StepAttribution | dict | None = None,
                   compile_counts: dict | None = None, ok: bool = True,
                   error: str | None = None, **extra) -> dict:
     """One benchmark config's structured record. Only measured fields
-    appear; ``mesh`` keeps the axes above 1, ``error`` sets ``ok`` false,
-    and ``extra`` keys are appended as given."""
+    appear; ``mesh`` keeps the axes above 1, ``attribution`` splices in
+    ``StepAttribution.as_dict()`` (or a dict of that form), ``error`` sets
+    ``ok`` false, and ``extra`` keys are appended as given."""
     rec: dict = {"config": config, "n_devices": int(n_devices),
                  "ok": bool(ok)}
     if mesh:
         rec["mesh"] = {k: int(v) for k, v in mesh.items() if int(v) > 1}
     if attribution is not None:
-        rec.update(dict(attribution))
+        rec.update(attribution.as_dict()
+                   if isinstance(attribution, StepAttribution)
+                   else dict(attribution))
     if step_time_s is not None:
         rec["step_time_s"] = round(float(step_time_s), 6)
     if mfu is not None:

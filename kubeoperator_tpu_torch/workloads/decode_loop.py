@@ -327,7 +327,8 @@ class SlotPoolEngine:
                                          mesh_spec.sizes()):
             raise NotImplementedError(
                 f"mesh {dict(mesh_spec.sizes())}: the slot pool runs on one "
-                f"device until ROADMAP queue 1 item 14 (multi-device)")
+                f"device until ROADMAP queue 1 item 14d (multi-device part "
+                f"4: the serving mesh)")
         if compile_cache is not None:
             raise NotImplementedError(
                 "the AOT compile cache is not ported yet (ROADMAP queue 1, "

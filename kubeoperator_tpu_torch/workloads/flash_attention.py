@@ -158,7 +158,7 @@ def _stream() -> int:
 
 def flash_fwd(q, k, v, scale: float, causal: bool, kv_len: int):
     """K1. q, k, v: [BH, T, D]. Returns (o [BH, T, D], lse [BH, T] f32)."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_fwd_plain(q, k, v, scale, causal, kv_len)
     _check_cuda("flash_fwd", (q, k, v))
     bh, t, d = q.shape
@@ -176,7 +176,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool, kv_len: int):
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
                  kv_len: int):
     """K2. Returns dq [BH, T, D]."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal,
                                   kv_len)
     _check_cuda("flash_bwd_dq", (q, k, v, do), (lse, delta))
@@ -195,7 +195,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool,
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool,
                   kv_len: int):
     """K3. Returns (dk, dv) [BH, T, D]."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal,
                                    kv_len)
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
@@ -284,7 +284,7 @@ def _delta_kernel(do: torch.Tensor, o: torch.Tensor, b: int, t: int,
 def bh_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """Δ = rowsum(dO ∘ O) in f32 for [BH, T, D] tensors, laid out [BH, T]
     like lse."""
-    if o.device.type == "cpu":
+    if kernels.runs_plain(o):
         return bh_delta_plain(do, o)
     bh, t, _ = o.shape
     return _delta_kernel(do, o, bh, t, 1).view(bh, t)
@@ -358,7 +358,7 @@ def flash_fwd_packed(q, k, v, heads: int, scale: float, causal: bool,
                      kv_len: int):
     """K4. q, k, v: [B, T, H·D]. Returns (o [B, T, H·D], lse [B, H, T]
     f32)."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_fwd_packed_plain(q, k, v, heads, scale, causal, kv_len)
     _check_cuda_packed("flash_fwd_packed", heads, (q, k, v))
     b, t, hd = q.shape
@@ -377,7 +377,7 @@ def flash_fwd_packed(q, k, v, heads: int, scale: float, causal: bool,
 def flash_bwd_dq_packed(q, k, v, do, lse, delta, heads: int, scale: float,
                         causal: bool, kv_len: int):
     """K5. Returns dq [B, T, H·D]."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_bwd_dq_packed_plain(q, k, v, do, lse, delta, heads,
                                          scale, causal, kv_len)
     _check_cuda_packed("flash_bwd_dq_packed", heads, (q, k, v, do),
@@ -398,7 +398,7 @@ def flash_bwd_dq_packed(q, k, v, do, lse, delta, heads: int, scale: float,
 def flash_bwd_dkv_packed(q, k, v, do, lse, delta, heads: int, scale: float,
                          causal: bool, kv_len: int):
     """K6. Returns (dk, dv) [B, T, H·D]."""
-    if q.device.type == "cpu":
+    if kernels.runs_plain(q):
         return flash_bwd_dkv_packed_plain(q, k, v, do, lse, delta, heads,
                                           scale, causal, kv_len)
     _check_cuda_packed("flash_bwd_dkv_packed", heads, (q, k, v, do),
@@ -442,7 +442,7 @@ def packed_delta(do: torch.Tensor, o: torch.Tensor,
                  heads: int) -> torch.Tensor:
     """Δ = rowsum(dO ∘ O) per (b, t, h) in f32 for [B, T, H·D] tensors,
     laid out [B, H, T] like lse."""
-    if o.device.type == "cpu":
+    if kernels.runs_plain(o):
         return packed_delta_plain(do, o, heads)
     b, t, _ = o.shape
     return _delta_kernel(do, o, b, t, heads)

@@ -1,29 +1,48 @@
-"""LM trainer on one device, the counterpart of
-``kubeoperator_tpu/workloads/lm.py::LMTrainer``.
+"""LM trainer, the counterpart of
+``kubeoperator_tpu/workloads/lm.py::LMTrainer``: the transformer under a
+dp×fsdp×tp×sp mesh of ``torch.distributed`` ranks, or on one device.
 
-The JAX trainer spreads the batch and sequence over a dp×fsdp×tp×sp mesh;
-this slice ports the single-device trainer only, so a ``MeshSpec`` with
-any axis above 1 raises. The step is eager PyTorch: forward, masked
-next-token cross-entropy on f32 logits (plus, for an MoE config, the
-layers' summed load-balancing aux loss, which the reported loss
-includes, as the reference's does), backward, and ``AdamW`` with
-optax.adamw's settings, updating the model and optimizer state in place
-(the JAX step returned a new state and donated the old one).
+The step is eager PyTorch: forward, masked next-token cross-entropy on
+f32 logits (plus, for an MoE config, the layers' summed load-balancing
+aux loss, which the reported loss includes, as the reference's does),
+backward, and ``AdamW`` with optax.adamw's settings on each rank's
+parameter shards, updating the model and optimizer state in place (the
+JAX step returned a new state and donated the old one).
+
+Under a mesh, every rank takes the same global batch and cuts its block
+(rows over dp×fsdp, the sequence over sp) after forming the targets from
+the whole sequence: the reference's roll, with the last global position
+masked. Its loss is ``(losses·mask).sum() / mask.sum()`` of a [1, T]
+mask, summed over the global batch and divided by T − 1, so each rank
+divides its own sum by the global T − 1 and the loss and the gradients
+are summed over the ranks, never averaged: fsdp by the parameter
+gathers' reduce-scatter, dp and sp after the backward
+(``sharding.reduce_grads``). Under tp the logits are vocab-parallel and
+so is the softmax (``vocab_parallel_cross_entropy``). MoE under a mesh
+waits for ROADMAP queue 1, item 14c.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kubeoperator_tpu_torch.workloads import collectives as cl
+from kubeoperator_tpu_torch.workloads import sharding
+from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 from kubeoperator_tpu_torch.workloads.train import (
-    MeshSpec, peak_flops_per_chip, refuse_mesh, resolve_device, step_stats,
+    peak_flops_per_chip, refuse_mesh, resolve_device, step_stats,
     timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
-    Transformer, TransformerConfig, flops_per_token,
+    Transformer, TransformerConfig, flops_per_token, param_axes,
 )
+
+__all__ = ["LMTrainer", "MeshSpec", "lm_loss", "refuse_mesh",
+           "vocab_parallel_cross_entropy"]
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -38,27 +57,61 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return (losses.reshape(tokens.shape) * mask).sum() / mask.sum()
 
 
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 group) -> torch.Tensor:
+    """Per-token cross-entropy when each tp rank holds the logits of V/tp
+    vocabulary rows in rank order (the reference's ``vocab`` → tp rule):
+    the max and the sum of exponentials over the whole vocabulary and the
+    target's logit, each summed over tp. logits [..., V/tp] f32, targets
+    [...] global ids."""
+    if group is None:
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1),
+                               reduction="none").reshape(targets.shape)
+    rows = logits.shape[-1]
+    m = cl.all_reduce_max(logits.amax(-1), group)
+    z = logits - m[..., None]
+    sumexp = cl.reduce_from(z.exp().sum(-1), group)
+    local = targets - cl.group_rank(group) * rows
+    inside = (local >= 0) & (local < rows)
+    picked = z.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    target = cl.reduce_from(picked * inside, group)
+    return sumexp.log() - target
+
+
 class LMTrainer:
     def __init__(self, cfg: TransformerConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
                  learning_rate: float = 3e-4):
         self.device = resolve_device(device)
-        refuse_mesh(spec)
-        self.cfg = cfg
+        self.spec = spec or MeshSpec(dp=sharding.world_size())
+        self.mesh = sharding.build_mesh(self.spec, self.device.type)
+        if cfg.moe_experts > 0 and self.spec.n_devices > 1:
+            raise NotImplementedError(
+                f"MoE under the mesh {dict(self.spec.sizes())}: expert "
+                f"parallelism and the global capacity are not ported yet "
+                f"(ROADMAP queue 1, item 14c, multi-device part 3)")
+        self.cfg = replace(cfg, ring=self.spec.sp > 1)
         self.learning_rate = learning_rate
+        self.tp = sharding.axis_group(self.mesh, "tp")
+        self.placements: dict = {}
         self.last_metrics: dict = {}
 
     # -- state -------------------------------------------------------------
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
-        """{"step", "model", "opt"}: a model built on the trainer's device,
-        from ``params`` (a state dict, e.g. ``bridge.params_from_jax``) or
-        the seeded init, and its AdamW state."""
+        """{"step", "model", "opt"}: a model built whole on the trainer's
+        device, from ``params`` (a state dict, e.g.
+        ``bridge.params_from_jax``) or the seeded init, then placed on the
+        mesh (each rank keeps its shards), and AdamW over the shards."""
         with torch.device(self.device):
-            model = Transformer(self.cfg)
+            model = Transformer(self.cfg, self.mesh)
         if params is None:
             model.reset_parameters(seed)
         else:
             model.load_state_dict(params)
+        if self.spec.n_devices > 1:
+            self.placements = sharding.parallelize(model, self.mesh,
+                                                   self.spec, param_axes)
         # optax.adamw(lr, weight_decay=0.01): b1 0.9, b2 0.999, eps 1e-8,
         # decoupled decay on every parameter
         opt = torch.optim.AdamW(model.parameters(), lr=self.learning_rate,
@@ -66,43 +119,76 @@ class LMTrainer:
                                 weight_decay=0.01)
         return {"step": 0, "model": model, "opt": opt}
 
+    def full_params(self, model: Transformer, grads: bool = False) -> dict:
+        """The whole state dict (or its gradients) on every rank, from the
+        shards (a collective under a mesh)."""
+        if not self.placements:
+            return {n: (p.grad if grads else p).detach()
+                    for n, p in model.named_parameters()}
+        return sharding.full_state(model, self.placements, self.mesh, grads)
+
     # -- step --------------------------------------------------------------
+    def local_batch(self, tokens: torch.Tensor) -> tuple:
+        """(inputs, targets, mask) of this rank from the global [B, T]
+        batch: targets rolled over the whole sequence, the last global
+        position masked, then rows cut over dp×fsdp and the sequence over
+        sp."""
+        t = tokens.shape[1]
+        targets = torch.roll(tokens, -1, dims=1)
+        mask = (torch.arange(t, device=tokens.device) < t - 1).float()[None]
+        cut = lambda x: sharding.shard_batch(self.mesh, x, seq_dim=1)  # noqa: E731
+        return cut(tokens), cut(targets), sharding.local_block(
+            mask, sharding.axis_index(self.mesh, "sp"),
+            sharding.axis_size(self.mesh, "sp"), 1)
+
     def objective(self, model: Transformer, tokens: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(loss, aux): the next-token loss plus the MoE aux loss, and the
-        aux alone (0-d zero for a dense config)."""
-        logits, aux = model(tokens, return_aux=True)
-        return lm_loss(logits, tokens) + aux, aux
+        """(loss, aux) of this rank's block of the global batch ``tokens``:
+        its share of the next-token loss plus the MoE aux loss, and the aux
+        alone (0-d zero for a dense config). Summed over the ranks, the
+        shares are the global loss."""
+        inputs, targets, mask = self.local_batch(tokens)
+        logits, aux = model(inputs, return_aux=True)
+        losses = vocab_parallel_cross_entropy(logits.float(), targets, self.tp)
+        return (losses * mask).sum() / (tokens.shape[1] - 1) + aux, aux
 
     def loss(self, model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         return self.objective(model, tokens)[0]
 
     def train_step(self, state: dict, tokens: torch.Tensor):
-        """One AdamW step on ``tokens`` [B, T]; updates ``state`` in place
-        and returns it with {"loss": 0-d tensor, "aux": 0-d tensor}; the
-        loss includes the aux."""
+        """One AdamW step on the global batch ``tokens`` [B, T]; updates
+        ``state`` in place and returns it with {"loss": 0-d tensor, "aux":
+        0-d tensor}: the global loss on every rank, aux included."""
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
         loss, aux = self.objective(model, tokens)
         loss.backward()
+        if self.placements:
+            sharding.reduce_grads(model, self.placements, self.mesh)
         opt.step()
         state["step"] += 1
-        self.last_metrics = {"loss": loss.detach(), "aux": aux.detach()}
+        loss = loss.detach()
+        for axis in ("dp", "fsdp", "sp"):
+            loss = cl.reduce_from(loss, sharding.axis_group(self.mesh, axis))
+        self.last_metrics = {"loss": loss, "aux": aux.detach()}
         return state, self.last_metrics
 
     # -- data / measurement ------------------------------------------------
     def synthetic_batch(self, batch: int, seq_len: int, seed: int = 0):
+        """The global batch from ``seed``, the same on every rank; the
+        step cuts each rank's block of it."""
         rng = np.random.default_rng(seed)
         tokens = rng.integers(0, self.cfg.vocab_size, (batch, seq_len))
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
 
     def measure(self, batch: int, seq_len: int, steps: int = 10,
                 warmup: int = 2, repeats: int = 3) -> dict:
-        """Train steps on a synthetic batch; tokens/s, step ms and MFU
-        (by ``flops_per_token``, the MoE one for an MoE config) against
-        the card's bf16 peak, the final loss and its aux share. Needs the
-        card."""
+        """Train steps on a synthetic global batch; tokens/s, step ms and
+        MFU (by ``flops_per_token``, the MoE one for an MoE config)
+        against the world's bf16 peak, the final loss and its aux share.
+        Needs the card."""
         peak = peak_flops_per_chip(self.device)
+        chips = self.spec.n_devices
         state = self.init_state()
         tokens = self.synthetic_batch(batch, seq_len)
         _, times = timed_steps(self.train_step, state, (tokens,), steps,
@@ -113,8 +199,8 @@ class LMTrainer:
         achieved = 3 * flops_per_token(self.cfg, seq_len) * tokens_per_step / dt
         return {"tokens_per_sec": tokens_per_step / dt,
                 "step_time_ms": stats["median_ms"],
-                "mfu": achieved / peak,
-                "achieved_tflops": achieved / 1e12, "chips": 1,
+                "mfu": achieved / (peak * chips),
+                "achieved_tflops": achieved / 1e12, "chips": chips,
                 "device": torch.cuda.get_device_name(self.device),
                 "final_loss": float(self.last_metrics["loss"]),
                 "final_aux": float(self.last_metrics["aux"]),

@@ -2,8 +2,8 @@
 trainer of the port shares: counterparts of ``kubeoperator_tpu/workloads/
 train.py`` (``TrainConfig``, ``lr_schedule``, ``make_optimizer``,
 ``cross_entropy``, ``Trainer``, ``peak_flops_per_chip``, ``timed_steps``,
-``step_stats``), one device only (``MeshSpec`` with an axis above 1
-raises).
+``step_stats``). The ResNet trainer runs on one device: a ``MeshSpec``
+(``sharding.py``'s, re-exported here) with an axis above 1 raises.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeoperator_tpu_torch.workloads import resnet
+from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 
 # Peak dense bf16 FLOP/s and HBM bytes/s by device-name substring (NVIDIA's
 # data sheets). Order matters: the first match wins.
@@ -30,29 +31,15 @@ PEAKS = (
 )
 
 
-@dataclass(frozen=True)
-class MeshSpec:
-    """Parallelism degrees, as the JAX package names them. The port runs
-    one device: every degree must be 1 until the multi-device slice."""
-    dp: int = 1
-    fsdp: int = 1
-    pp: int = 1
-    ep: int = 1
-    tp: int = 1
-    sp: int = 1
-
-    def sizes(self) -> tuple[tuple[str, int], ...]:
-        return (("dp", self.dp), ("fsdp", self.fsdp), ("pp", self.pp),
-                ("ep", self.ep), ("tp", self.tp), ("sp", self.sp))
-
-
 def refuse_mesh(spec: MeshSpec | None) -> None:
-    """Raise for a mesh with any axis above 1: the port's trainers run on
-    one device until the multi-device slice."""
+    """Raise for a mesh with any axis above 1: the ResNet and ViT trainers
+    run on one device until ROADMAP queue 1, item 14b (multi-device part
+    2)."""
     if spec is not None and any(s > 1 for _, s in spec.sizes()):
         raise NotImplementedError(
-            f"mesh {dict(spec.sizes())}: the port trains on one device "
-            f"until ROADMAP queue 1's multi-device item")
+            f"mesh {dict(spec.sizes())}: the ResNet and ViT trainers run on "
+            f"one device until ROADMAP queue 1, item 14b (multi-device "
+            f"part 2)")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -15,6 +15,16 @@ that ``remat_policy`` names. With ``moe_experts > 0`` each block's FFN is
 ``moe.MoEMlp``, whose load-balancing aux loss each block returns beside
 its output and the model sums over layers (``return_aux``), as the flax
 model sows it.
+
+Under a mesh (``Transformer(cfg, mesh)``, placed by
+``sharding.parallelize`` with ``param_axes``) the model is Megatron over
+tp, the reference's ``logical_axis_rules`` split: each rank holds H/tp
+heads, d_ff/tp of the MLP and V/tp rows of the tied embedding, so the
+embedding lookup, the attention and MLP outputs and (in the trainer) the
+softmax's sums are all-reduced over tp. With ``cfg.ring`` and an sp axis
+the sequence is split over sp: positions are global and attention is
+ring or Ulysses (``sp_attention``), as the reference dispatches it. With
+neither axis the flash dispatch is the one-device one.
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads import ring_attention as ra
 from kubeoperator_tpu_torch.workloads.flash_attention import (
     DEFAULT_BLOCK, FLASH_OP, FLASH_PACKED_OP, flash_attention,
 )
 from kubeoperator_tpu_torch.workloads.moe import MoEMlp
+from kubeoperator_tpu_torch.workloads.sharding import axis_group
 
 
 @dataclass(frozen=True)
@@ -47,8 +59,9 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    ring: bool = False          # sequence sharding: multi-device slice
-    sp_attention: str = "ring"
+    ring: bool = False          # sequence split over the mesh's sp axis
+    sp_attention: str = "ring"  # ring (ppermute K/V hops) | ulysses (two
+                                # all-to-alls; heads/tp % sp == 0)
     moe_experts: int = 0        # >0: MoEMlp FFNs (moe.py)
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -171,10 +184,16 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, self.eps)
 
 
+def _groups(mesh) -> tuple:
+    """(tp group, sp group) of a mesh; None for an axis of one rank."""
+    return axis_group(mesh, "tp"), axis_group(mesh, "sp")
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.tp, self.sp = _groups(mesh)
         d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
         if cfg.fused_qkv:
             self.qkv = nn.Parameter(torch.empty(d, 3, h, hd))
@@ -207,17 +226,21 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, cache=None):
         cfg = self.cfg
-        q, k, v = token_qkv(self, x, cfg.dtype)
+        q, k, v = token_qkv(self, cl.copy_to(x, self.tp), cfg.dtype)
         q, k = rope(q, positions), rope(k, positions)
         if cache is not None:
             out = decode_attention(q, k, v, cache, positions, cfg.dtype)
+        elif cfg.ring and self.sp is not None:
+            attend = (ra.ulysses_attention if cfg.sp_attention == "ulysses"
+                      else ra.ring_attention)
+            out = ATTN_OUT_OP(attend(q, k, v, self.sp, causal=cfg.causal))
         elif (blk := self.flash_block(q.shape[1], q.is_cuda)) is not None:
             out = flash_attention(q, k, v, causal=cfg.causal, block=blk,
                                   layout=cfg.flash_layout)
         else:
             out = ATTN_OUT_OP(ra.reference_attention(q, k, v,
                                                      causal=cfg.causal))
-        return dense(out, self.o, cfg.dtype, n_in=2)
+        return cl.reduce_from(dense(out, self.o, cfg.dtype, n_in=2), self.tp)
 
 
 def token_qkv(a: Attention, h: torch.Tensor, dt: torch.dtype) -> tuple:
@@ -248,9 +271,10 @@ def decode_attention(q, k, v, cache, positions, dt):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = _groups(mesh)[0]
         self.gate = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff))
         self.up = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff))
         self.down = nn.Parameter(torch.empty(cfg.d_ff, cfg.d_model))
@@ -262,8 +286,10 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         dt = self.cfg.dtype
-        return dense(F.silu(dense(x, self.gate, dt)) * dense(x, self.up, dt),
-                     self.down, dt)
+        x = cl.copy_to(x, self.tp)
+        return cl.reduce_from(
+            dense(F.silu(dense(x, self.gate, dt)) * dense(x, self.up, dt),
+                  self.down, dt), self.tp)
 
 
 class Block(nn.Module):
@@ -271,10 +297,10 @@ class Block(nn.Module):
     0`` a routed ``moe`` FFN. ``forward`` returns ``(x, aux)``: the MoE
     layer's aux loss, None for a dense layer."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, mesh)
         self.ln2 = RMSNorm(cfg.d_model)
         if cfg.moe_experts > 0:
             self.moe = MoEMlp(cfg.d_model, cfg.d_ff, cfg.moe_experts,
@@ -282,7 +308,7 @@ class Block(nn.Module):
                               capacity_factor=cfg.moe_capacity_factor,
                               dtype=cfg.dtype)
         else:
-            self.mlp = Mlp(cfg)
+            self.mlp = Mlp(cfg, mesh)
 
     def forward(self, x, positions, cache=None):
         x = x + self.attn(self.ln1(x), positions, cache)
@@ -338,16 +364,44 @@ def run_blocks(layers: nn.ModuleList, x: torch.Tensor,
     return x, aux
 
 
+# logical axis names of each parameter, by its own name: the flax
+# model's ``with_logical_partitioning`` annotations
+PARAM_AXES = {
+    "embedding": ("vocab", "embed"), "scale": ("embed",),
+    "qkv": ("embed", "qkv_stack", "heads", "kv"),
+    "q": ("embed", "heads", "kv"), "k": ("embed", "heads", "kv"),
+    "v": ("embed", "heads", "kv"), "o": ("heads", "kv", "embed"),
+    "gate": ("embed", "mlp"), "up": ("embed", "mlp"), "down": ("mlp", "embed"),
+}
+
+
+def param_axes(name: str) -> tuple[str, ...]:
+    """Logical axes of the parameter called ``name`` (a dotted path)."""
+    return PARAM_AXES[name.rpartition(".")[2]]
+
+
+def vocab_parallel_embed(tokens: torch.Tensor, emb: torch.Tensor,
+                         group) -> torch.Tensor:
+    """Rows of the tied embedding for ``tokens`` when each tp rank holds
+    V/tp of them in rank order: this rank's rows, zeros elsewhere,
+    summed over tp."""
+    if group is None:
+        return F.embedding(tokens, emb)
+    rows = emb.shape[0]
+    local = tokens - cl.group_rank(group) * rows
+    inside = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), emb)
+    return cl.reduce_from(x * inside[..., None], group)
+
+
 class Transformer(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if cfg.ring:
-            raise NotImplementedError("sequence-sharded attention is not "
-                                      "ported yet (ROADMAP queue 1, "
-                                      "multi-device)")
         self.cfg = cfg
+        self.tp, self.sp = _groups(mesh)
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, mesh)
+                                    for _ in range(cfg.n_layers))
         self.ln_f = RMSNorm(cfg.d_model)
         self._remat_ctx = remat_context_fn(cfg.remat_policy)
 
@@ -368,17 +422,22 @@ class Transformer(nn.Module):
         0..T-1); caches: per-layer (k, v) [B, S, H, D] buffers for the
         decode branch, updated in place. Returns f32 logits [B, T, V], or
         with ``return_aux`` the pair (logits, aux): the MoE layers' summed
-        aux loss, a 0-d zero for a dense model."""
+        aux loss, a 0-d zero for a dense model. Under a mesh, tokens are
+        this rank's block, positions default to its global ones and the
+        logits are its tp block of the vocabulary."""
         cfg = self.cfg
         if cfg.decode and caches is None:
             raise ValueError("decode=True needs per-layer caches")
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = F.embedding(tokens, self.embedding).to(cfg.dtype)
+            t = tokens.shape[1]
+            positions = (cl.group_rank(self.sp) * t
+                         + torch.arange(t, device=tokens.device))
+        emb = self.embedding            # one fsdp gather for both uses
+        x = vocab_parallel_embed(tokens, emb, self.tp).to(cfg.dtype)
         remat = cfg.remat and caches is None and torch.is_grad_enabled()
         x, aux = run_blocks(self.layers, x, positions, remat,
                             self._remat_ctx, caches)
-        logits = tied_logits(cfg, self.ln_f(x), self.embedding)
+        logits = tied_logits(cfg, cl.copy_to(self.ln_f(x), self.tp), emb)
         if not return_aux:
             return logits
         return logits, (aux if aux is not None

@@ -243,3 +243,17 @@ def test_the_bench_needs_the_card():
         pytest.skip("with a card the bench runs")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main()
+
+
+def test_points_measured_by_the_caller_are_not_measured_again(fake_card,
+                                                              capsys):
+    """chip_smoke.py's train and vit_train phases measure the 2k LM and
+    ViT-B/16 with the bench's settings; the bench takes those numbers."""
+    seen = {}
+    given = {"llm": fake_result(0.35), "vit": fake_result(0.25, 128)}
+    assert bench.main(on_point=seen.__setitem__, measured=given) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [c[0] for c in fake_card] == ["resnet", "lm", "lm"]
+    assert [c[1].max_seq_len for c in fake_card[1:]] == [4096, 8192]
+    assert seen["llm"] is given["llm"] and seen["vit"] is given["vit"]
+    assert (line["llm_mfu"], line["vit_mfu"]) == (0.35, 0.25)

@@ -1,0 +1,164 @@
+"""The port's multi-device job entry points as ``--device cpu`` JSON lines on
+2 gloo ranks: smoke's psum, llm over dp, sp (Ulysses) and tp (then
+sampling from the gathered weights) against the one-device job's losses,
+the fsdp job with and without overlap, the pipeline job, and llm's
+``--ckpt-dir`` under a mesh refused naming its ROADMAP item. In this
+process: ``parse_mesh`` against the reference's, the launcher without
+``torchrun``'s environment, and the cost model the fsdp job attributes
+with against the reference's on the same link."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from kubeoperator_tpu.train import jobs as jjobs
+from kubeoperator_tpu.workloads import costmodel as jcm
+from kubeoperator_tpu_torch.train import jobs
+from kubeoperator_tpu_torch.workloads import costmodel as cm
+from torch_dist_cases import LLM_TINY, spawn_group
+
+torch.set_num_threads(2)
+
+MESHED_LLM = ["llm_dp2", "llm_sp2_ulysses", "llm_tp2_sample"]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return spawn_group("jobs", 2, tmp_path_factory.mktemp("jobs"), {})
+
+
+def losses(records: list) -> list:
+    return [r["loss"] for r in records if "loss" in r and "step" in r]
+
+
+def test_smoke_psum_is_the_world(ranks):
+    rec = ranks[0]["smoke"]
+    assert rec["rc"] == 0 and len(rec["records"]) == 1
+    assert rec["records"][0] == {
+        "job": "smoke", "devices": 2, "device_kind": "cpu", "platform": "cpu",
+        "matmul_sum": 16_777_216.0, "psum": 2.0, "process_id": 0,
+        "num_processes": 2, "ok": True}
+    assert ranks[1]["smoke"] == {"rc": 0, "records": []}   # rank 0 prints
+
+
+@pytest.mark.parametrize("name", MESHED_LLM)
+def test_meshed_llm_matches_the_one_device_job(ranks, name, capsys):
+    """The same global batch and weights on one device and over the mesh:
+    the same losses (the records round to 4 places)."""
+    assert jobs.main(["llm", *LLM_TINY]) == 0
+    one = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rec = ranks[0][name]
+    assert rec["rc"] == 0 and ranks[1][name]["rc"] == 0
+    np.testing.assert_allclose(losses(rec["records"]), losses(one),
+                               atol=1.5e-4)
+    done = rec["records"][-1]
+    axis = {"llm_dp2": "dp", "llm_sp2_ulysses": "sp",
+            "llm_tp2_sample": "tp"}[name]
+    assert done["done"] and done["chips"] == 2 and done["mesh"][axis] == 2
+    assert done["num_processes"] == 2 and done["step_time_ms"] > 0
+    assert done["mfu"] is None                 # no device peak on the CPU
+
+
+def test_meshed_llm_samples_from_the_gathered_weights(ranks):
+    sampled = next(r["sampled_tokens"] for r in
+                   ranks[0]["llm_tp2_sample"]["records"]
+                   if "sampled_tokens" in r)
+    assert len(sampled) == 4 + 3 and all(0 <= t < 64 for t in sampled)
+
+
+def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks):
+    for r in ranks:
+        assert r["llm_ckpt_under_mesh"]["raised"] == (
+            "--ckpt-dir under a mesh of 2 devices is not ported yet "
+            "(ROADMAP queue 1, item 14f)")
+
+
+@pytest.mark.parametrize("name", ["fsdp", "fsdp_no_overlap"])
+def test_fsdp_job_trains(ranks, name):
+    rec = ranks[0][name]
+    assert rec["rc"] == 0
+    ls = losses(rec["records"])
+    assert len(ls) == 4 and all(np.isfinite(ls)) and ls[-1] < ls[0]
+    done = rec["records"][-1]
+    assert done["done"] and done["mesh"]["fsdp"] == 2 and done["layers"] == 3
+    assert done["overlap"] == (name == "fsdp") and done["step_time_s"] > 0
+    assert done["attribution_source"] is None and done["mfu"] is None
+
+
+def test_fsdp_overlap_is_a_schedule_not_a_result(ranks):
+    assert losses(ranks[0]["fsdp"]["records"]) == losses(
+        ranks[0]["fsdp_no_overlap"]["records"])
+
+
+def test_pipeline_job_trains(ranks):
+    rec = ranks[0]["pipeline"]
+    assert rec["rc"] == 0
+    ls = losses(rec["records"])
+    assert len(ls) == 3 and ls[-1] < ls[0]
+    done = rec["records"][-1]
+    assert (done["stages"], done["microbatches"], done["bubble_fraction"]) == (
+        2, 4, 0.2)
+    assert done["mesh"]["pp"] == 2 and done["num_processes"] == 2
+
+
+@pytest.mark.parametrize("arg,n", [(None, 1), (None, 8), ("dp:auto", 8),
+                                   ("dp:2,tp:2,sp:2", 8), ("fsdp:auto,tp:2", 8),
+                                   ("pp:4", 4), ("dp:2,sp:auto", 8)])
+def test_parse_mesh_is_the_reference_s(arg, n):
+    assert jobs.parse_mesh(arg, n).sizes() == jjobs.parse_mesh(arg, n).sizes()
+
+
+@pytest.mark.parametrize("arg,msg", [("xp:2", "unknown mesh axis"),
+                                     ("dp:auto,tp:auto", "only one"),
+                                     ("dp:auto,tp:3", "not divisible")])
+def test_parse_mesh_refuses_what_the_reference_refuses(arg, msg):
+    with pytest.raises(SystemExit, match=msg):
+        jobs.parse_mesh(arg, 8)
+
+
+def test_one_process_without_torchrun_is_a_world_of_one(monkeypatch):
+    monkeypatch.delenv("RANK", raising=False)
+    assert jobs.maybe_initialize_distributed("cpu") == {
+        "process_id": 0, "num_processes": 1}
+
+
+@pytest.mark.parametrize("cmd,msg", [("fsdp", "needs an fsdp axis"),
+                                     ("pipeline", "needs a pp axis")])
+def test_fsdp_and_pipeline_jobs_need_their_axis(cmd, msg):
+    with pytest.raises(SystemExit, match=msg):
+        jobs.main([cmd, "--device", "cpu"])
+
+
+def test_cost_model_is_the_reference_s_on_the_same_link():
+    link = cm.link_for("NVIDIA H100 80GB HBM3")
+    jlink = jcm.LinkModel(latency_s=link.latency_s,
+                          bytes_per_s=link.bytes_per_s)
+    for kind in cm.COLLECTIVES:
+        for n in (1, 2, 8):
+            assert cm.ici_hops(kind, n) == jcm.ici_hops(kind, n)
+            assert cm.collective_seconds(kind, 1e8, n, link) == (
+                jcm.collective_seconds(kind, 1e8, n, jlink))
+    for overlap in (True, False):
+        kw = dict(n_layers=4, layer_param_bytes=4e8,
+                  fwd_flops_per_layer=2e12, n_fsdp=8, peak_flops=989e12,
+                  overlap=overlap)
+        got = cm.fsdp_step_model(link=link, **kw)
+        want = jcm.fsdp_step_model(link=jlink, **kw)
+        assert got.as_dict() == want.as_dict()
+        assert cm.attribute(0.5, got).as_dict() == (
+            jcm.attribute(0.5, want).as_dict())
+
+
+def test_link_table_names_no_tpu_rate_and_refuses_unknown_cards():
+    assert cm.link_for("NVIDIA H100 80GB HBM3").bytes_per_s == 450e9
+    for name in ("NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB", "TPU v5e"):
+        with pytest.raises(ValueError, match="no NVLink rate"):
+            cm.link_for(name)
+
+
+def test_profiled_collective_seconds_is_none_on_the_cpu():
+    x = torch.ones(4)
+    assert cm.profiled_collective_seconds(lambda a: a * 2, x) is None
+    assert cm.profiled_collective_seconds(lambda p: p, {"w": x}) is None

@@ -74,20 +74,27 @@ def metrics_servers(monkeypatch):
 
 
 def test_smoke_reports_ok(capsys):
-    """The one-device half of the reference's smoke job: a 256×256 bf16
-    matmul of ones sums to 256³; the record has the reference's keys."""
+    """The reference's smoke job in one process: a 256×256 bf16 matmul of
+    ones sums to 256³ and the psum over a world of one rank is 1; the
+    record has the reference's keys."""
     assert jobs.main(["smoke", "--device", "cpu"]) == 0
     rec = json.loads(capsys.readouterr().out)
     assert rec == {"job": "smoke", "devices": 1, "device_kind": "cpu",
                    "platform": "cpu", "matmul_sum": 16_777_216.0,
-                   "psum": None, "ok": True}
+                   "psum": 1.0, "process_id": 0, "num_processes": 1,
+                   "ok": True}
 
 
-def test_smoke_over_several_cards_needs_the_multi_device_slice(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+def test_smoke_over_several_cards_needs_the_multi_device_slice(monkeypatch,
+                                                              capsys):
+    """The multi-device slice runs the psum half: a process is one rank,
+    however many cards it sees, and the ranks over several cards come from
+    ``torchrun`` (tests/test_torch_dist_jobs.py runs two)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        jobs.main(["smoke", "--device", "cuda:0"])
+    monkeypatch.delenv("RANK", raising=False)
+    assert jobs.main(["smoke", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert (rec["devices"], rec["psum"], rec["ok"]) == (1, 1.0, True)
 
 
 def test_mnist_improves(capsys):
@@ -160,10 +167,24 @@ def test_llm_f32_without_sampling(capsys):
     ("--ckpt-dir", "ckpt"), ("--metrics-port", "8080")])
 def test_unported_flags_raise(flag, value, monkeypatch, capsys, tmp_path):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
-    ``--experts``, ``--ckpt-dir`` and ``--metrics-port`` are ported: their
-    cases show the job trains an MoE config of that many experts, writes
-    a checkpoint that a rerun resumes from (under ``tmp_path``), and
-    serves ``/metrics`` while it trains (on a free port)."""
+    ``--experts``, ``--ckpt-dir``, ``--metrics-port``, ``--mesh`` and
+    ``--sp-attention`` are ported: their cases show the job trains an MoE
+    config of that many experts, writes a checkpoint that a rerun resumes
+    from (under ``tmp_path``), serves ``/metrics`` while it trains (on a
+    free port), takes a mesh of this process's one device (and refuses
+    ``dp:2`` here, a world of one, as build_mesh does), and takes Ulysses
+    (a no-op without an sp axis; the meshed job runs in
+    tests/test_torch_dist_jobs.py)."""
+    if flag == "--mesh":
+        records = run(capsys, "--steps", "1", flag, "dp:auto")
+        assert records[-1]["mesh"]["dp"] == 1 and records[-1]["chips"] == 1
+        with pytest.raises(ValueError, match="wants 2 devices, got 1"):
+            jobs.main(["llm", *TINY, "--steps", "1", flag, value])
+        return
+    if flag == "--sp-attention":
+        records = run(capsys, "--steps", "1", flag, value)
+        assert records[-1]["done"] and records[-1]["steps"] == 1
+        return
     if flag == "--ckpt-dir":
         ckpt = str(tmp_path / value)
         run(capsys, "--steps", "1", flag, ckpt)

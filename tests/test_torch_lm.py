@@ -83,7 +83,10 @@ def test_loss_is_masked_next_token_cross_entropy():
 
 
 def test_mesh_beyond_one_device_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """A process with no group is a world of one device: a mesh of two
+    raises there, as build_mesh does for any count mismatch (the meshed
+    trainer itself runs in tests/test_torch_lm_mesh.py)."""
+    with pytest.raises(ValueError, match="wants 2 devices, got 1"):
         tlm.LMTrainer(port_cfg(JAX_TINY), spec=tlm.MeshSpec(dp=2), device="cpu")
 
 
