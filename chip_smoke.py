@@ -102,18 +102,6 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``checkpoint step 2`` and a greedy ``/generate`` equals ``generate()``
    on the restored model token for token (bytes, save and restore
    seconds).
-   dist (phases ``dist_smoke``, ``dist_llm``, ``dist_multi``): the smoke
-   job joins an NCCL group from ``torchrun``'s environment (one rank,
-   this process): its psum must equal the world; then the llm job at the
-   bench LM's widths through ``--mesh dp:auto`` in that group for as
-   many steps as phase ``train``, from the same weights and batch: K1-K3
-   each at least once a layer and step, finite losses, the last within
-   ``TOL`` of ``train``'s, step ms and MFU beside ``train``'s. With two or
-   more cards, ``dist_multi`` spawns two NCCL ranks (``launch.spawn``)
-   running ``MULTI_CASES`` — smoke, the LM at dp 2, sp 2 (ring and
-   Ulysses) and tp 2, the fsdp job with and without overlap and the
-   pipeline job — each against its one-rank run; with one card it says
-   so and runs nothing.
 6. vit_train: the ViT main path, ``ViTTrainer(ViTConfig()).measure`` at
    ViT-B/16's full width and depth (batch 128, 8 steps per call), launch
    counts reset before and read after: K4-K6 each at least once per layer
@@ -131,7 +119,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (``channel_sum``) at its probe shape, each against its plain version
    within ``CONV_TOL``/``F32_TOL``, with the rejection of outputs 10%
    wrong on the late half of the rows; kernel, plain and library times
-   (for K7 one cuBLAS call per product) and the bounds.
+   (for K7 one cuBLAS call per product) and the bounds. At each K8 site
+   also ``split_rows``: the rows in two halves as two data ranks hold
+   them, the halves' phase-0 sums added, phase 1 on each half with
+   ``n_total`` = N, against the plain version on all N rows within
+   ``CONV_TOL``, the same bits twice.
 9. resnet_train: the ResNet main path, ``Trainer(RESNET_K7_K8).measure``
    at ResNet-50's full width and depth (224², batch 128, 8 steps per
    call), launch counts reset before and read after: each K7 kernel at
@@ -143,6 +135,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     resnet_dot2: the K7/K8 configuration with ``conv_bwd="dot2"`` and
     ``fused_bn=False``: finite loss, no K7/K8 launch, step ms beside
     resnet_train's.
+    dist (phases ``dist_smoke``, ``dist_llm``, ``dist_vit``,
+    ``dist_resnet``, ``dist_multi``): the smoke job joins an NCCL group
+    from ``torchrun``'s environment (one rank, this process): its psum
+    must equal the world; in that group the llm job at the bench LM's
+    widths through ``--mesh dp:auto`` for as many steps as phase ``train``,
+    from the same weights and batch: K1-K3 each at least once a layer and
+    step, finite losses, the last within ``TOL`` of ``train``'s, step ms
+    and MFU beside ``train``'s; ``ViTTrainer(ViTConfig())`` measured as
+    ``vit_train`` was: K4-K6 12 launches a step, its loss within ``TOL``
+    of ``vit_train``'s; ``Trainer(RESNET_K7_K8, MeshSpec(dp=1))`` measured
+    as ``resnet_train`` was: K7 24 and each K8 kernel 9 launches a step,
+    its loss within ``TOL`` of ``resnet_train``'s, then the resnet50 job
+    under ``--mesh dp:auto --ckpt-dir`` resumed at step 2. With two or
+    more cards, ``dist_multi`` spawns two NCCL ranks (``launch.spawn``)
+    running ``MULTI_CASES`` — smoke, the LM at dp 2, sp 2 (ring and
+    Ulysses) and tp 2, the fsdp job with and without overlap, the
+    pipeline job, the llm job saved at dp 2 (resumed here on one rank) —
+    and ``MULTI_TRAINERS`` — ResNet-50 (K7/K8) at dp 2 and fsdp 2, ViT-B/16
+    at dp 2 and tp 2 — each against its one-rank run, the BatchNorm
+    running statistics equal on both ranks; with one card it says so and
+    runs nothing.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
@@ -713,6 +726,9 @@ def conv_kernel_phase(peaks) -> dict:
         # two phases read g and y twice: the least a two-phase design needs
         rec["K8"]["two_phase_bound_ms"] = (
             rec["K8"]["bytes"] + 2 * 2 * n * co) / peaks[1] * 1e3
+        if per_step:
+            rec["split_rows"] = k8_split_rows(bn, check, x, g, y, w, vecs,
+                                              relu, sums_p)
         if not per_step:
             rec["bn_bwd_stats"]["plain_ms"] = cuda_ms(
                 lambda: bn.bn_bwd_stats_plain(g, y, *vecs, relu), n=2)
@@ -763,6 +779,39 @@ def conv_kernel_phase(peaks) -> dict:
           "channel_sum": rec, "tolerance": CONV_TOL, "f32_tolerance": F32_TOL})
     path["channel_sum"] = rec
     return path
+
+
+def k8_split_rows(bn, check, x, g, y, w, vecs, relu: bool, sums_p) -> dict:
+    """K8 as a world of two data ranks runs it, on one card: the rows in
+    two halves, phase 0 on each and the sums added (the all-reduce), phase
+    1 on each half with ``n_total`` = N, dx concatenated and the two dW
+    added; against the plain version on all N rows (its own sums) within
+    ``CONV_TOL``, the sums within ``F32_TOL``, and the same bits twice."""
+    n = x.shape[0]
+    halves = (slice(0, n // 2), slice(n // 2, n))
+
+    def split():
+        sums = sum(bn.bn_bwd_stats(g[h], y[h], *vecs, relu) for h in halves)
+        dx = torch.cat([bn.bn_bwd_dx(g[h], y[h], w, *vecs, sums, relu, n)
+                        for h in halves])
+        dw = sum(bn.bn_bwd_dw(x[h], g[h], y[h], *vecs, sums, relu, n)
+                 for h in halves)
+        return sums, dx, dw
+
+    sums, dx, dw = split()
+    again = split()
+    torch.cuda.synchronize()
+    rec = {"halves": [n // 2, n - n // 2], "n_total": n,
+           "sums": check("bn_bwd_stats", sums.t(), sums_p.t(), F32_TOL),
+           "dx": check("bn_bwd_dx", dx, bn.bn_bwd_dx_plain(
+               g, y, w, *vecs, sums_p, relu), CONV_TOL),
+           "dw": check("bn_bwd_dw", dw, bn.bn_bwd_dw_plain(
+               x, g, y, *vecs, sums_p, relu), CONV_TOL),
+           "same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip((sums, dx, dw), again))}
+    if not rec["same_bits_twice"]:
+        raise AssertionError("K8 split rows: two runs differ")
+    return rec
 
 
 def port_launches() -> dict:
@@ -1943,6 +1992,96 @@ def dist_llm_phase(cfg, jobs, smi: str, train: dict, steps: int) -> dict:
     return done
 
 
+def dist_resnet_phase(rcfg, jobs, smi: str, train: dict, settings: dict,
+                      conv_launches, reset_conv) -> dict:
+    """ResNet-50 in the K7/K8 configuration through ``Trainer(rcfg,
+    MeshSpec(dp=1))`` in the NCCL group ``dist_smoke`` joined, measured as
+    ``resnet_train`` was (``settings``) from the same seeded weights and
+    batch: K7 at least 24 and each K8 kernel 9 launches a step, the final
+    loss within ``TOL`` of ``resnet_train``'s, step ms beside it. Then the
+    resnet50 job with ``--mesh dp:auto --ckpt-dir``: 2 steps, and a rerun
+    to 3 that resumes at 2."""
+    from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    reset_conv()
+    trainer = Trainer(rcfg, MeshSpec(dp=1))
+    m = trainer.measure(batch=rcfg.batch_size, **settings)
+    launches = conv_launches()
+    steps = (settings["warmup"] + settings["steps"] * settings["repeats"]
+             ) * settings["steps_per_call"]
+    want = train["final_loss"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        job = ["resnet50", "--mesh", "dp:auto", "--batch-per-chip", "64",
+               "--ckpt-dir", tmp]
+        rc1, first = run_job(jobs, [*job, "--steps", "2"])
+        rc2, again = run_job(jobs, [*job, "--steps", "3"])
+    rec = {"phase": "dist_resnet", "nvidia_smi": smi, "mesh": m["mesh"],
+           "steps_run": steps, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "final_loss": m["final_loss"], "resnet_train_final_loss": want,
+           "step_time_ms": m["step_time_ms"],
+           "resnet_train_step_time_ms": train["step_time_ms"],
+           "img_per_sec_per_chip": m["img_per_sec_per_chip"],
+           "mfu": m["mfu"], "step_stats": m["step_stats"],
+           "job": {"rc": [rc1, rc2], "resumed": again[0] if again else None,
+                   "done": again[-1] if again else None}}
+    emit(rec)
+    per_step = {"conv1x1_bwd_dx": 24, "conv1x1_bwd_dw": 24,
+                "bn_bwd_stats": 9, "bn_bwd_dx": 9, "bn_bwd_dw": 9}
+    for kname, k in per_step.items():
+        if launches[kname] < k * steps:
+            raise AssertionError(f"dist_resnet: {kname} launched "
+                                 f"{launches[kname]} times, expected >= "
+                                 f"{k * steps}")
+    if not abs(m["final_loss"] - want) <= TOL["atol"] + TOL["rtol"] * abs(
+            want):
+        raise AssertionError(f"dist_resnet: final loss {m['final_loss']}, "
+                             f"resnet_train's {want}")
+    if (rc1 or rc2 or again[0] != {"job": "resnet50", "resumed_at": 2}
+            or again[-1]["steps"] != 3 or again[-1]["mesh"]["dp"] != 1):
+        raise AssertionError(f"dist_resnet: the job did not resume: {rec}")
+    return rec
+
+
+def dist_vit_phase(vcfg, smi: str, train: dict, settings: dict) -> dict:
+    """ViT-B/16 through ``ViTTrainer(vcfg)`` (dp over the world) in the
+    NCCL group ``dist_smoke`` joined, measured as ``vit_train`` was
+    (``settings``): K4-K6 each at least once a layer (12) and step, K1-K3
+    never, the final loss within ``TOL`` of ``vit_train``'s, step ms
+    beside it."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    from kubeoperator_tpu_torch.workloads.vit import ViTTrainer
+
+    fa.reset_launches()
+    m = ViTTrainer(vcfg).measure(**settings)
+    launches = dict(fa.LAUNCHES)
+    steps = (settings["warmup"] + settings["steps"] * settings["repeats"]
+             ) * settings["steps_per_call"]
+    want = train["final_loss"]
+    rec = {"phase": "dist_vit", "nvidia_smi": smi, "mesh": m["mesh"],
+           "steps_run": steps, "launches": launches,
+           "final_loss": m["final_loss"], "vit_train_final_loss": want,
+           "step_time_ms": m["step_time_ms"],
+           "vit_train_step_time_ms": train["step_time_ms"],
+           "img_per_sec_per_chip": m["img_per_sec_per_chip"],
+           "mfu": m["mfu"], "step_stats": m["step_stats"]}
+    emit(rec)
+    n_layers = vcfg.encoder.n_layers
+    for kname, _ in PACKED_KERNELS:
+        if launches[kname] < n_layers * steps:
+            raise AssertionError(f"dist_vit: {kname} launched "
+                                 f"{launches[kname]} times, expected >= "
+                                 f"{n_layers * steps}")
+    if any(launches[k] for k, _ in KERNELS):
+        raise AssertionError(f"dist_vit: K1-K3 launched: {launches}")
+    if not abs(m["final_loss"] - want) <= TOL["atol"] + TOL["rtol"] * abs(
+            want):
+        raise AssertionError(f"dist_vit: final loss {m['final_loss']}, "
+                             f"vit_train's {want}")
+    return rec
+
+
 # dist_multi's cases: (name, job argv); the LM at the bench LM's widths,
 # 2 layers, batch 4 × 2,048, bf16; the MLP jobs print every step, the
 # warm-up ones (NCCL's first collectives) included, and time the rest
@@ -1961,15 +2100,74 @@ MULTI_CASES = (
                          *MULTI_MLP]),
     ("pipeline", ["pipeline", "--mesh", "pp:2", *MULTI_MLP]),
 )
+# dist_multi's trainer cases: (name, model, mesh), each MULTI_STEPS steps
+# on the global batch of 128 from seed 0 (64 a rank over dp and fsdp, 128
+# a rank over tp: ViT-B/16's 6 heads a rank, a packed width of 384) and
+# held against the same steps on one rank; ResNet-50 in the K7/K8
+# configuration
+MULTI_TRAINERS = (("resnet_dp2", "resnet", {"dp": 2}),
+                  ("resnet_fsdp2", "resnet", {"fsdp": 2}),
+                  ("vit_dp2", "vit", {"dp": 2}), ("vit_tp2", "vit", {"tp": 2}))
+MULTI_STEPS = 5
+
+
+def trainer_run(model: str, mesh: dict, steps: int = MULTI_STEPS) -> dict:
+    """``steps`` train steps of ResNet-50 (K7/K8) or ViT-B/16 at batch 128
+    over ``mesh`` (one device for {}): the losses, the fenced step ms and
+    the host's ms to enqueue a step (medians after the first), the port's
+    launches, whether every rank holds the same BatchNorm running
+    statistics, and the device seconds of NCCL's kernels in one more step
+    under the profiler (None without NCCL)."""
+    import torch.distributed as dist
+
+    from kubeoperator_tpu_torch.profile_lm import RESNET_K7_K8
+    from kubeoperator_tpu_torch.workloads import bn_fused, conv_vjp, costmodel
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+    from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
+
+    spec = MeshSpec(**mesh)
+    tr = (Trainer(RESNET_K7_K8, spec) if model == "resnet"
+          else ViTTrainer(ViTConfig(), spec))
+    state = tr.init_state()
+    images, labels = tr.synthetic_batch(128)
+    for mod in (fa, conv_vjp, bn_fused):
+        mod.reset_launches()
+    losses, times, enqueue = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = tr.train_step(state, images, labels)
+        enqueue.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = {**fa.LAUNCHES, **conv_vjp.LAUNCHES, **bn_fused.LAUNCHES}
+    nccl = costmodel.profiled_collective_seconds(tr.train_step, state,
+                                                 images, labels)
+    stats = [b.flatten() for b in state["model"].buffers()]
+    same = True
+    if stats and dist.is_initialized():
+        flat = torch.cat(stats)
+        hi, lo = flat.clone(), flat.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        same = bool(torch.equal(hi, lo))
+    return {"losses": losses, "step_ms": statistics.median(times[1:]) * 1e3,
+            "enqueue_ms": statistics.median(enqueue[1:]) * 1e3,
+            "nccl_device_s": nccl, "launches": launches,
+            "bn_stats_equal_across_ranks": same}
 
 
 def dist_multi_rank(rank: int, world: int, out: str, cases: tuple) -> None:
-    """One NCCL rank of ``dist_multi``: every case's job; rank 0 writes
-    the records and each case's flash launches to ``out``."""
+    """One NCCL rank of ``dist_multi``: every case's job, then
+    ``MULTI_TRAINERS``; rank 0 writes the records and each case's flash
+    launches, and the trainers' results, to ``out``."""
     from kubeoperator_tpu_torch.train import jobs
     from kubeoperator_tpu_torch.workloads import flash_attention as fa
 
-    results = {}
+    results = {name: trainer_run(model, mesh)
+               for name, model, mesh in MULTI_TRAINERS}
     for name, argv in cases:
         fa.reset_launches()
         buf = io.StringIO()
@@ -2002,13 +2200,19 @@ def mlp_serial_loss(jobs, argv: list) -> float:
 
 
 def dist_multi_phase(smi: str) -> dict:
-    """With two or more cards: ``MULTI_CASES`` on two NCCL ranks spawned
-    by ``launch.spawn``, each against its one-rank run in this process:
-    the LM's losses against the job without ``--mesh`` (within ``TOL``),
-    K1-K3 launched on every rank that runs flash (dp, tp: T 2,048 a rank;
-    sp runs ring or Ulysses einsums), the fsdp and pipeline jobs' first
-    loss against their layers run in order, overlap or not the same
-    losses, smoke's psum 2. With one card it says so and runs nothing."""
+    """With two or more cards: ``MULTI_CASES`` and ``MULTI_TRAINERS`` on
+    two NCCL ranks spawned by ``launch.spawn``, each against its one-rank
+    run in this process: the LM's losses against the job without
+    ``--mesh`` (within ``TOL``), K1-K3 launched on every rank that runs
+    flash (dp, tp: T 2,048 a rank; sp runs ring or Ulysses einsums), the
+    fsdp and pipeline jobs' first loss against their layers run in order,
+    overlap or not the same losses, smoke's psum 2; the llm job saved at dp
+    2 and resumed here on one rank for a third step, its loss against the
+    one-rank job's third; ResNet-50 (K7/K8) at dp 2 and fsdp 2 and ViT-B/16
+    at dp 2 and tp 2, their losses within ``TOL`` of one rank's, the
+    BatchNorm running statistics equal on both ranks, and every K7/K8
+    site of a rank's rows (K7 where its rows are a multiple of 128) or
+    K4-K6 every layer. With one card it says so and runs nothing."""
     from kubeoperator_tpu_torch.train import jobs, launch
 
     cards = torch.cuda.device_count()
@@ -2022,14 +2226,53 @@ def dist_multi_phase(smi: str) -> dict:
         for f in out.iterdir():
             f.unlink()
     out.mkdir(parents=True, exist_ok=True)
+    ckpt = out / "llm_ckpt"
+    cases = (*MULTI_CASES, ("llm_ckpt_dp2", [
+        "llm", *MULTI_LM, "--mesh", "dp:2", "--steps", "2", "--ckpt-dir",
+        str(ckpt)]))
     t0 = time.perf_counter()
-    launch.spawn(dist_multi_rank, 2, (str(out), MULTI_CASES), backend="nccl",
+    launch.spawn(dist_multi_rank, 2, (str(out), cases), backend="nccl",
                  store=str(out / "store"), timeout_s=300.0, deadline_s=900.0)
     seconds = time.perf_counter() - t0
     res = json.loads((out / "rank0.json").read_text())
     _, one = run_job(jobs, ["llm", *MULTI_LM])
     one_losses = [r["loss"] for r in one if "loss" in r]
     checks = {}
+    rc, resumed = run_job(jobs, ["llm", *MULTI_LM, "--ckpt-dir", str(ckpt)])
+    third = [r["loss"] for r in resumed if "loss" in r]
+    checks["llm_ckpt_dp2"] = {
+        "ok": (rc == 0 and resumed[0] == {"job": "llm", "resumed_at": 2}
+               and len(third) == 1 and abs(third[0] - one_losses[-1])
+               <= TOL["atol"] + TOL["rtol"] * abs(one_losses[-1])),
+        "saved_at_dp2": [r.get("loss") for r in
+                         res["llm_ckpt_dp2"]["records"] if "loss" in r],
+        "resumed": resumed[0], "third_loss": third,
+        "one_rank_third_loss": one_losses[-1]}
+    k7_sites_at_64 = sum(k for n, _, _, k in K7_SITES if (n // 2) % 128 == 0)
+    for name, model, mesh in MULTI_TRAINERS:
+        got, want = res[name], trainer_run(model, {})
+        ok = got["bn_stats_equal_across_ranks"] and all(
+            abs(a - b) <= TOL["atol"] + TOL["rtol"] * abs(b)
+            for a, b in zip(got["losses"], want["losses"]))
+        if model == "resnet":
+            rows = 64 if "dp" in mesh or "fsdp" in mesh else 128
+            per_step = {"conv1x1_bwd_dx": k7_sites_at_64 if rows == 64
+                        else 24, "bn_bwd_stats": 9, "bn_bwd_dx": 9,
+                        "bn_bwd_dw": 9}
+        else:
+            per_step = {k: 12 for k, _ in PACKED_KERNELS}
+        ok = ok and all(got["launches"][k] >= n * MULTI_STEPS
+                        for k, n in per_step.items())
+        checks[name] = {"ok": ok, "losses": got["losses"],
+                        "one_rank_losses": want["losses"],
+                        "step_ms": got["step_ms"],
+                        "one_rank_step_ms": want["step_ms"],
+                        "enqueue_ms": got["enqueue_ms"],
+                        "one_rank_enqueue_ms": want["enqueue_ms"],
+                        "nccl_device_s": got["nccl_device_s"],
+                        "launches": got["launches"],
+                        "bn_stats_equal_across_ranks":
+                            got["bn_stats_equal_across_ranks"]}
     for name, argv in MULTI_CASES:
         records = res[name]["records"]
         losses = [r["loss"] for r in records if "loss" in r and "step" in r]
@@ -2312,12 +2555,6 @@ def main() -> int:
     jobs_ckpt_phase(cfg, jobs, smi)
     emit({"phase": "jobs_total", "seconds": time.perf_counter() - jobs_t0})
 
-    # -- 5d. multi-device: the smoke and llm jobs in an NCCL group ----------
-    with torchrun_env():
-        dist_smoke_phase(jobs, smi)
-        dist_llm_phase(cfg, jobs, smi, m, total_steps)
-    dist_multi_phase(smi)
-
     # -- 6. main path: ViT-B/16 training on the packed kernels ---------------
     vcfg = ViTConfig()
     # the bench's ViT point's settings, so phase bench takes this number
@@ -2325,9 +2562,9 @@ def main() -> int:
         "steps", "warmup", "steps_per_call"))
     v_repeats, v_batch = 3, bench.VIT_BATCH
     fa.reset_launches()
-    vm = ViTTrainer(vcfg).measure(batch=v_batch, steps=v_steps,
-                                  warmup=v_warmup, steps_per_call=per_call,
-                                  repeats=v_repeats)
+    v_settings = dict(batch=v_batch, steps=v_steps, warmup=v_warmup,
+                      steps_per_call=per_call, repeats=v_repeats)
+    vm = ViTTrainer(vcfg).measure(**v_settings)
     vit_launches = dict(fa.LAUNCHES)
     v_total = (v_warmup + v_steps * v_repeats) * per_call
     enc = vcfg.encoder
@@ -2398,12 +2635,12 @@ def main() -> int:
 
     # -- 9. main path: ResNet-50 training on K7 and K8 ----------------------
     r_steps, r_warmup, r_repeats, r_per_call = 4, 2, 3, 8
+    r_settings = dict(steps=r_steps, warmup=r_warmup,
+                      steps_per_call=r_per_call, repeats=r_repeats)
     fa.reset_launches()
     reset_conv()
     trainer = Trainer(rcfg)
-    rm = trainer.measure(batch=rcfg.batch_size, steps=r_steps,
-                         warmup=r_warmup, steps_per_call=r_per_call,
-                         repeats=r_repeats)
+    rm = trainer.measure(batch=rcfg.batch_size, **r_settings)
     resnet_launches = conv_launches()
     r_total = (r_warmup + r_steps * r_repeats) * r_per_call
     emit({"phase": "resnet_train",
@@ -2474,6 +2711,19 @@ def main() -> int:
     # -- 10b. ResNet-50 with the dot2 backward -------------------------------
     resnet_dot2_phase(rcfg, smi, rm["step_time_ms"], conv_launches,
                       reset_conv)
+
+    # -- 10c. multi-device: the smoke, llm, ViT and ResNet paths in an NCCL
+    # group of one rank, each against its one-device phase; then two ranks
+    # where two cards are visible
+    dist_t0 = time.perf_counter()
+    with torchrun_env():
+        dist_smoke_phase(jobs, smi)
+        dist_llm_phase(cfg, jobs, smi, m, total_steps)
+        dist_vit_phase(vcfg, smi, vm, v_settings)
+        dist_resnet_phase(rcfg, jobs, smi, rm, r_settings, conv_launches,
+                          reset_conv)
+    emit({"phase": "dist_total", "seconds": time.perf_counter() - dist_t0})
+    dist_multi_phase(smi)
 
     # -- 11. K9's probe -----------------------------------------------------
     bp.reset_launches()

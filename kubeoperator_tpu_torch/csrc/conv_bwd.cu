@@ -83,7 +83,9 @@ constexpr int CH = 64;          // the products take channels in multiples
 constexpr int SUM_THREADS = 256;
 
 // What K8 needs to form dy from g and y (unused by K7). sums holds
-// [sum g' (= dbeta) | sum g'.xhat (= dgamma)], 2*Co floats.
+// [sum g' (= dbeta) | sum g'.xhat (= dgamma)], 2*Co floats, over the global
+// batch, and inv_n is 1 / its row count (under a mesh the kernels stream a
+// rank's rows of it).
 struct Bn {
   const bf16* y;
   const float *gamma, *beta, *mu, *inv, *sums;
@@ -248,11 +250,11 @@ bool bad_chunks(int n, int rows_per_chunk, int chunks, int step) {
 }
 
 Bn make_bn(const void* y, const void* gamma, const void* beta,
-           const void* mu, const void* inv, const void* sums, int n, int co,
-           int relu) {
+           const void* mu, const void* inv, const void* sums, int n_total,
+           int co, int relu) {
   return Bn{(const bf16*)y, (const float*)gamma, (const float*)beta,
             (const float*)mu, (const float*)inv, (const float*)sums,
-            (float)(1.0 / n), co, relu};
+            (float)(1.0 / n_total), co, relu};
 }
 
 // ---------------------------------------------------------------------------
@@ -999,26 +1001,27 @@ int ko_bn_bwd_stats(const void* g, const void* y, const void* gamma,
                              stream);
 }
 
-// K8 phase 1: dx = dy . w^T
+// K8 phase 1: dx = dy . w^T over n rows of a batch of n_total rows
 int ko_bn_bwd_dx(const void* g, const void* y, const void* w,
                  const void* gamma, const void* beta, const void* mu,
-                 const void* inv, const void* sums, void* dx, int n, int ci,
-                 int co, int relu, void* stream) {
-  const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n, co, relu);
-  if (bad_gemm(n, ci, co)) return (int)cudaErrorInvalidValue;
+                 const void* inv, const void* sums, void* dx, int n,
+                 int n_total, int ci, int co, int relu, void* stream) {
+  const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n_total, co, relu);
+  if (bad_gemm(n, ci, co) || n_total < n) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return relu ? k8_dx<true>(g, bn, w, dx, n, ci, co, s)
               : k8_dx<false>(g, bn, w, dx, n, ci, co, s);
 }
 
-// K8 phase 1: dW = x^T . dy (f32)
+// K8 phase 1: dW = x^T . dy (f32) over n rows of a batch of n_total rows
 int ko_bn_bwd_dw(const void* x, const void* g, const void* y,
                  const void* gamma, const void* beta, const void* mu,
                  const void* inv, const void* sums, void* dw, void* ws,
-                 int n, int ci, int co, int relu, int rows_per_chunk,
-                 int chunks, void* stream) {
-  const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n, co, relu);
-  if (bad_gemm(n, ci, co) || bad_chunks(n, rows_per_chunk, chunks, 64))
+                 int n, int n_total, int ci, int co, int relu,
+                 int rows_per_chunk, int chunks, void* stream) {
+  const Bn bn = make_bn(y, gamma, beta, mu, inv, sums, n_total, co, relu);
+  if (bad_gemm(n, ci, co) || n_total < n ||
+      bad_chunks(n, rows_per_chunk, chunks, 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return relu ? k8_dw<true>(x, g, bn, dw, ws, n, ci, co, rows_per_chunk,

@@ -53,10 +53,12 @@ SIGNATURES = {
         "ko_conv1x1_bwd_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "ko_bn_bwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
+        # (..., n, n_total, ci, co, ...): phase 1 streams n rows of a
+        # batch of n_total
         "ko_bn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P],
+                         _I, _P],
         "ko_bn_bwd_dw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _P],
+                         _I, _I, _I, _I, _P],
         "ko_channel_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }

@@ -9,15 +9,19 @@ Transformer classifier on a synthetic image stream) and ``serve`` (the
 token-generation HTTP endpoint). The counterparts of the ``cmd_*``
 functions in ``kubeoperator_tpu/train/jobs.py``, with the same flags plus
 ``--device``. ``llm`` and ``resnet50`` checkpoint to ``--ckpt-dir`` and
-resume from its latest checkpoint (one device); ``serve --ckpt-dir``
-serves the llm job's weights; ``--metrics-port`` serves the process
-registry on ``/metrics``.
+resume from its latest checkpoint, on one device or under a mesh, of the
+same shape or another; ``serve --ckpt-dir`` serves the llm job's weights,
+saved on one device or under a mesh; ``--metrics-port`` serves the
+process registry on ``/metrics``.
 
 A multi-device job is one process per device: ``torchrun
 --nproc-per-node N -m kubeoperator_tpu_torch.train.jobs ...`` (NCCL on N
 cards; gloo with ``--device cpu``). ``--mesh`` names the degrees
 (``dp:auto,tp:2``; ``auto`` takes the ranks the others leave). Only rank
-0 prints the records.
+0 prints the records. ``resnet50`` and ``vit`` train a global batch of
+``--batch-per-chip`` × the world's ranks, and each rank makes or reads only
+its block of it: the synthetic stream seeded by the block's index, the
+``.npy`` dataset's shard of that index.
 
     python -m kubeoperator_tpu_torch.train.jobs smoke
     torchrun --nproc-per-node 4 -m kubeoperator_tpu_torch.train.jobs llm \\
@@ -27,6 +31,13 @@ cards; gloo with ``--device cpu``). ``--mesh`` names the degrees
         --device cpu --mesh fsdp:2 [--no-overlap]
     torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs \\
         pipeline --device cpu --mesh pp:2
+    torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs \\
+        resnet50 --device cpu --mesh fsdp:2 --steps 2 --batch-per-chip 2 \\
+        --image-size 32 --depth 18 [--ckpt-dir DIR]
+    torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs vit \\
+        --device cpu --mesh tp:2 --steps 2 --batch-per-chip 2 \\
+        --image-size 32 --patch 8 --d-model 64 --heads 4 --layers 2 \\
+        --classes 10
     python -m kubeoperator_tpu_torch.train.jobs mnist [--device cpu --steps 6 \\
         --batch 16]
     python -m kubeoperator_tpu_torch.train.jobs llm --steps 10 --sample 16 \\
@@ -150,21 +161,34 @@ def maybe_start_metrics_server(port: int):
     return server
 
 
-def open_checkpoint(args: argparse.Namespace, state: dict, job: str):
+def open_checkpoint(args: argparse.Namespace, state: dict, job: str,
+                    trainer, lead: bool):
     """The job's ``WorkloadCheckpointer`` under ``--ckpt-dir`` (None
-    without one), with ``state`` restored in place from its latest
-    checkpoint, if any, announced as ``{"job", "resumed_at"}``."""
+    without one) for the trainer's layout, with ``state`` restored in
+    place from its latest checkpoint, if any, announced by ``lead`` as
+    ``{"job", "resumed_at"}``."""
     if not args.ckpt_dir:
         return None
     from kubeoperator_tpu_torch.workloads.checkpoint import (
         WorkloadCheckpointer,
     )
 
-    ckpt = WorkloadCheckpointer(args.ckpt_dir, max_to_keep=args.ckpt_keep)
+    ckpt = WorkloadCheckpointer(args.ckpt_dir, max_to_keep=args.ckpt_keep,
+                                mesh=trainer.mesh,
+                                placements=trainer.placements)
     if ckpt.latest_step() is not None:
         ckpt.restore(state)
-        emit({"job": job, "resumed_at": state["step"]})
+        if lead:
+            emit({"job": job, "resumed_at": state["step"]})
     return ckpt
+
+
+def finish_checkpoint(ckpt, state: dict) -> None:
+    """Save the last step unless the loop saved it, then close."""
+    if ckpt:
+        if ckpt.latest_step() != state["step"]:
+            ckpt.save(state["step"], state)
+        ckpt.close()
 
 
 def cmd_smoke(args: argparse.Namespace) -> int:
@@ -226,10 +250,10 @@ def cmd_llm(args: argparse.Namespace) -> int:
     """Train the transformer LM (``--experts`` > 0: MoE FFNs) over the
     ``--mesh`` of the ranks (ring or Ulysses attention when sp > 1,
     ``--sp-attention``) for ``--steps`` on a synthetic global batch,
-    checkpointing to ``--ckpt-dir`` and resuming from it (one device),
-    then sample ``--sample`` tokens from the trained model. The done
-    record carries the median step ms after the first step and, on a
-    card, MFU against the world's peak."""
+    checkpointing to ``--ckpt-dir`` and resuming from it, then sample
+    ``--sample`` tokens from the trained model. The done record carries
+    the median step ms after the first step and, on a card, MFU against
+    the world's peak."""
     refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
@@ -244,10 +268,6 @@ def cmd_llm(args: argparse.Namespace) -> int:
 
     world = dist_info["num_processes"]
     spec = parse_mesh(args.mesh, world)
-    if args.ckpt_dir and spec.n_devices > 1:
-        raise NotImplementedError(
-            f"--ckpt-dir under a mesh of {spec.n_devices} devices is not "
-            f"ported yet (ROADMAP queue 1, item 14f)")
     cfg = TransformerConfig(vocab_size=args.vocab, d_model=args.d_model,
                             n_heads=args.heads, n_layers=args.layers,
                             d_ff=args.d_ff or int(args.d_model * 8 / 3 / 32) * 32,
@@ -257,7 +277,7 @@ def cmd_llm(args: argparse.Namespace) -> int:
                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
     lt = LMTrainer(cfg, spec, device=args.device)
     state = lt.init_state()
-    ckpt = open_checkpoint(args, state, "llm")
+    ckpt = open_checkpoint(args, state, "llm", lt, lead)
     batch = args.batch or max(1, spec.dp * spec.fsdp)
     tokens = lt.synthetic_batch(batch, args.seq_len)
     times = []
@@ -272,10 +292,7 @@ def cmd_llm(args: argparse.Namespace) -> int:
         if lead and (step % max(1, args.steps // 10) == 0
                      or step == args.steps):
             emit({"job": "llm", "step": step, "loss": round(loss, 4)})
-    if ckpt:
-        if ckpt.latest_step() != state["step"]:    # not saved in the loop
-            ckpt.save(state["step"], state)
-        ckpt.close()
+    finish_checkpoint(ckpt, state)
     model = state["model"]
     if args.sample > 0 and spec.n_devices > 1:
         # every rank gathers the shards; rank 0 samples on one device
@@ -305,34 +322,41 @@ def cmd_llm(args: argparse.Namespace) -> int:
 
 
 def cmd_resnet50(args: argparse.Namespace) -> int:
-    """ResNet classification for ``--steps`` on the synthetic image stream
-    or ``--data-dir``, copied to the device with prefetch, checkpointing
-    to ``--ckpt-dir`` and resuming from it (step count and data stream
-    continue). The config is the JAX job's: ``TrainConfig`` defaults (so
-    no K7/K8 backward), the s2d stem for even images of at least 64,
-    warmup min(100, steps)."""
+    """Distributed ResNet classification (dp×fsdp over ``--mesh``) for
+    ``--steps`` on the synthetic image stream or ``--data-dir``, each rank
+    its block of the global batch, copied to the device with prefetch,
+    checkpointing to ``--ckpt-dir`` and resuming from it (step count and
+    data stream continue). The config is the JAX job's: ``TrainConfig``
+    defaults (so no K7/K8 backward), the s2d stem for even images of at
+    least 64, warmup min(100, steps)."""
     refuse_unported(args)
+    dist_info = maybe_initialize_distributed(args.device)
+    lead = dist_info["process_id"] == 0
     from kubeoperator_tpu_torch.workloads import data as data_pipe
+    from kubeoperator_tpu_torch.workloads.sharding import batch_index
     from kubeoperator_tpu_torch.workloads.train import TrainConfig, Trainer
 
+    world = dist_info["num_processes"]
+    spec = parse_mesh(args.mesh, world)
     s2d_ok = args.image_size >= 64 and args.image_size % 2 == 0
-    cfg = TrainConfig(batch_size=args.batch_per_chip,
+    cfg = TrainConfig(batch_size=args.batch_per_chip * world,
                       image_size=args.image_size, depth=args.depth,
                       total_steps=args.steps,
                       warmup_steps=min(100, args.steps),
                       stem="space_to_depth" if s2d_ok else "conv")
-    # a mesh above one device raises in the trainer (ROADMAP item 14b)
-    spec = parse_mesh(args.mesh, 1) if args.mesh else None
     tr = Trainer(cfg, spec, device=args.device)
     state = tr.init_state()
-    ckpt = open_checkpoint(args, state, "resnet50")
+    ckpt = open_checkpoint(args, state, "resnet50", tr, lead)
     start = state["step"]
+    block, blocks = batch_index(tr.mesh)
+    local = cfg.batch_size // blocks
     if args.data_dir:
         source = data_pipe.NpyDataset(args.data_dir).batches(
-            cfg.batch_size, seed=0, skip_batches=start)
+            local, seed=0, shard_id=block, num_shards=blocks,
+            skip_batches=start)
     else:
         source = data_pipe.synthetic_image_batches(
-            cfg.batch_size, cfg.image_size, cfg.num_classes, seed=0,
+            local, cfg.image_size, cfg.num_classes, seed=block,
             steps=args.steps - start, start=start)
     t0 = time.perf_counter()
     for images, labels in data_pipe.prefetch_to_device(source, tr.device):
@@ -342,31 +366,36 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
         step = state["step"]
         if ckpt and args.ckpt_every and step % args.ckpt_every == 0:
             ckpt.save(step, state)
-        if step % max(1, args.steps // 10) == 0 or step == args.steps:
+        if lead and (step % max(1, args.steps // 10) == 0
+                     or step == args.steps):
             emit({"job": "resnet50", "step": step,
                   "loss": round(float(metrics["loss"]), 4)})
     dt = time.perf_counter() - t0
     img_s = cfg.batch_size * (state["step"] - start) / dt if dt > 0 else 0.0
-    if ckpt:
-        if ckpt.latest_step() != state["step"]:    # not saved in the loop
-            ckpt.save(state["step"], state)
-        ckpt.close()
-    emit({"job": "resnet50", "done": True, "steps": state["step"],
-          "chips": 1, "device": str(tr.device), "img_per_sec": round(img_s, 1),
-          "img_per_sec_per_chip": round(img_s, 1)})
+    finish_checkpoint(ckpt, state)
+    if lead:
+        emit({"job": "resnet50", "done": True, "steps": state["step"],
+              "chips": world, "mesh": dict(spec.sizes()),
+              "device": str(tr.device), "img_per_sec": round(img_s, 1),
+              "img_per_sec_per_chip": round(img_s / world, 1), **dist_info})
     return 0
 
 
 def cmd_vit(args: argparse.Namespace) -> int:
-    """Vision Transformer classification for ``--steps`` on the synthetic
-    image stream, copied to the device with prefetch. The encoder is built
-    as the JAX job builds it: ``TransformerConfig`` defaults (attention
-    ``auto``, remat ``dots``) with d_ff = 4·d_model, non-causal; at 196
-    patches ``auto`` takes the dense attention path."""
+    """Vision Transformer classification over ``--mesh`` for ``--steps``
+    on the synthetic image stream, each rank its block of the global batch
+    (tp and sp ranks of one block the same rows), copied to the device
+    with prefetch. The encoder is built as the JAX job builds it:
+    ``TransformerConfig`` defaults (attention ``auto``, remat ``dots``)
+    with d_ff = 4·d_model, non-causal; at 196 patches ``auto`` takes the
+    dense attention path."""
     refuse_unported(args)
+    dist_info = maybe_initialize_distributed(args.device)
+    lead = dist_info["process_id"] == 0
     from kubeoperator_tpu_torch.workloads.data import (
         prefetch_to_device, synthetic_image_batches,
     )
+    from kubeoperator_tpu_torch.workloads.sharding import batch_index
     from kubeoperator_tpu_torch.workloads.transformer import TransformerConfig
     from kubeoperator_tpu_torch.workloads.vit import ViTConfig, ViTTrainer
 
@@ -376,24 +405,30 @@ def cmd_vit(args: argparse.Namespace) -> int:
         max_seq_len=(args.image_size // args.patch) ** 2)
     cfg = ViTConfig(num_classes=args.classes, image_size=args.image_size,
                     patch=args.patch, encoder=enc)
-    # a mesh above one device raises in the trainer (ROADMAP item 14b)
-    spec = parse_mesh(args.mesh, 1) if args.mesh else None
+    world = dist_info["num_processes"]
+    spec = parse_mesh(args.mesh, world)
     tr = ViTTrainer(cfg, spec, device=args.device)
     state = tr.init_state()
-    batch = args.batch_per_chip
-    source = synthetic_image_batches(batch, args.image_size, args.classes,
-                                     seed=0, steps=args.steps)
+    batch = args.batch_per_chip * world
+    block, blocks = batch_index(tr.mesh)
+    source = synthetic_image_batches(batch // blocks, args.image_size,
+                                     args.classes, seed=block,
+                                     steps=args.steps)
     t0 = time.perf_counter()
     for images, labels in prefetch_to_device(source, tr.device):
         state, metrics = tr.train_step(state, images, labels)
         step = state["step"]
-        if step % max(1, args.steps // 5) == 0 or step == args.steps:
+        if lead and (step % max(1, args.steps // 5) == 0
+                     or step == args.steps):
             emit({"job": "vit", "step": step,
                   "loss": round(float(metrics["loss"]), 4)})
     dt = time.perf_counter() - t0
-    emit({"job": "vit", "done": True, "steps": args.steps, "chips": 1,
-          "device": str(tr.device),
-          "img_per_sec": round(batch * args.steps / dt, 1)})
+    img_s = batch * args.steps / dt
+    if lead:
+        emit({"job": "vit", "done": True, "steps": args.steps,
+              "chips": world, "mesh": dict(spec.sizes()),
+              "device": str(tr.device), "img_per_sec": round(img_s, 1),
+              "img_per_sec_per_chip": round(img_s / world, 1), **dist_info})
     return 0
 
 
@@ -821,13 +856,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "over every rank)")
     lm.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint here every --ckpt-every steps and at "
-                         "the end; resume from the latest on restart (one "
-                         "device)")
+                         "the end; resume from the latest on restart (any "
+                         "mesh)")
     lm.add_argument("--ckpt-every", type=int, default=50)
     lm.add_argument("--ckpt-keep", type=int, default=3)
 
-    rn = sub.add_parser("resnet50", help="ResNet classification (one "
-                                         "device)")
+    rn = sub.add_parser("resnet50", help="ResNet classification over a "
+                                         "dp×fsdp mesh")
     rn.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
     rn.add_argument("--steps", type=int, default=200)
@@ -836,10 +871,12 @@ def build_parser() -> argparse.ArgumentParser:
     rn.add_argument("--depth", type=int, default=50,
                     help="ResNet depth (18/34/50/101/152)")
     rn.add_argument("--mesh", type=str, default=None,
-                    help="not ported: a mesh above one device raises")
+                    help="dp and fsdp, e.g. fsdp:auto or dp:2,fsdp:4 "
+                         "(default dp over every rank)")
     rn.add_argument("--ckpt-dir", type=str, default=None,
                     help="checkpoint here every --ckpt-every steps and at "
-                         "the end; resume from the latest on restart")
+                         "the end; resume from the latest on restart (any "
+                         "mesh)")
     rn.add_argument("--ckpt-every", type=int, default=50)
     rn.add_argument("--ckpt-keep", type=int, default=3)
     rn.add_argument("--data-dir", type=str, default=None,
@@ -847,7 +884,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "default: synthetic stream")
 
     vt = sub.add_parser("vit", help="Vision Transformer classification "
-                                    "(one device)")
+                                    "over a dp×fsdp×tp×sp mesh")
     vt.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
     vt.add_argument("--steps", type=int, default=50)
@@ -859,7 +896,7 @@ def build_parser() -> argparse.ArgumentParser:
     vt.add_argument("--layers", type=int, default=12)
     vt.add_argument("--classes", type=int, default=1000)
     vt.add_argument("--mesh", type=str, default=None,
-                    help="not ported: a mesh above one device raises")
+                    help="e.g. dp:auto,tp:2 (default dp over every rank)")
 
     sv = sub.add_parser("serve", help="KV-cached generation HTTP endpoint "
                                       "(one device)")

@@ -23,14 +23,27 @@ rows to [H, W, B, C] so that its operands were bitcasts; channel sums and
 1×1 products do not depend on row order, so here x, g and y are the free
 ``[N, C]`` views of the NHWC tensors and dx comes back in [B, H, W, C]
 order.
+
+Under a mesh the batch is split over the data groups (dp, fsdp) and the
+statistics are the global batch's, as GSPMD computes them for the
+reference's global arrays: ``batch_moments`` sums Σy and Σy² over the
+groups (``collectives.psum``, whose backward sums too) and divides by the
+global row count. K8 splits at its phase boundary: phase 0 on the rank's
+rows, its [2, Co] sums all-reduced over the groups, then phase 1 on the
+rank's rows with the global sums and ``n_total``, the global row count
+(SyncBatchNorm's backward). dγ and dβ stay the rank's own sums: the
+trainer sums parameter gradients over the data axes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from kubeoperator_tpu_torch import kernels
+from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads.conv_vjp import (
     _lecun_normal_, check_channels, check_cuda, conv2d_nhwc, k8_dw_chunks,
     stream_of,
@@ -53,18 +66,38 @@ def sum_chunks(n: int) -> tuple[int, int]:
     return rows, -(-n // rows)
 
 
+def data_size(groups) -> int:
+    """Ranks the global batch is split over: the product of the data
+    groups' sizes."""
+    return math.prod(cl.group_size(g) for g in groups)
+
+
+def batch_moments(xf: torch.Tensor, groups=()) -> tuple:
+    """(E[x], E[x²]) per channel of the NHWC f32 ``xf`` over the global
+    batch: the rows of every rank of ``groups`` (the data groups). With no
+    group, the local means; else Σx and Σx² summed over the groups, whose
+    backward sums each rank's gradient too, over the global row count."""
+    if not groups:
+        return xf.mean((0, 1, 2)), (xf * xf).mean((0, 1, 2))
+    rows = xf.numel() // xf.shape[-1] * data_size(groups)
+    sums = cl.psum_over(torch.stack([xf.sum((0, 1, 2)),
+                                     (xf * xf).sum((0, 1, 2))]), groups)
+    return sums[0] / rows, sums[1] / rows
+
+
 def forward_math(x, kernel4, gamma, beta, eps: float, relu: bool,
-                 mean=None, var=None):
+                 mean=None, var=None, groups=()):
     """conv (1×1, stride 1) → stats → normalize → relu, as
     ``bn_fused._forward_math``: statistics in f32 from the conv output y
     (var = E[y²] − E[y]², not clipped), the output (y − μ)·(γ·inv) + β
     rounded to x's dtype, then ``maximum(·, 0)``. mean and var default to
-    the batch statistics. Returns (out, mean, var, y, inv)."""
+    the batch statistics, global over ``groups`` (``batch_moments``).
+    Returns (out, mean, var, y, inv)."""
     y = conv2d_nhwc(x, kernel4, (1, 1), ((0, 0), (0, 0)))
     yf = y.float()
     if mean is None:
-        mean = yf.mean((0, 1, 2))
-        var = (yf * yf).mean((0, 1, 2)) - mean * mean
+        mean, msq = batch_moments(yf, groups)
+        var = msq - mean * mean
     inv = torch.rsqrt(var + eps)
     pre = ((yf - mean) * (gamma * inv) + beta).to(x.dtype)
     out = torch.maximum(pre, pre.new_zeros(())) if relu else pre
@@ -89,24 +122,31 @@ def bn_bwd_stats_plain(g2, y2, gamma, beta, mu, inv, relu: bool):
     return torch.stack([g.sum(0), (g * xhat).sum(0)])
 
 
-def _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu: bool, dtype):
-    """K8's dy = γ·inv·(g′ − Σg′/N − x̂·Σg′x̂/N) rounded to ``dtype``."""
+def _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu: bool, dtype,
+              n_total: int):
+    """K8's dy = γ·inv·(g′ − Σg′/N − x̂·Σg′x̂/N) rounded to ``dtype``, N
+    the global row count ``n_total``."""
     g, xhat = _gate_plain(g2, y2, gamma, beta, mu, inv, relu)
-    inv_n = 1.0 / g2.shape[0]
+    inv_n = 1.0 / n_total
     return ((gamma * inv) * (g - sums[0] * inv_n - xhat * (sums[1] * inv_n))
             ).to(dtype)
 
 
-def bn_bwd_dx_plain(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool):
+def bn_bwd_dx_plain(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool,
+                    n_total: int | None = None):
     """K8's phase-1 dx = dy·wᵀ, f32 accumulation, in w's dtype (the model
-    dtype: x and the kernel are promoted together)."""
-    dy = _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu, w.dtype)
+    dtype: x and the kernel are promoted together). ``sums`` and
+    ``n_total`` are the global batch's (default: these rows')."""
+    dy = _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu, w.dtype,
+                   n_total or g2.shape[0])
     return torch.matmul(dy.float(), w.float().t()).to(w.dtype)
 
 
-def bn_bwd_dw_plain(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool):
-    """K8's phase-1 dW = xᵀ·dy in f32."""
-    dy = _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu, x2.dtype)
+def bn_bwd_dw_plain(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool,
+                    n_total: int | None = None):
+    """K8's phase-1 dW = xᵀ·dy in f32, over these rows."""
+    dy = _dy_plain(g2, y2, gamma, beta, mu, inv, sums, relu, x2.dtype,
+                   n_total or g2.shape[0])
     return torch.matmul(x2.float().t(), dy.float())
 
 
@@ -147,12 +187,25 @@ def bn_bwd_stats(g2, y2, gamma, beta, mu, inv, relu: bool) -> torch.Tensor:
     return sums
 
 
-def bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool):
+def _rows_total(name: str, n: int, n_total: int | None) -> int:
+    if n_total is None:
+        return n
+    if n_total < n:
+        raise ValueError(f"{name}: n_total {n_total} below the {n} rows "
+                         f"given")
+    return n_total
+
+
+def bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool,
+              n_total: int | None = None):
     """K8's phase-1 dx, ``ko_bn_bwd_dx`` for CUDA tensors, the plain
-    version for CPU ones."""
+    version for CPU ones; ``n_total`` is the global row count N of dy's
+    means (default: g2's rows)."""
     if kernels.runs_plain(g2):
-        return bn_bwd_dx_plain(g2, y2, w, gamma, beta, mu, inv, sums, relu)
+        return bn_bwd_dx_plain(g2, y2, w, gamma, beta, mu, inv, sums, relu,
+                               n_total)
     n, co = g2.shape
+    n_total = _rows_total("bn_bwd_dx", n, n_total)
     ci = w.shape[0]
     vecs = (gamma, beta, mu, inv)
     _check_bn("bn_bwd_dx", g2, y2, vecs, (w, (ci, co), torch.bfloat16),
@@ -162,18 +215,21 @@ def bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu: bool):
     lib = kernels.load("conv_bwd")
     kernels.check(lib.ko_bn_bwd_dx(
         g2.data_ptr(), y2.data_ptr(), w.data_ptr(),
-        *(v.data_ptr() for v in vecs), sums.data_ptr(), dx.data_ptr(), n, ci,
-        co, int(relu), stream_of(g2)), "bn_bwd_dx")
+        *(v.data_ptr() for v in vecs), sums.data_ptr(), dx.data_ptr(), n,
+        n_total, ci, co, int(relu), stream_of(g2)), "bn_bwd_dx")
     LAUNCHES["bn_bwd_dx"] += 1
     return dx
 
 
-def bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool):
+def bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool,
+              n_total: int | None = None):
     """K8's phase-1 dW (f32), ``ko_bn_bwd_dw`` for CUDA tensors, the plain
-    version for CPU ones."""
+    version for CPU ones; ``n_total`` as for ``bn_bwd_dx``."""
     if kernels.runs_plain(x2):
-        return bn_bwd_dw_plain(x2, g2, y2, gamma, beta, mu, inv, sums, relu)
+        return bn_bwd_dw_plain(x2, g2, y2, gamma, beta, mu, inv, sums, relu,
+                               n_total)
     n, ci = x2.shape
+    n_total = _rows_total("bn_bwd_dw", n, n_total)
     co = g2.shape[1]
     vecs = (gamma, beta, mu, inv)
     _check_bn("bn_bwd_dw", g2, y2, vecs, (x2, (n, ci), torch.bfloat16),
@@ -186,33 +242,40 @@ def bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu: bool):
     kernels.check(lib.ko_bn_bwd_dw(
         x2.data_ptr(), g2.data_ptr(), y2.data_ptr(),
         *(v.data_ptr() for v in vecs), sums.data_ptr(), dw.data_ptr(),
-        ws.data_ptr(), n, ci, co, int(relu), rows, chunks, stream_of(x2)),
-        "bn_bwd_dw")
+        ws.data_ptr(), n, n_total, ci, co, int(relu), rows, chunks,
+        stream_of(x2)), "bn_bwd_dw")
     LAUNCHES["bn_bwd_dw"] += 1
     return dw
 
 
-def conv_bn_relu_bwd(x2, g2, y2, w, gamma, beta, mu, inv, relu: bool):
+def conv_bn_relu_bwd(x2, g2, y2, w, gamma, beta, mu, inv, relu: bool,
+                     groups=()):
     """K8: the fused backward (see the module docstring), phase 0 then the
     two phase-1 products; on the card three launches in stream order,
-    on the CPU the plain versions. Returns (dx, dW f32, dγ, dβ)."""
+    on the CPU the plain versions. Under data ``groups`` the phase-0 sums
+    are all-reduced over them between the phases and phase 1 takes the
+    global row count. Returns (dx, dW f32, dγ, dβ), dγ and dβ this rank's
+    share."""
     sums = bn_bwd_stats(g2, y2, gamma, beta, mu, inv, relu)
-    dx = bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, sums, relu)
-    dw = bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, sums, relu)
+    total = cl.psum_over(sums, groups)
+    n_total = g2.shape[0] * data_size(groups)
+    dx = bn_bwd_dx(g2, y2, w, gamma, beta, mu, inv, total, relu, n_total)
+    dw = bn_bwd_dw(x2, g2, y2, gamma, beta, mu, inv, total, relu, n_total)
     return dx, dw, sums[1], sums[0]
 
 
 class _FusedTrain(torch.autograd.Function):
-    """(out, μ, var) of the unit with batch statistics; the gradient of out
-    flows to x, w, γ, β through K8 (μ and var feed only the running-stat
-    update, as the JAX package's stop_gradient'd outputs do)."""
+    """(out, μ, var) of the unit with batch statistics, global over the
+    data ``groups``; the gradient of out flows to x, w, γ, β through K8 (μ
+    and var feed only the running-stat update, as the JAX package's
+    stop_gradient'd outputs do)."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, relu: bool, eps: float):
+    def forward(ctx, x, w, gamma, beta, relu: bool, eps: float, groups):
         out, mu, var, y, inv = forward_math(x, w[None, None], gamma, beta,
-                                            eps, relu)
+                                            eps, relu, groups=groups)
         ctx.save_for_backward(x, w, y, gamma, beta, mu, inv)
-        ctx.relu = relu
+        ctx.relu, ctx.groups = relu, groups
         ctx.mark_non_differentiable(mu, var)
         return out, mu, var
 
@@ -222,8 +285,9 @@ class _FusedTrain(torch.autograd.Function):
         n = x.shape[0] * x.shape[1] * x.shape[2]
         dx, dw, dgamma, dbeta = conv_bn_relu_bwd(
             x.reshape(n, -1), g.contiguous().reshape(n, -1),
-            y.reshape(n, -1), w, gamma, beta, mu, inv, ctx.relu)
-        return dx.view(x.shape), dw.to(w.dtype), dgamma, dbeta, None, None
+            y.reshape(n, -1), w, gamma, beta, mu, inv, ctx.relu, ctx.groups)
+        return (dx.view(x.shape), dw.to(w.dtype), dgamma, dbeta, None, None,
+                None)
 
 
 class FusedConvBN(nn.Module):
@@ -233,7 +297,9 @@ class FusedConvBN(nn.Module):
     In training mode the batch statistics are used and the running ones
     updated (momentum 0.9); with N = B·H·W not a multiple of 128 the
     forward math runs under plain autograd instead (``bn_fused.py:258``).
-    In eval mode the running statistics normalize."""
+    ``stat_groups`` (set by ``sharding.set_data_groups``) are the data groups
+    whose global batch the statistics cover; N is this rank's rows. In
+    eval mode the running statistics normalize."""
 
     def __init__(self, in_features: int, features: int, relu: bool = True,
                  momentum: float = 0.9, eps: float = 1e-5,
@@ -247,6 +313,7 @@ class FusedConvBN(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.relu, self.momentum, self.eps = relu, momentum, eps
         self.dtype, self.zero_scale = dtype, zero_scale
+        self.stat_groups: list = []
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         _lecun_normal_(self.kernel, self.kernel.shape[2], gen)
@@ -260,10 +327,12 @@ class FusedConvBN(nn.Module):
                                 self.relu, mean=self.mean, var=self.var)[0]
         if (x.shape[0] * x.shape[1] * x.shape[2]) % 128:
             out, mu, var, _, _ = forward_math(x, kernel, self.scale,
-                                              self.bias, self.eps, self.relu)
+                                              self.bias, self.eps, self.relu,
+                                              groups=self.stat_groups)
         else:
             out, mu, var = _FusedTrain.apply(x, kernel[0, 0], self.scale,
-                                             self.bias, self.relu, self.eps)
+                                             self.bias, self.relu, self.eps,
+                                             self.stat_groups)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mu)

@@ -22,6 +22,12 @@ here is a ``torch.autograd.Function`` whose backward is its transpose:
 * ``copy_to(x, group)``: the identity; backward ``psum`` (Megatron's
   "f", before a column-parallel product, and on a replicated parameter
   whose per-rank gradients must be summed).
+* ``psum(x, group)``: ``psum``; backward ``psum`` too, the transpose JAX
+  gives it. A statistic of the global batch (BatchNorm's moments under
+  dp×fsdp) needs it: each rank's rows feed a value that every rank's loss
+  reads, so each rank's gradient of it is the sum of all ranks'.
+  ``reduce_from``'s identity backward is right only where the value is
+  replicated downstream under tp.
 
 ``group`` is a process group, or None for an axis of one rank; then each
 function is the identity, so the same code runs on one device with no
@@ -203,6 +209,34 @@ class _CopyTo(torch.autograd.Function):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _Psum.apply(x, group)
+
+
+def psum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``psum`` over several groups (over their product)."""
+    for g in groups:
+        x = psum(x, g)
+    return x
 
 
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:

@@ -34,14 +34,13 @@ from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads import sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 from kubeoperator_tpu_torch.workloads.train import (
-    peak_flops_per_chip, refuse_mesh, resolve_device, step_stats,
-    timed_steps,
+    peak_flops_per_chip, resolve_device, step_stats, timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
     Transformer, TransformerConfig, flops_per_token, param_axes,
 )
 
-__all__ = ["LMTrainer", "MeshSpec", "lm_loss", "refuse_mesh",
+__all__ = ["LMTrainer", "MeshSpec", "lm_loss",
            "vocab_parallel_cross_entropy"]
 
 
@@ -122,9 +121,6 @@ class LMTrainer:
     def full_params(self, model: Transformer, grads: bool = False) -> dict:
         """The whole state dict (or its gradients) on every rank, from the
         shards (a collective under a mesh)."""
-        if not self.placements:
-            return {n: (p.grad if grads else p).detach()
-                    for n, p in model.named_parameters()}
         return sharding.full_state(model, self.placements, self.mesh, grads)
 
     # -- step --------------------------------------------------------------

@@ -35,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeoperator_tpu_torch.workloads.bn_fused import FusedConvBN
+from kubeoperator_tpu_torch.workloads.bn_fused import (
+    FusedConvBN, batch_moments,
+)
 from kubeoperator_tpu_torch.workloads.conv_vjp import (
     Conv, _lecun_normal_, pad_nhwc, same_pads,
 )
@@ -49,7 +51,10 @@ FUSED_MIN_HW = 3136     # 56 × 56: block inputs at least this large fuse
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over the channel axis of NHWC input: ``scale``
     and ``bias`` parameters, running ``mean`` and ``var`` buffers. Batch
-    statistics in training mode, running ones in eval mode."""
+    statistics in training mode, running ones in eval mode. Under a mesh
+    ``stat_groups`` (set by ``sharding.set_data_groups``) are the data groups:
+    the statistics are then the global batch's (``bn_fused.batch_moments``)
+    and the running buffers equal on every rank."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
@@ -61,6 +66,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
         self.dtype, self.zero_scale = dtype, zero_scale
+        self.stat_groups: list = []
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn.init.constant_(self.scale, 0.0 if self.zero_scale else 1.0)
@@ -69,9 +75,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = xf.mean((0, 1, 2))
-            var = torch.maximum((xf * xf).mean((0, 1, 2)) - mean * mean,
-                                xf.new_zeros(()))
+            mean, msq = batch_moments(xf, self.stat_groups)
+            var = torch.maximum(msq - mean * mean, xf.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -24,6 +24,10 @@ inner, and only those above 1 are in the mesh.
 ``parallelize`` places a model built and loaded whole on every rank:
 it keeps each rank's tp shard of every parameter and replaces fsdp-split
 parameters by their shard, gathered on access through a parametrization.
+A parameter's placement comes from its logical names (the LM, the ViT) or
+from its shape (``place_by_shape``, the ResNet's rule).
+``set_data_groups`` hands the data groups to the BatchNorm modules, whose
+statistics cover the global batch.
 The ZeRO-3 step with explicit gather/compute overlap
 (``fsdp_overlapped_loss_fn``) follows at the end.
 """
@@ -241,7 +245,8 @@ class FsdpGather(nn.Module):
         self.group, self.dim = group, dim
 
     def forward(self, shard):
-        return cl.all_gather(shard, self.group, self.dim)
+        # contiguous: a kernel takes the gathered weight as it is (K7, K8)
+        return cl.all_gather(shard, self.group, self.dim).contiguous()
 
     def right_inverse(self, whole):
         return local_block(whole, cl.group_rank(self.group),
@@ -249,9 +254,11 @@ class FsdpGather(nn.Module):
 
 
 def parallelize(model: nn.Module, mesh, spec: MeshSpec,
-                axes_of: Callable[[str], Sequence[str]]) -> dict:
+                axes_of: Callable[[str], Sequence[str]] | None = None
+                ) -> dict:
     """Place a model that every rank built and loaded whole: each
-    parameter ``name`` has the logical names ``axes_of(name)``; a dim
+    parameter ``name`` has the logical names ``axes_of(name)`` or, with no
+    ``axes_of``, the placement ``place_by_shape`` gives its shape; a dim
     ruled to tp keeps this rank's block, a dim ruled to fsdp becomes an
     ``FsdpGather`` parametrization over this rank's block. Returns {name:
     placement} for ``unshard_tensor`` and the gradient reduction. The
@@ -259,7 +266,8 @@ def parallelize(model: nn.Module, mesh, spec: MeshSpec,
     placements = {}
     fsdp = axis_group(mesh, "fsdp")
     for name, p in list(model.named_parameters()):
-        spec_dims = placement(axes_of(name), spec)
+        spec_dims = (place_by_shape(p, spec) if axes_of is None
+                     else placement(axes_of(name), spec))
         placements[name] = spec_dims
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner)
@@ -274,19 +282,32 @@ def parallelize(model: nn.Module, mesh, spec: MeshSpec,
     return placements
 
 
-def reduce_grads(model: nn.Module, placements: dict, mesh) -> None:
-    """Sum every gradient over the data axes its parameter is replicated
-    on: dp and sp always, fsdp unless the parameter is split over it (the
-    gather's reduce-scatter summed it then). Parameters replicated over tp
-    need no sum: their gradients are equal on every tp rank. One flat
-    all-reduce per group and set of parameters."""
+def set_data_groups(model: nn.Module, mesh) -> None:
+    """Hand the data groups (dp, fsdp) to every module with
+    ``stat_groups`` (``BatchNorm``, ``FusedConvBN``): their batch
+    statistics then cover the global batch."""
+    groups = data_groups(mesh)
+    for m in model.modules():
+        if hasattr(m, "stat_groups"):
+            m.stat_groups = groups
+
+
+def reduce_grads(model: nn.Module, placements: dict, mesh,
+                 axes: Sequence[str] = ("dp", "fsdp", "sp")) -> None:
+    """Sum every gradient over the ``axes`` that split the work (dp and sp
+    for the LM; the ViT's sp ranks compute alike and pass dp and fsdp),
+    each where its parameter is replicated: fsdp only where the parameter
+    is not split over it (the gather's reduce-scatter summed it then).
+    Parameters replicated over tp need no sum: their gradients are equal
+    on every tp rank. One flat all-reduce per group and set of
+    parameters."""
     buckets: dict[tuple, list] = {}
-    params = dict(_placed_params(model))
+    params = dict(placed_params(model))
     for name, spec_dims in placements.items():
-        axes = tuple(a for a in ("dp", "fsdp", "sp")
-                     if axis_size(mesh, a) > 1 and a not in spec_dims)
-        if axes:
-            buckets.setdefault(axes, []).append(params[name])
+        axes_here = tuple(a for a in axes
+                          if axis_size(mesh, a) > 1 and a not in spec_dims)
+        if axes_here:
+            buckets.setdefault(axes_here, []).append(params[name])
     for axes, ps in buckets.items():
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in ps]
@@ -297,7 +318,7 @@ def reduce_grads(model: nn.Module, placements: dict, mesh) -> None:
             p.grad = g.view_as(p).clone()
 
 
-def _placed_params(model: nn.Module):
+def placed_params(model: nn.Module):
     """(name before parametrization, local parameter) pairs."""
     for name, p in model.named_parameters():
         yield name.replace("parametrizations.", "").replace(
@@ -307,11 +328,12 @@ def _placed_params(model: nn.Module):
 def full_state(model: nn.Module, placements: dict, mesh,
                grads: bool = False) -> dict:
     """{name: whole tensor} of the parameters (or their gradients) on
-    every rank, from each rank's shards (a collective)."""
+    every rank, from each rank's shards (a collective; a parameter with no
+    placement is whole already)."""
     out = {}
-    for name, p in _placed_params(model):
+    for name, p in placed_params(model):
         x = p.grad if grads else p
-        out[name] = unshard_tensor(x, placements[name], mesh)
+        out[name] = unshard_tensor(x, placements.get(name, ()), mesh)
     return out
 
 

@@ -2,8 +2,17 @@
 trainer of the port shares: counterparts of ``kubeoperator_tpu/workloads/
 train.py`` (``TrainConfig``, ``lr_schedule``, ``make_optimizer``,
 ``cross_entropy``, ``Trainer``, ``peak_flops_per_chip``, ``timed_steps``,
-``step_stats``). The ResNet trainer runs on one device: a ``MeshSpec``
-(``sharding.py``'s, re-exported here) with an axis above 1 raises.
+``step_stats``). The ResNet trainer runs over a dp×fsdp mesh of
+``torch.distributed`` ranks, or on one device, as the reference's
+``Trainer`` does: every parameter placed by its shape
+(``sharding.place_by_shape``; SGD's momentum follows its parameter's
+shard), the batch split over dp×fsdp, and BatchNorm's statistics those of
+the global batch. Each rank takes its block of the global batch; its loss
+is its share of the global mean (its rows' mean times its share of the
+rows), and the gradients are summed over the ranks, never averaged: fsdp
+by the parameter gathers' reduce-scatter, dp after the backward
+(``sharding.reduce_grads``). ``MeshSpec`` is ``sharding.py``'s,
+re-exported here.
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-from kubeoperator_tpu_torch.workloads import resnet
+from kubeoperator_tpu_torch.workloads import collectives as cl
+from kubeoperator_tpu_torch.workloads import resnet, sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 
 # Peak dense bf16 FLOP/s and HBM bytes/s by device-name substring (NVIDIA's
@@ -31,15 +41,12 @@ PEAKS = (
 )
 
 
-def refuse_mesh(spec: MeshSpec | None) -> None:
-    """Raise for a mesh with any axis above 1: the ResNet and ViT trainers
-    run on one device until ROADMAP queue 1, item 14b (multi-device part
-    2)."""
-    if spec is not None and any(s > 1 for _, s in spec.sizes()):
-        raise NotImplementedError(
-            f"mesh {dict(spec.sizes())}: the ResNet and ViT trainers run on "
-            f"one device until ROADMAP queue 1, item 14b (multi-device "
-            f"part 2)")
+def refuse_axes(spec: MeshSpec, allowed: tuple, what: str) -> None:
+    """Raise for an axis above 1 that is not ``allowed``: ``what`` says
+    why the model gives it no meaning."""
+    for axis, size in spec.sizes():
+        if size > 1 and axis not in allowed:
+            raise NotImplementedError(f"mesh axis {axis}={size}: {what}")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -189,6 +196,18 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.SGD:
         lr=0.0, momentum=cfg.momentum, dampening=0.0, nesterov=True)
 
 
+def local_share(mean: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's share of a mean over the global batch, from the mean
+    over its block of the rows (the blocks are equal): summed over the
+    data ranks it is the global mean (on one device, the mean itself)."""
+    return mean / sharding.batch_index(mesh)[1]
+
+
+def data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A detached metric summed over the data axes (dp, fsdp)."""
+    return cl.sum_over(x.detach(), sharding.data_groups(mesh))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   smoothing: float) -> torch.Tensor:
     """Mean softmax cross-entropy against one-hot labels smoothed to
@@ -198,25 +217,36 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class Trainer:
-    """ResNet classification on one device. The step is eager PyTorch:
-    forward in training mode (batch statistics, running ones updated in
-    place), label-smoothed cross-entropy, backward, and Nesterov SGD at the
-    step's learning rate, updating model and optimizer state in place."""
+    """ResNet classification over a dp×fsdp mesh (default: dp over the
+    world) or on one device. The step is eager PyTorch: forward in training
+    mode (batch statistics, running ones updated in place), label-smoothed
+    cross-entropy, backward, and Nesterov SGD at the step's learning rate,
+    updating model and optimizer state in place. ``cfg.batch_size`` is the
+    global batch. Other mesh axes raise: the reference places its state by
+    shape over fsdp and splits the batch over dp×fsdp, so they have no
+    meaning for it."""
 
     def __init__(self, cfg: TrainConfig | None = None,
                  spec: MeshSpec | None = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        refuse_mesh(spec)
+        self.spec = spec or MeshSpec(dp=sharding.world_size())
+        refuse_axes(self.spec, ("dp", "fsdp"),
+                    "the ResNet trainer places its state by shape over fsdp "
+                    "and splits the batch over dp×fsdp, as the reference's; "
+                    "no other axis has a meaning for it")
+        self.mesh = sharding.build_mesh(self.spec, self.device.type)
         self.cfg = cfg or TrainConfig()
         self.schedule = lr_schedule(self.cfg)
+        self.placements: dict = {}
         self.last_metrics: dict = {}
 
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
         """{"step", "model", "opt"}: the model, built on the trainer's
         device, from ``params`` (a state dict of params and batch stats,
         e.g. ``bridge.resnet_params_from_jax``) or the seeded init, and its
-        optimizer."""
+        optimizer. Under a mesh the model is then placed by shape (each
+        rank keeps its shards) and its BatchNorms take the data groups."""
         cfg = self.cfg
         with torch.device(self.device):
             model = resnet.ResNet(
@@ -229,13 +259,23 @@ class Trainer:
             model.reset_parameters(seed)
         else:
             model.load_state_dict(params)
+        if self.spec.n_devices > 1:
+            self.placements = sharding.parallelize(model, self.mesh,
+                                                   self.spec)
+            sharding.set_data_groups(model, self.mesh)
         return {"step": 0, "model": model,
                 "opt": make_optimizer(self.cfg, model.parameters())}
 
+    def full_params(self, model: resnet.ResNet, grads: bool = False) -> dict:
+        """The whole parameters (or their gradients) on every rank, from
+        the shards (a collective under a mesh)."""
+        return sharding.full_state(model, self.placements, self.mesh, grads)
+
     def train_step(self, state: dict, images: torch.Tensor,
                    labels: torch.Tensor):
-        """One step on images [B, S, S, 3] and integer labels [B]; updates
-        ``state`` in place and returns it with {"loss", "accuracy"} as 0-d
+        """One step on this rank's block of the global batch: images
+        [b, S, S, 3] and integer labels [b]; updates ``state`` in place and
+        returns it with {"loss", "accuracy"} of the global batch as 0-d
         tensors."""
         model, opt = state["model"], state["opt"]
         model.train()
@@ -244,12 +284,18 @@ class Trainer:
             group["lr"] = lr
         opt.zero_grad(set_to_none=True)
         logits = model(images)
-        loss = cross_entropy(logits, labels, self.cfg.label_smoothing)
+        loss = local_share(cross_entropy(logits, labels,
+                                         self.cfg.label_smoothing), self.mesh)
         loss.backward()
+        if self.placements:
+            sharding.reduce_grads(model, self.placements, self.mesh)
         opt.step()
         state["step"] += 1
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
-        self.last_metrics = {"loss": loss.detach(), "accuracy": acc}
+        hits = (logits.detach().argmax(-1) == labels).float()
+        self.last_metrics = {
+            "loss": data_sum(loss, self.mesh),
+            "accuracy": data_sum(local_share(hits.mean(), self.mesh),
+                                 self.mesh)}
         return state, self.last_metrics
 
     def multi_step(self, k: int):
@@ -264,16 +310,13 @@ class Trainer:
         return run
 
     def synthetic_batch(self, batch: int | None = None, seed: int = 0):
-        """Normal images [B, S, S, 3] f32 and uniform labels, made on the
+        """This rank's block (``sharding.shard_batch``) of a global batch
+        of normal images [B, S, S, 3] f32 and uniform labels, made on the
         trainer's device from a seeded generator."""
-        batch = batch or self.cfg.batch_size
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        size = self.cfg.image_size
-        images = torch.randn(batch, size, size, 3, generator=gen,
-                             device=self.device)
-        labels = torch.randint(0, self.cfg.num_classes, (batch,),
-                               generator=gen, device=self.device)
-        return images, labels
+        return synthetic_images(self.mesh, self.device,
+                                batch or self.cfg.batch_size,
+                                self.cfg.image_size, self.cfg.num_classes,
+                                seed)
 
     def flops_per_step(self, batch: int | None = None) -> float:
         """fwd + bwd ≈ 3× the forward FLOPs."""
@@ -285,12 +328,13 @@ class Trainer:
     def measure(self, batch: int | None = None, steps: int = 20,
                 warmup: int = 3, steps_per_call: int = 1,
                 repeats: int = 3) -> dict:
-        """Timed train steps on one synthetic batch: img/s, step ms and MFU
-        against the card's bf16 peak. ``steps_per_call > 1`` runs
-        ``multi_step``; ``steps`` then counts its calls, so ``(warmup +
-        steps·repeats)·steps_per_call`` steps run in all. Needs the
-        card."""
+        """Timed train steps on one synthetic global batch: img/s, img/s a
+        chip, step ms and MFU against the world's bf16 peak.
+        ``steps_per_call > 1`` runs ``multi_step``; ``steps`` then counts
+        its calls, so ``(warmup + steps·repeats)·steps_per_call`` steps run
+        in all. Needs the card."""
         peak = peak_flops_per_chip(self.device)
+        chips = self.spec.n_devices
         batch = batch or self.cfg.batch_size
         state = self.init_state()
         images, labels = self.synthetic_batch(batch)
@@ -301,10 +345,24 @@ class Trainer:
         stats = step_stats(times, steps_per_call)
         dt = stats["median_ms"] / 1e3
         achieved = self.flops_per_step(batch) / dt
-        return {"img_per_sec": batch / dt, "img_per_sec_per_chip": batch / dt,
-                "step_time_ms": stats["median_ms"], "mfu": achieved / peak,
-                "chips": 1, "batch": batch,
+        return {"img_per_sec": batch / dt,
+                "img_per_sec_per_chip": batch / dt / chips,
+                "step_time_ms": stats["median_ms"],
+                "mfu": achieved / (peak * chips), "chips": chips,
+                "mesh": dict(self.spec.sizes()), "batch": batch,
                 "achieved_tflops": achieved / 1e12,
                 "device": torch.cuda.get_device_name(self.device),
                 "final_loss": float(self.last_metrics["loss"]),
                 "step_stats": stats}
+
+
+def synthetic_images(mesh, device: torch.device, batch: int, size: int,
+                     classes: int, seed: int = 0) -> tuple:
+    """This rank's block of a seeded global batch of normal images [B, S,
+    S, 3] f32 and uniform labels [B], the same global batch on every
+    rank."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = torch.randn(batch, size, size, 3, generator=gen, device=device)
+    labels = torch.randint(0, classes, (batch,), generator=gen, device=device)
+    return sharding.shard_batch(mesh, images), sharding.shard_batch(mesh,
+                                                                     labels)

@@ -1,5 +1,5 @@
-"""Vision Transformer classifier and its single-device trainer, the
-counterpart of ``kubeoperator_tpu/workloads/vit.py``.
+"""Vision Transformer classifier and its trainer, the counterpart of
+``kubeoperator_tpu/workloads/vit.py``.
 
 The encoder is the LM's ``Block`` stack with ``causal=False``:
 bidirectional attention over the patch sequence, 1-D rope over the
@@ -14,6 +14,16 @@ channel) order, so the flax HWIO kernel ``[p, p, 3, d]`` reshapes to
 ``[p·p·3, d]``; patches flatten row-major over the (h', w') grid as the
 flax ``x.reshape(b, -1, d)`` does. The conv and its bias run in the
 encoder dtype, the head in f32 on the f32 mean of ``ln_f``'s output.
+
+The trainer runs over a dp×fsdp×tp×sp mesh of ``torch.distributed``
+ranks, or on one device, as the reference's: parameters placed by the
+logical rules (``vit_param_axes``: the LM's names, the patch kernel's
+``embed`` dimension and the head's rows), the batch split over dp×fsdp,
+the encoder Megatron over tp (each rank's K4-K6 run on its H/tp heads). The
+reference's ViT attends over the whole sequence (no ring), so sp ranks
+compute the same step and their gradients are not summed. Each rank's
+loss is its share of the global mean, the gradients summed over dp and
+fsdp (``sharding.reduce_grads``).
 """
 
 from __future__ import annotations
@@ -25,13 +35,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeoperator_tpu_torch.workloads.lm import MeshSpec, refuse_mesh
+from kubeoperator_tpu_torch.workloads import sharding
+from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 from kubeoperator_tpu_torch.workloads.train import (
-    peak_flops_per_chip, resolve_device, step_stats, timed_steps,
+    data_sum, local_share, peak_flops_per_chip, refuse_axes, resolve_device,
+    step_stats, synthetic_images, timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
-    Block, RMSNorm, TransformerConfig, _lecun_normal_, remat_context_fn,
-    run_blocks,
+    Block, RMSNorm, TransformerConfig, _lecun_normal_, param_axes,
+    remat_context_fn, run_blocks,
 )
 
 
@@ -84,13 +96,18 @@ def patchify(images: torch.Tensor, p: int) -> torch.Tensor:
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    """Under a mesh (``VisionTransformer(cfg, mesh)``, placed by
+    ``sharding.parallelize`` with ``vit_param_axes``) the blocks are
+    Megatron over tp, as the LM's."""
+
+    def __init__(self, cfg: ViTConfig, mesh=None):
         super().__init__()
         enc = cfg.encoder
         self.cfg = cfg
         self.patch_embed = DenseBias((cfg.patch, cfg.patch, 3, enc.d_model),
                                      enc.d_model)
-        self.layers = nn.ModuleList(Block(enc) for _ in range(enc.n_layers))
+        self.layers = nn.ModuleList(Block(enc, mesh)
+                                    for _ in range(enc.n_layers))
         self.ln_f = RMSNorm(enc.d_model)
         self.head = DenseBias((enc.d_model, cfg.num_classes), cfg.num_classes)
         self._remat_ctx = remat_context_fn(enc.remat_policy)
@@ -118,6 +135,19 @@ class VisionTransformer(nn.Module):
         return self.head(x, torch.float32)
 
 
+# the logical names of the parameters outside the blocks (vit.py's
+# with_parts); the biases have none and replicate
+VIT_AXES = {"patch_embed.kernel": (None, None, None, "embed"),
+            "patch_embed.bias": (None,), "head.kernel": ("embed", None),
+            "head.bias": (None,)}
+
+
+def vit_param_axes(name: str) -> tuple:
+    """Logical axes of the ViT's parameter ``name``: the LM's for the
+    blocks and ``ln_f``."""
+    return VIT_AXES.get(name) or param_axes(name)
+
+
 def flops_per_image(cfg: ViTConfig) -> float:
     """Forward FLOPs per image (matmul terms ×2)."""
     enc, t = cfg.encoder, cfg.seq_len
@@ -129,32 +159,42 @@ def flops_per_image(cfg: ViTConfig) -> float:
 
 
 class ViTTrainer:
-    """ViT classification trainer on one device. The step is eager
-    PyTorch: forward, mean softmax cross-entropy over integer labels,
-    backward, and ``AdamW`` with optax.adamw's settings on every parameter,
+    """ViT classification trainer over a dp×fsdp×tp×sp mesh (default: dp
+    over the world) or on one device. The step is eager PyTorch: forward,
+    mean softmax cross-entropy over integer labels, backward, and
+    ``AdamW`` with optax.adamw's settings on every parameter shard,
     updating the model and optimizer state in place (the JAX step returned
-    a new state and donated the old one). A ``MeshSpec`` with any axis
-    above 1 raises."""
+    a new state and donated the old one). ep and pp raise: the reference's
+    ViT has no experts and no stages."""
 
     def __init__(self, cfg: ViTConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
                  learning_rate: float = 3e-4):
         self.device = resolve_device(device)
-        refuse_mesh(spec)
+        self.spec = spec or MeshSpec(dp=sharding.world_size())
+        refuse_axes(self.spec, ("dp", "fsdp", "tp", "sp"),
+                    "the ViT has no experts and no pipeline stages; the "
+                    "reference's ViTTrainer gives the axis no meaning")
+        self.mesh = sharding.build_mesh(self.spec, self.device.type)
         self.cfg = cfg
         self.learning_rate = learning_rate
+        self.placements: dict = {}
         self.last_metrics: dict = {}
 
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
-        """{"step", "model", "opt"}: a model built on the trainer's device,
-        from ``params`` (a state dict, e.g. ``bridge.vit_params_from_jax``)
-        or the seeded init, and its AdamW state."""
+        """{"step", "model", "opt"}: a model built whole on the trainer's
+        device, from ``params`` (a state dict, e.g.
+        ``bridge.vit_params_from_jax``) or the seeded init, then placed on
+        the mesh (each rank keeps its shards), and AdamW over the shards."""
         with torch.device(self.device):
-            model = VisionTransformer(self.cfg)
+            model = VisionTransformer(self.cfg, self.mesh)
         if params is None:
             model.reset_parameters(seed)
         else:
             model.load_state_dict(params)
+        if self.spec.n_devices > 1:
+            self.placements = sharding.parallelize(model, self.mesh,
+                                                   self.spec, vit_param_axes)
         # optax.adamw(lr, weight_decay=0.05): b1 0.9, b2 0.999, eps 1e-8,
         # decoupled decay on every parameter
         opt = torch.optim.AdamW(model.parameters(), lr=self.learning_rate,
@@ -162,25 +202,40 @@ class ViTTrainer:
                                 weight_decay=0.05)
         return {"step": 0, "model": model, "opt": opt}
 
+    def full_params(self, model: VisionTransformer,
+                    grads: bool = False) -> dict:
+        """The whole state dict (or its gradients) on every rank, from the
+        shards (a collective under a mesh)."""
+        return sharding.full_state(model, self.placements, self.mesh, grads)
+
     def loss(self, model: VisionTransformer, images: torch.Tensor,
              labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(mean cross-entropy, logits)"""
+        """(this rank's share of the global mean cross-entropy, logits)
+        on this rank's block of the global batch"""
         logits = model(images)
-        return F.cross_entropy(logits, labels.long()), logits
+        return local_share(F.cross_entropy(logits, labels.long()),
+                           self.mesh), logits
 
     def train_step(self, state: dict, images: torch.Tensor,
                    labels: torch.Tensor):
-        """One AdamW step on images [B, H, W, 3] and integer labels [B];
-        updates ``state`` in place and returns it with {"loss",
-        "accuracy"} as 0-d tensors."""
+        """One AdamW step on this rank's block of the global batch:
+        images [b, H, W, 3] and integer labels [b]; updates ``state`` in
+        place and returns it with {"loss", "accuracy"} of the global batch
+        as 0-d tensors."""
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
         loss, logits = self.loss(model, images, labels)
         loss.backward()
+        if self.placements:
+            sharding.reduce_grads(model, self.placements, self.mesh,
+                                  axes=("dp", "fsdp"))
         opt.step()
         state["step"] += 1
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
-        self.last_metrics = {"loss": loss.detach(), "accuracy": acc}
+        hits = (logits.detach().argmax(-1) == labels).float()
+        self.last_metrics = {
+            "loss": data_sum(loss, self.mesh),
+            "accuracy": data_sum(local_share(hits.mean(), self.mesh),
+                                 self.mesh)}
         return state, self.last_metrics
 
     def multi_step(self, k: int):
@@ -195,24 +250,23 @@ class ViTTrainer:
         return run
 
     def synthetic_batch(self, batch: int, seed: int = 0):
-        """Normal images [B, S, S, 3] f32 and uniform labels, made on the
-        trainer's device from a seeded generator."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        size = self.cfg.image_size
-        images = torch.randn(batch, size, size, 3, generator=gen,
-                             device=self.device)
-        labels = torch.randint(0, self.cfg.num_classes, (batch,),
-                               generator=gen, device=self.device)
-        return images, labels
+        """This rank's block of a global batch of normal images [B, S, S,
+        3] f32 and uniform labels, made on the trainer's device from a
+        seeded generator."""
+        return synthetic_images(self.mesh, self.device, batch,
+                                self.cfg.image_size, self.cfg.num_classes,
+                                seed)
 
     def measure(self, batch: int, steps: int = 6, warmup: int = 2,
                 steps_per_call: int = 1, repeats: int = 3) -> dict:
-        """Timed train steps on a synthetic batch: img/s, step ms and MFU
-        (fwd+bwd ≈ 3× forward FLOPs) against the card's bf16 peak.
+        """Timed train steps on a synthetic global batch: img/s, img/s a
+        chip, step ms and MFU (fwd+bwd ≈ 3× forward FLOPs) against the
+        world's bf16 peak.
         ``steps_per_call > 1`` runs ``multi_step``; ``steps`` then counts
         its calls, so ``(warmup + steps·repeats)·steps_per_call`` steps run
         in all. Needs the card."""
         peak = peak_flops_per_chip(self.device)
+        chips = self.spec.n_devices
         state = self.init_state()
         images, labels = self.synthetic_batch(batch)
         step_fn = (self.multi_step(steps_per_call) if steps_per_call > 1
@@ -223,10 +277,11 @@ class ViTTrainer:
         dt = stats["median_ms"] / 1e3
         achieved = 3 * flops_per_image(self.cfg) * batch / dt
         return {"img_per_sec": batch / dt,
-                "img_per_sec_per_chip": batch / dt,
+                "img_per_sec_per_chip": batch / dt / chips,
                 "step_time_ms": stats["median_ms"],
-                "mfu": achieved / peak,
-                "achieved_tflops": achieved / 1e12, "chips": 1,
+                "mfu": achieved / (peak * chips),
+                "achieved_tflops": achieved / 1e12, "chips": chips,
+                "mesh": dict(self.spec.sizes()),
                 "device": torch.cuda.get_device_name(self.device),
                 "final_loss": float(self.last_metrics["loss"]),
                 "step_stats": stats}

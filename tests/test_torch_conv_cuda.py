@@ -130,6 +130,47 @@ def test_k8_phases_match_plain_at_the_site_channels(n, ci, co, relu):
     assert torch.equal(dw, again), "dW is not the same bits run to run"
 
 
+# K8 as two data ranks run it: the rows in two halves, phase 0 on each and
+# the sums added (the all-reduce), phase 1 on each half with n_total = N,
+# dx concatenated and the halves' dW added, against the plain version on
+# all N rows with its own sums; one stage-0 and one stage-1 site of
+# ResNet-50 at a rank's share of a batch of 16, and a ragged N. Phase 1
+# runs on the split's own sums, so a few dy may flip a bf16 step against
+# the plain ones: dW is held at DX_TOL, as chip_smoke.py holds it at its
+# CONV_TOL
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,ci,co,relu", [(50176, 256, 64, True),
+                                          (12544, 128, 512, False),
+                                          (2000, 64, 256, True)])
+def test_k8_split_rows_take_the_global_row_count(n, ci, co, relu):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, g, y, w, vecs = bn_inputs(gen, n, ci, co)
+    halves = (slice(0, n // 2), slice(n // 2, n))
+
+    def split():
+        sums = sum(tbn.bn_bwd_stats(g[h], y[h], *vecs, relu) for h in halves)
+        dx = torch.cat([tbn.bn_bwd_dx(g[h], y[h], w, *vecs, sums, relu, n)
+                        for h in halves])
+        dw = sum(tbn.bn_bwd_dw(x[h], g[h], y[h], *vecs, sums, relu, n)
+                 for h in halves)
+        return sums, dx, dw
+
+    sums, dx, dw = split()
+    again = split()
+    torch.cuda.synchronize()
+    sums_p = tbn.bn_bwd_stats_plain(g, y, *vecs, relu)
+    close(sums.t(), sums_p.t(), F32_TOL, "sums")
+    close(dx, tbn.bn_bwd_dx_plain(g, y, w, *vecs, sums_p, relu), DX_TOL,
+          "dx")
+    close(dw, tbn.bn_bwd_dw_plain(x, g, y, *vecs, sums_p, relu), DX_TOL,
+          "dw")
+    for a, b in zip((sums, dx, dw), again):
+        assert torch.equal(a, b), "the split is not the same bits run to run"
+    with pytest.raises(ValueError, match="n_total"):
+        tbn.bn_bwd_dx(g, y, w, *vecs, sums, relu, n - 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,c", [(128, 256), (1000, 64), (50000, 200)])
 def test_channel_sum_matches_plain(n, c):

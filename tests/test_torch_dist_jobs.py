@@ -1,8 +1,11 @@
 """The port's multi-device job entry points as ``--device cpu`` JSON lines on
 2 gloo ranks: smoke's psum, llm over dp, sp (Ulysses) and tp (then
 sampling from the gathered weights) against the one-device job's losses,
-the fsdp job with and without overlap, the pipeline job, and llm's
-``--ckpt-dir`` under a mesh refused naming its ROADMAP item. In this
+the fsdp job with and without overlap, the pipeline job, llm's
+``--ckpt-dir`` under a mesh (saved, resumed, then served by ``serve
+--ckpt-dir`` in this process), resnet50 over dp and over fsdp (the same
+losses; fsdp resumed from its checkpoint) and vit over dp and tp (tp
+against the one-device job on the same global batch). In this
 process: ``parse_mesh`` against the reference's, the launcher without
 ``torchrun``'s environment, and the cost model the fsdp job attributes
 with against the reference's on the same link."""
@@ -17,7 +20,7 @@ from kubeoperator_tpu.train import jobs as jjobs
 from kubeoperator_tpu.workloads import costmodel as jcm
 from kubeoperator_tpu_torch.train import jobs
 from kubeoperator_tpu_torch.workloads import costmodel as cm
-from torch_dist_cases import LLM_TINY, spawn_group
+from torch_dist_cases import LLM_TINY, VIT_TINY, spawn_group
 
 torch.set_num_threads(2)
 
@@ -25,8 +28,13 @@ MESHED_LLM = ["llm_dp2", "llm_sp2_ulysses", "llm_tp2_sample"]
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    return spawn_group("jobs", 2, tmp_path_factory.mktemp("jobs"), {})
+def workdir(tmp_path_factory):
+    return tmp_path_factory.mktemp("jobs")
+
+
+@pytest.fixture(scope="module")
+def ranks(workdir):
+    return spawn_group("jobs", 2, workdir, {"workdir": str(workdir)})
 
 
 def losses(records: list) -> list:
@@ -68,11 +76,87 @@ def test_meshed_llm_samples_from_the_gathered_weights(ranks):
     assert len(sampled) == 4 + 3 and all(0 <= t < 64 for t in sampled)
 
 
-def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks):
-    for r in ranks:
-        assert r["llm_ckpt_under_mesh"]["raised"] == (
-            "--ckpt-dir under a mesh of 2 devices is not ported yet "
-            "(ROADMAP queue 1, item 14f)")
+def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks, workdir,
+                                                     capsys):
+    """``--ckpt-dir`` under a mesh, once refused as ROADMAP item 14f, now
+    ported: the job saves every step at dp 2, a rerun resumes at step 2
+    and runs step 3, and ``serve --ckpt-dir`` in this process serves the
+    saved weights: its greedy reply is ``generate()``'s on the restored
+    model."""
+    from kubeoperator_tpu_torch.workloads.checkpoint import (
+        WorkloadCheckpointer,
+    )
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        Transformer, TransformerConfig,
+    )
+    from test_torch_jobs import call, serving
+
+    first, again = ranks[0]["llm_ckpt_under_mesh"]
+    assert first["rc"] == again["rc"] == 0
+    assert again["records"][0] == {"job": "llm", "resumed_at": 2}
+    assert [r["step"] for r in again["records"] if "step" in r] == [3]
+    assert again["records"][-1]["steps"] == 3
+    assert ranks[1]["llm_ckpt_under_mesh"][1]["records"] == []
+    ckpt = str(workdir / "llm_ckpt")
+    assert WorkloadCheckpointer(ckpt).steps() == [1, 2, 3]
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                            d_ff=64, max_seq_len=32, dtype=torch.float32)
+    model = Transformer(cfg)
+    assert WorkloadCheckpointer(ckpt).restore_model(model) == 3
+    prompt = [5, 9, 2, 6]
+    want = generate(cfg, model.eval(), [prompt], 6, device="cpu")[0].tolist()
+    capsys.readouterr()
+    with serving("--ckpt-dir", ckpt) as (url, _):
+        status, body = call(url + "/generate", {"prompt_ids": prompt,
+                                                "max_tokens": 6})
+    assert status == 200 and json.loads(body)["tokens"] == want
+    assert json.loads(capsys.readouterr().out.splitlines()[0])[
+        "weights"] == "checkpoint step 3"
+
+
+def test_resnet50_over_dp_and_over_fsdp_take_the_same_steps(ranks):
+    """The same global batch (each rank its block, seeded by the block)
+    over dp 2 and over fsdp 2, 2 steps saved, then resumed to a third
+    (whose schedule, as the reference job's, spans the new ``--steps``):
+    the same losses, to the records' 4 places, and only rank 0 prints."""
+    runs = {}
+    for axis in ("dp", "fsdp"):
+        first, again = ranks[0][f"resnet50_{axis}2_ckpt"]
+        assert first["rc"] == again["rc"] == 0
+        assert again["records"][0] == {"job": "resnet50", "resumed_at": 2}
+        runs[axis] = losses(first["records"]) + losses(again["records"])
+        assert len(runs[axis]) == 3 and all(np.isfinite(runs[axis]))
+        done = again["records"][-1]
+        assert done["done"] and done["chips"] == 2 and done["steps"] == 3
+        assert {k: v for k, v in done["mesh"].items() if v > 1} == {axis: 2}
+        assert done["img_per_sec_per_chip"] == pytest.approx(
+            done["img_per_sec"] / 2, abs=0.1)
+        assert all(r["records"] == [] for r in
+                   ranks[1][f"resnet50_{axis}2_ckpt"])
+    np.testing.assert_allclose(runs["fsdp"], runs["dp"], atol=2e-4)
+
+
+def test_vit_over_tp_is_the_one_device_job_on_its_global_batch(ranks,
+                                                               capsys):
+    """tp 2 has one block of the batch: both ranks train on the stream of
+    seed 0 at the global batch of 2 × 2, as the one-device job at 4 a
+    chip does. The job runs bf16, as the reference's, and tp sums the
+    heads' and the MLP's partial products in another order: the losses
+    agree to within a bf16 step (rtol 5e-3; measured 9e-4)."""
+    flags = [f for f in VIT_TINY]
+    flags[flags.index("--batch-per-chip") + 1] = "4"
+    assert jobs.main(["vit", *flags]) == 0
+    one = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    for name in ("vit_tp2", "vit_dp2"):
+        rec = ranks[0][name]
+        assert rec["rc"] == 0 and ranks[1][name]["records"] == []
+        done = rec["records"][-1]
+        assert done["done"] and done["chips"] == 2 and done["steps"] == 3
+        assert done["mesh"][name[4:6]] == 2
+        assert all(np.isfinite(losses(rec["records"])))
+    np.testing.assert_allclose(losses(ranks[0]["vit_tp2"]["records"]),
+                               losses(one), rtol=5e-3)
 
 
 @pytest.mark.parametrize("name", ["fsdp", "fsdp_no_overlap"])

@@ -270,8 +270,10 @@ def test_vit_encoder_is_built_as_the_jax_job_builds_it(monkeypatch, capsys):
 
 
 def test_vit_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jobs.main(["vit", *VIT_TINY, "--steps", "1", "--mesh", "dp:2"])
+    """An axis the ViT gives no meaning raises, naming it (the meshed job
+    runs in tests/test_torch_dist_jobs.py)."""
+    with pytest.raises(NotImplementedError, match="mesh axis ep=2"):
+        jobs.main(["vit", *VIT_TINY, "--steps", "1", "--mesh", "ep:2"])
 
 
 def test_resnet50_trains_on_the_synthetic_stream(capsys):
@@ -325,9 +327,12 @@ def test_resnet50_config_is_the_jax_job_s(monkeypatch, capsys, size, stem):
 @pytest.mark.parametrize("flag,value", [("--mesh", "dp:2"),
                                         ("--ckpt-dir", "ckpt")])
 def test_resnet50_unported_flags_raise(flag, value, capsys, tmp_path):
-    """``--mesh`` raises, naming the ROADMAP. ``--ckpt-dir`` is ported: the
-    job checkpoints its last step under it (here ``tmp_path``), and a
-    rerun resumes from it and continues the step count."""
+    """``--mesh dp:2`` in a world of one raises as ``build_mesh`` does, and
+    an axis the ResNet gives no meaning raises, naming it (dp and fsdp run
+    in tests/test_torch_dist_jobs.py). ``--ckpt-dir``
+    is ported: the job checkpoints its last step under it (here
+    ``tmp_path``), and a rerun resumes from it and continues the step
+    count."""
     if flag == "--ckpt-dir":
         ckpt = str(tmp_path / value)
         run(capsys, "--steps", "1", flag, ckpt, cmd="resnet50")
@@ -336,8 +341,10 @@ def test_resnet50_unported_flags_raise(flag, value, capsys, tmp_path):
         assert [r["step"] for r in records if "loss" in r] == [2]
         assert records[-1]["steps"] == 2
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="wants 2 devices, got 1"):
         jobs.main(["resnet50", *RESNET_TINY, "--steps", "1", flag, value])
+    with pytest.raises(NotImplementedError, match="mesh axis tp=2"):
+        jobs.main(["resnet50", *RESNET_TINY, "--steps", "1", flag, "tp:2"])
 
 
 class Preempted(Exception):

@@ -366,8 +366,14 @@ def test_unported_and_invalid_options_raise():
     assert impls[(1, 1)] == "dot2" and impls[(3, 3)] is None
     with pytest.raises(ValueError, match="depth >= 50"):
         trn.ResNet(depth=18, fused_bn=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # dp and fsdp run over a mesh (tests/test_torch_resnet_mesh.py): in a
+    # world of one a mesh of two raises, as build_mesh does for any count
+    # mismatch; an axis the ResNet gives no meaning raises first
+    with pytest.raises(ValueError, match="wants 2 devices, got 1"):
         ttrain.Trainer(spec=ttrain.MeshSpec(dp=2), device="cpu")
+    for axis in ("tp", "sp", "ep", "pp"):
+        with pytest.raises(NotImplementedError, match=f"mesh axis {axis}=2"):
+            ttrain.Trainer(spec=ttrain.MeshSpec(**{axis: 2}), device="cpu")
     model = trn.ResNet(num_classes=4, depth=18, width=8, image_size=32)
     with pytest.raises(ValueError, match="built for 32"):
         model(torch.zeros(1, 64, 64, 3))

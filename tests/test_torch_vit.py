@@ -279,9 +279,17 @@ def test_seeded_init_is_deterministic_with_zero_biases():
 
 
 def test_mesh_beyond_one_device_is_refused():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """A process with no group is a world of one device: a mesh of two
+    raises there, as build_mesh does (the meshed trainer runs in
+    tests/test_torch_vit_mesh.py); ep and pp, which the ViT gives no
+    meaning, raise first."""
+    with pytest.raises(ValueError, match="wants 2 devices, got 1"):
         tvit.ViTTrainer(vit_port_cfg(TINY), spec=tlm.MeshSpec(dp=2),
                         device="cpu")
+    for axis in ("ep", "pp"):
+        with pytest.raises(NotImplementedError, match=f"mesh axis {axis}=2"):
+            tvit.ViTTrainer(vit_port_cfg(TINY),
+                            spec=tlm.MeshSpec(**{axis: 2}), device="cpu")
 
 
 def test_measure_needs_the_card():

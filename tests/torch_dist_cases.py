@@ -146,6 +146,195 @@ LM = [
 ]
 
 
+# -- the ResNet over dp×fsdp: BatchNorm, FusedConvBN (K8), the trainer --------
+
+def _norm_unit(name: str):
+    """The BatchNorm or FusedConvBN (with a ``kernel``) of
+    ``inputs["units"][name]`` in training mode at dp 2 on this rank's
+    rows: its out and dx rows, its parameters' gradient shares and its
+    running statistics."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.bn_fused import FusedConvBN
+        from kubeoperator_tpu_torch.workloads.resnet import BatchNorm
+
+        p = inputs["units"][name]
+        mesh = sharding.build_mesh(MeshSpec(dp=2))
+        if "kernel" in p:
+            ci, co = p["kernel"].shape[2:]
+            m = FusedConvBN(ci, co, relu=p["relu"], dtype=torch.float32)
+        else:
+            m = BatchNorm(p["scale"].shape[0], dtype=torch.float32)
+        m.load_state_dict({k: p[k] for k in m.state_dict()})
+        sharding.set_data_groups(m, mesh)
+        x = sharding.shard_batch(mesh, p["x"]).clone().requires_grad_()
+        out = m(x)
+        (out * sharding.shard_batch(mesh, p["g"])).sum().backward()
+        return {"out": out.detach(), "dx": x.grad,
+                "rows": x.shape[0] * x.shape[1] * x.shape[2],
+                **{f"d{n}": q.grad for n, q in m.named_parameters()},
+                "mean": m.mean.clone(), "var": m.var.clone()}
+    return case
+
+
+def _resnet_steps(spec: MeshSpec, steps: int = 3):
+    """``steps`` Trainer steps from the bridged JAX start on this rank's
+    block of the global batch: the losses, the whole params and the
+    buffers (the BatchNorm running statistics)."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads import train as ttrain
+
+        p = inputs["trainer"]
+        tr = ttrain.Trainer(p["cfg"], spec, device="cpu")
+        state = tr.init_state(params=p["params"])
+        x = sharding.shard_batch(tr.mesh, p["x"])
+        y = sharding.shard_batch(tr.mesh, p["y"])
+        losses = []
+        for _ in range(steps):
+            state, metrics = tr.train_step(state, x, y)
+            losses.append(float(metrics["loss"]))
+        return {"coords": coords(tr.mesh), "losses": losses,
+                "step": state["step"], "placements": tr.placements,
+                "params": tr.full_params(state["model"]),
+                "buffers": {n: b.clone() for n, b in
+                            state["model"].named_buffers()}}
+    return case
+
+
+RESNET = [
+    # fused_n128_split: 64 rows a rank take the autograd fallback, the
+    # whole batch's 128 the kernel
+    *((name, _norm_unit(name)) for name in (
+        "fused_n256", "fused_n128_split", "fused_n256_norelu", "bn_dp2")),
+    ("trainer_dp2", _resnet_steps(MeshSpec(dp=2))),
+    ("trainer_fsdp2", _resnet_steps(MeshSpec(fsdp=2))),
+]
+
+
+# -- the ViT over dp×fsdp×tp×sp -----------------------------------------------
+
+def _vit_step(name: str, spec: MeshSpec):
+    """One ViTTrainer step at ``spec`` from ``inputs["params"][name]``."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.vit import ViTTrainer
+
+        vt = ViTTrainer(inputs["cfg"], spec, device="cpu")
+        state = vt.init_state(params=inputs["params"][name])
+        x = sharding.shard_batch(vt.mesh, inputs["x"])
+        y = sharding.shard_batch(vt.mesh, inputs["y"])
+        _, metrics = vt.train_step(state, x, y)
+        return {"loss": float(metrics["loss"]),
+                "grads": vt.full_params(state["model"], grads=True),
+                "params": vt.full_params(state["model"])}
+    return case
+
+
+def _vit_refusal(rank, inputs):
+    from kubeoperator_tpu_torch.workloads.vit import ViTTrainer
+
+    try:
+        ViTTrainer(inputs["cfg"], MeshSpec(dp=2, pp=2), device="cpu")
+    except NotImplementedError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+# the ViT's meshes by name, on 2 and on 4 ranks
+VIT_MESHES = {"dp2": dict(dp=2), "fsdp2": dict(fsdp=2), "tp2": dict(tp=2),
+              "sp2": dict(sp=2), "fsdp2_tp2": dict(fsdp=2, tp=2)}
+VIT2 = [(n, _vit_step(n, MeshSpec(**d))) for n, d in VIT_MESHES.items()
+        if MeshSpec(**d).n_devices == 2]
+VIT4 = [(n, _vit_step(n, MeshSpec(**d))) for n, d in VIT_MESHES.items()
+        if MeshSpec(**d).n_devices == 4] + [("pp_refused", _vit_refusal)]
+
+
+# -- checkpoints under a mesh -------------------------------------------------
+
+def _lm_trainer(spec: MeshSpec, inputs):
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+
+    return LMTrainer(inputs["lm_cfg"], spec, device="cpu")
+
+
+def _checkpointer(directory: str, tr):
+    from kubeoperator_tpu_torch.workloads.checkpoint import (
+        WorkloadCheckpointer,
+    )
+
+    return WorkloadCheckpointer(directory, mesh=tr.mesh,
+                                placements=tr.placements)
+
+
+def _layout_free(tr, state):
+    from kubeoperator_tpu_torch.workloads import checkpoint
+
+    return checkpoint.layout_free(state["step"], state, tr.placements,
+                                  tr.mesh)
+
+
+def _resume(make_trainer, init, step_args, save_dir: str):
+    """4 uninterrupted steps, saving after 2, against 2 steps from that
+    checkpoint restored into a fresh state of another seed: losses and
+    whole states (layout-free) of both."""
+    def case(rank, inputs):
+        tr = make_trainer(inputs)
+        state = init(tr, inputs, 0)
+        args = step_args(tr, inputs)
+        ckpt = _checkpointer(f"{inputs['workdir']}/{save_dir}", tr)
+        whole, losses = [], []
+        for step in range(4):
+            state, metrics = tr.train_step(state, *args)
+            whole.append(float(metrics["loss"]))
+            if step == 1:
+                ckpt.save(state["step"], state)
+        back = ckpt.restore(init(tr, inputs, 9))
+        for _ in range(2):
+            back, metrics = tr.train_step(back, *args)
+            losses.append(float(metrics["loss"]))
+        return {"losses": whole, "resumed_losses": losses,
+                "state": _layout_free(tr, state),
+                "resumed_state": _layout_free(tr, back)}
+    return case
+
+
+def _lm_init(tr, inputs, seed):
+    return tr.init_state(params=inputs["lm_params"] if seed == 0 else None,
+                         seed=seed)
+
+
+def _resnet_trainer(inputs):
+    from kubeoperator_tpu_torch.workloads import train as ttrain
+
+    return ttrain.Trainer(inputs["resnet_cfg"], MeshSpec(dp=2, fsdp=2),
+                          device="cpu")
+
+
+def _resnet_batch(tr, inputs):
+    return (sharding.shard_batch(tr.mesh, inputs["x"]),
+            sharding.shard_batch(tr.mesh, inputs["y"]))
+
+
+def _restore_lm(spec: MeshSpec):
+    """The (fsdp 2, tp 2) checkpoint restored at ``spec`` into a state of
+    another seed, whole (layout-free) again."""
+    def case(rank, inputs):
+        tr = _lm_trainer(spec, inputs)
+        state = tr.init_state(seed=5)
+        _checkpointer(f"{inputs['workdir']}/lm", tr).restore(state)
+        return _layout_free(tr, state)
+    return case
+
+
+CHECKPOINT = [
+    ("lm_fsdp2_tp2_resume", _resume(
+        lambda inputs: _lm_trainer(MeshSpec(fsdp=2, tp=2), inputs), _lm_init,
+        lambda tr, inputs: (inputs["tokens"],), "lm")),
+    ("lm_restore_dp4", _restore_lm(MeshSpec(dp=4))),
+    ("resnet_dp2_fsdp2_resume", _resume(
+        _resnet_trainer, lambda tr, inputs, seed: tr.init_state(seed=seed),
+        _resnet_batch, "resnet")),
+]
+
+
 # -- GPipe ---------------------------------------------------------------------
 
 def _fns():
@@ -244,18 +433,29 @@ SHARDING = [
 
 # -- the job entry points ------------------------------------------------------
 
-def _job(*argv):
-    def case(rank, inputs):
-        from kubeoperator_tpu_torch.train import jobs
+def _run_job(argv: list) -> dict:
+    from kubeoperator_tpu_torch.train import jobs
 
-        out = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = jobs.main(list(argv))
-        except NotImplementedError as e:
-            return {"raised": str(e)}
-        return {"rc": rc, "records": [json.loads(line) for line in
-                                      out.getvalue().splitlines()]}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = jobs.main(argv)
+    return {"rc": rc, "records": [json.loads(line) for line in
+                                  out.getvalue().splitlines()]}
+
+
+def _job(*argv):
+    """The job's records; ``{workdir}`` in an argument is the group's
+    working directory."""
+    def case(rank, inputs):
+        return _run_job([a.format(workdir=inputs.get("workdir", ""))
+                         for a in argv])
+    return case
+
+
+def _jobs(*runs):
+    """Several runs of jobs in a row (a run, then its resumed rerun)."""
+    def case(rank, inputs):
+        return [_job(*argv)(rank, inputs) for argv in runs]
     return case
 
 
@@ -263,6 +463,11 @@ LLM_TINY = ("--device", "cpu", "--steps", "2", "--d-model", "32", "--heads",
             "4", "--layers", "2", "--d-ff", "64", "--seq-len", "16",
             "--vocab", "64", "--batch", "2", "--no-bf16")
 MLP_TINY = ("--device", "cpu", "--d-model", "16", "--vocab", "32")
+RESNET_TINY = ("--device", "cpu", "--batch-per-chip", "2", "--image-size",
+               "32", "--depth", "18", "--steps", "3")
+VIT_TINY = ("--device", "cpu", "--batch-per-chip", "2", "--image-size", "32",
+            "--patch", "8", "--d-model", "32", "--heads", "4", "--layers",
+            "2", "--classes", "10", "--steps", "3")
 
 JOBS = [
     ("smoke", _job("smoke", "--device", "cpu")),
@@ -271,8 +476,20 @@ JOBS = [
                              "--sp-attention", "ulysses")),
     ("llm_tp2_sample", _job("llm", *LLM_TINY, "--mesh", "tp:2", "--sample",
                             "3")),
-    ("llm_ckpt_under_mesh", _job("llm", *LLM_TINY, "--mesh", "dp:2",
-                                 "--ckpt-dir", "unused")),
+    # saved at every step under dp 2, then resumed for a third step
+    ("llm_ckpt_under_mesh", _jobs(
+        ("llm", *LLM_TINY, "--mesh", "dp:2", "--ckpt-every", "1",
+         "--ckpt-dir", "{workdir}/llm_ckpt"),
+        ("llm", *LLM_TINY, "--steps", "3", "--mesh", "dp:2", "--ckpt-dir",
+         "{workdir}/llm_ckpt"))),
+    # 2 steps saved, then resumed to 3, over dp and over fsdp
+    *((f"resnet50_{axis}2_ckpt", _jobs(
+        ("resnet50", *RESNET_TINY, "--mesh", f"{axis}:auto", "--ckpt-dir",
+         f"{{workdir}}/resnet_{axis}", "--steps", "2"),
+        ("resnet50", *RESNET_TINY, "--mesh", f"{axis}:auto", "--ckpt-dir",
+         f"{{workdir}}/resnet_{axis}"))) for axis in ("dp", "fsdp")),
+    ("vit_dp2", _job("vit", *VIT_TINY, "--mesh", "dp:2")),
+    ("vit_tp2", _job("vit", *VIT_TINY, "--mesh", "tp:2")),
     ("fsdp", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2", "--steps", "3",
                   "--warmup", "1", "--layers", "3")),
     ("fsdp_no_overlap", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2",
@@ -283,4 +500,5 @@ JOBS = [
 ]
 
 GROUPS = {"ring": RING, "lm": LM, "pipeline": PIPELINE,
-          "sharding": SHARDING, "jobs": JOBS}
+          "sharding": SHARDING, "jobs": JOBS, "resnet": RESNET,
+          "vit2": VIT2, "vit4": VIT4, "checkpoint": CHECKPOINT}
