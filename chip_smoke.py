@@ -147,15 +147,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     of ``vit_train``'s; ``Trainer(RESNET_K7_K8, MeshSpec(dp=1))`` measured
     as ``resnet_train`` was: K7 24 and each K8 kernel 9 launches a step,
     its loss within ``TOL`` of ``resnet_train``'s, then the resnet50 job
-    under ``--mesh dp:auto --ckpt-dir`` resumed at step 2. With two or
-    more cards, ``dist_multi`` spawns two NCCL ranks (``launch.spawn``)
-    running ``MULTI_CASES`` — smoke, the LM at dp 2, sp 2 (ring and
-    Ulysses) and tp 2, the fsdp job with and without overlap, the
-    pipeline job, the llm job saved at dp 2 (resumed here on one rank) —
-    and ``MULTI_TRAINERS`` — ResNet-50 (K7/K8) at dp 2 and fsdp 2, ViT-B/16
-    at dp 2 and tp 2 — each against its one-rank run, the BatchNorm
-    running statistics equal on both ranks; with one card it says so and
-    runs nothing.
+    under ``--mesh dp:auto --ckpt-dir`` resumed at step 2; ``dist_moe``:
+    the MoE LM at ``moe_train``'s width through ``llm --experts 8 --mesh
+    ep:auto`` for as many steps as ``moe_train``: K1-K3 each at least once
+    a layer and step, the last loss within ``TOL`` of ``moe_train``'s,
+    step ms, tokens/s and peak memory; ``dist_serve``: the serve job at
+    the bench LM's widths through ``--mesh dp:auto``, greedy replies
+    equal to a one-device pool's on the served weights (or first
+    different at a near-tie). With two or more cards, ``dist_multi``
+    spawns two NCCL ranks (``launch.spawn``) running ``MULTI_CASES`` —
+    smoke, the LM at dp 2, sp 2 (ring and Ulysses) and tp 2, the MoE LM
+    (8 experts, 2 layers) at ep 2 and dp 2, the fsdp job with and
+    without overlap, the pipeline job, the llm job saved at dp 2
+    (resumed here on one rank) — ``MULTI_TRAINERS`` — ResNet-50 (K7/K8)
+    at dp 2 and fsdp 2, ViT-B/16 at dp 2 and tp 2 — and ``MULTI_POOLS``
+    — the slot pool of the 2-layer bench LM at tp 2 and dp 2 — each
+    against its one-rank run: losses within ``TOL``, the BatchNorm
+    running statistics equal on both ranks, greedy rows equal or first
+    different at a near-tie (bf16 GEMMs of other shapes round
+    otherwise); with one card it says so and runs nothing.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
@@ -1340,7 +1350,7 @@ def moe_train_phase(moe_cfg, smi: str, peaks: tuple) -> dict:
     the bench LM's width with 8 experts, top-2, capacity factor 1.25, flash
     launch counts reset before and read after: K1-K3 each at least once a
     layer and step, Δ once per dQ launch, the loss (aux included) finite.
-    Returns the launches."""
+    Returns the launches and the measurement."""
     from kubeoperator_tpu_torch.workloads import flash_attention as fa
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
     from kubeoperator_tpu_torch.workloads.transformer import (
@@ -1389,7 +1399,7 @@ def moe_train_phase(moe_cfg, smi: str, peaks: tuple) -> dict:
         raise AssertionError(f"moe_train: flash_delta launched "
                              f"{launches['flash_delta']} times, not once "
                              f"per dQ launch")
-    return launches
+    return launches, {**m, "steps_run": total}
 
 
 def jobs_llm_moe_phase(moe_cfg, jobs, smi: str) -> dict:
@@ -2085,9 +2095,144 @@ def dist_vit_phase(vcfg, smi: str, train: dict, settings: dict) -> dict:
 # dist_multi's cases: (name, job argv); the LM at the bench LM's widths,
 # 2 layers, batch 4 × 2,048, bf16; the MLP jobs print every step, the
 # warm-up ones (NCCL's first collectives) included, and time the rest
+def dist_moe_phase(moe_cfg, jobs, smi: str, moe: dict) -> dict:
+    """The MoE LM at ``moe_train``'s width (8 experts, top-2; batch 8 ×
+    2,048) through ``llm --experts 8 --mesh ep:auto`` in the NCCL group
+    ``dist_smoke`` joined, as many steps as ``moe_train`` ran from the same
+    seeded weights and batch: K1-K3 each at least once a layer and step,
+    Δ once per dQ launch, every loss finite and the last within ``TOL`` of
+    ``moe_train``'s (the job leaves the logits f32), step ms, MFU and peak
+    memory (above what earlier phases hold) beside ``moe_train``'s.
+    Returns the launches."""
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+
+    steps = moe["steps_run"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # earlier phases' live tensors
+    fa.reset_launches()
+    rc, records = run_job(jobs, [
+        "llm", "--experts", str(moe_cfg.moe_experts), "--mesh", "ep:auto",
+        "--steps", str(steps), "--vocab", str(moe_cfg.vocab_size),
+        "--d-model", str(moe_cfg.d_model), "--heads", str(moe_cfg.n_heads),
+        "--layers", str(moe_cfg.n_layers), "--d-ff", str(moe_cfg.d_ff),
+        "--seq-len", str(moe_cfg.max_seq_len), "--batch", "8"])
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in records if "loss" in r]
+    done = records[-1]
+    want = moe["final_loss"]
+    emit({"phase": "dist_moe", "nvidia_smi": smi, "rc": rc,
+          "mesh": done.get("mesh"), "steps": done.get("steps"),
+          "launches": launches, "losses": losses,
+          "moe_train_final_loss": want,
+          "step_time_ms": done.get("step_time_ms"), "mfu": done.get("mfu"),
+          "tokens_per_sec": (8 * moe_cfg.max_seq_len * 1e3
+                             / done["step_time_ms"]
+                             if done.get("step_time_ms") else None),
+          "max_memory_allocated": peak, "held_before": held,
+          "phase_peak_bytes": peak - held,
+          "moe_train_step_time_ms": moe["step_time_ms"],
+          "moe_train_tokens_per_sec": moe["tokens_per_sec"],
+          "moe_train_mfu": moe["mfu"]})
+    if rc != 0 or not done.get("done") or done["steps"] != steps:
+        raise AssertionError(f"dist_moe: rc {rc}, {done}")
+    for kname, _ in KERNELS:
+        if launches[kname] < moe_cfg.n_layers * steps:
+            raise AssertionError(f"dist_moe: {kname} launched "
+                                 f"{launches[kname]} times, expected >= "
+                                 f"{moe_cfg.n_layers * steps}")
+    if launches["flash_delta"] != launches["flash_bwd_dq"]:
+        raise AssertionError(f"dist_moe: flash_delta launched "
+                             f"{launches['flash_delta']} times, not once "
+                             f"per dQ launch")
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"dist_moe: losses {losses}")
+    if abs(losses[-1] - want) > TOL["atol"] + TOL["rtol"] * abs(want):
+        raise AssertionError(f"dist_moe: final loss {losses[-1]}, "
+                             f"moe_train's {want}")
+    return launches
+
+
+def dist_serve_phase(cfg, jobs, smi: str) -> dict:
+    """The serve job at the bench LM's widths through ``--mesh dp:auto``
+    in the NCCL group ``dist_smoke`` joined (a world of one rank: the
+    reference's one-device spec, so no command crosses ranks):
+    ``serve_engine``'s engine shape, its greedy requests sent one at a
+    time over HTTP, each reply equal to the same request through a
+    one-device ``SlotPoolEngine`` of that shape on the served weights
+    (or first different at a near-tie of the solo decode's logits);
+    tokens/s and peak memory (above what earlier phases hold)."""
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.serving import ContinuousBatcher
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # earlier phases' live tensors
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        server, batcher = jobs.build_server(jobs.build_parser().parse_args([
+            "serve", "--engine", "continuous", "--mesh", "dp:auto",
+            "--vocab", str(cfg.vocab_size), "--d-model", str(cfg.d_model),
+            "--heads", str(cfg.n_heads), "--layers", str(cfg.n_layers),
+            "--d-ff", str(cfg.d_ff), "--max-seq-len", str(cfg.max_seq_len),
+            "--slots", str(SERVE_SLOTS), "--segment", str(SERVE_SEGMENT),
+            "--seed", "3", "--host", "127.0.0.1", "--port", "0"]))
+    records = [json.loads(x) for x in out.getvalue().splitlines()]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    reqs = [r for r in serve_requests(cfg.vocab_size) if not r[2]][:6]
+    replies, t0 = [], time.perf_counter()
+    try:
+        for prompt, mt, _t, _s in reqs:
+            status, body = http_call(url + "/generate", {
+                "prompt_ids": prompt, "max_tokens": mt})
+            if status != 200:
+                raise AssertionError(f"dist_serve: HTTP {status}: {body}")
+            replies.append(json.loads(body)["tokens"])
+        seconds = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        if hasattr(batcher.engine, "stop"):
+            batcher.engine.stop()
+    peak = torch.cuda.max_memory_allocated()
+    model, serve_cfg = batcher.engine.model, batcher.engine.cfg
+    ref = ContinuousBatcher(SlotPoolEngine(
+        serve_cfg, model, slots=SERVE_SLOTS, segment=SERVE_SEGMENT,
+        device=model.embedding.device))
+    checks = []
+    for i, (prompt, mt, _t, _s) in enumerate(reqs):
+        want = ref.submit(prompt, mt)
+        checks.append({**near_tie(
+            model, i, replies[i], want, NEAR_TIE,
+            lambda pre, n=len(prompt): decode_logits(serve_cfg, model, pre,
+                                                     n)),
+            "prompt_len": len(prompt), "max_tokens": mt})
+    # a world of one is the one-device spec: the engine reports no mesh
+    mesh = next(r["mesh"] for r in records if "mesh" in r)
+    rec = {"phase": "dist_serve", "nvidia_smi": smi, "mesh": mesh,
+           "num_processes": torch.distributed.get_world_size(),
+           "requests": len(reqs), "seconds": seconds,
+           "tokens_per_sec": sum(mt for _, mt, _, _ in reqs) / seconds,
+           "max_memory_allocated": peak, "held_before": held,
+           "phase_peak_bytes": peak - held, "greedy_vs_one_device": checks,
+           "near_tie_rows": sum(not c["equal"] for c in checks)}
+    emit(rec)
+    if mesh is not None or torch.distributed.get_world_size() != 1:
+        raise AssertionError(f"dist_serve: mesh {mesh} in a world of "
+                             f"{torch.distributed.get_world_size()}")
+    return rec
+
+
 MULTI_LM = ["--d-model", "2048", "--heads", "16", "--layers", "2", "--d-ff",
             "8192", "--seq-len", "2048", "--batch", "4", "--steps", "3"]
 MULTI_MLP = ["--steps", "5"]
+MULTI_MOE = [*MULTI_LM, "--experts", "8"]
 MULTI_CASES = (
     ("smoke", ["smoke"]),
     ("llm_dp2", ["llm", *MULTI_LM, "--mesh", "dp:2"]),
@@ -2095,6 +2240,8 @@ MULTI_CASES = (
     ("llm_sp2_ulysses", ["llm", *MULTI_LM, "--mesh", "sp:2",
                          "--sp-attention", "ulysses"]),
     ("llm_tp2", ["llm", *MULTI_LM, "--mesh", "tp:2"]),
+    ("moe_ep2", ["llm", *MULTI_MOE, "--mesh", "ep:2"]),
+    ("moe_dp2", ["llm", *MULTI_MOE, "--mesh", "dp:2"]),
     ("fsdp", ["fsdp", "--mesh", "fsdp:2", *MULTI_MLP]),
     ("fsdp_no_overlap", ["fsdp", "--mesh", "fsdp:2", "--no-overlap",
                          *MULTI_MLP]),
@@ -2109,6 +2256,47 @@ MULTI_TRAINERS = (("resnet_dp2", "resnet", {"dp": 2}),
                   ("resnet_fsdp2", "resnet", {"fsdp": 2}),
                   ("vit_dp2", "vit", {"dp": 2}), ("vit_tp2", "vit", {"tp": 2}))
 MULTI_STEPS = 5
+# dist_multi's serving cases: the slot pool of the bench LM cut to 2
+# layers over each mesh, every rank making the engine calls, against the
+# one-rank pool; (prompt length, max_tokens) of its greedy requests, one
+# a slot
+MULTI_POOLS = (("pool_tp2", {"tp": 2}), ("pool_dp2", {"dp": 2}))
+MULTI_POOL_REQS = ((16, 48), (200, 32), (64, 40), (33, 64), (128, 24),
+                   (7, 56), (256, 32), (90, 40))
+
+
+def pool_run(mesh: dict) -> dict:
+    """``MULTI_POOL_REQS`` through ``SlotPoolEngine(slots=8, segment=8)``
+    over ``mesh`` (one device for {}) on the bench LM cut to 2 layers,
+    seeded: every request's row, the segment ms (median) and the model
+    (for the near-tie rule)."""
+    from kubeoperator_tpu_torch.profile_lm import BENCH_LM
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    cfg = dataclasses.replace(BENCH_LM, n_layers=2)
+    with torch.device("cuda"):
+        model = Transformer(cfg).reset_parameters(4).eval()
+    eng = SlotPoolEngine(cfg, model, slots=8, segment=8,
+                         mesh_spec=MeshSpec(**mesh), device="cuda")
+    rng = np.random.default_rng(4)
+    entries = [(i, rng.integers(0, cfg.vocab_size, n).tolist(), mt, 0.0, 0)
+               for i, (n, mt) in enumerate(MULTI_POOL_REQS)]
+    pos = eng.admit(entries)
+    steps = max(len(pr) + mt - 1 - pos[i] for i, pr, mt, _, _ in entries)
+    times = []
+    for _ in range(-(-steps // eng.segment)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_segment()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    buf, _ = eng.poll()
+    rows = [buf[i][:len(pr) + mt].tolist() for i, pr, mt, _, _ in entries]
+    return {"rows": rows, "segment_ms": statistics.median(times) * 1e3,
+            "cfg": cfg, "model": model,
+            "prompts": [len(pr) for _, pr, _, _, _ in entries]}
 
 
 def trainer_run(model: str, mesh: dict, steps: int = MULTI_STEPS) -> dict:
@@ -2168,6 +2356,10 @@ def dist_multi_rank(rank: int, world: int, out: str, cases: tuple) -> None:
 
     results = {name: trainer_run(model, mesh)
                for name, model, mesh in MULTI_TRAINERS}
+    for name, mesh in MULTI_POOLS:
+        got = pool_run(mesh)
+        results[name] = {"rows": got["rows"],
+                         "segment_ms": got["segment_ms"]}
     for name, argv in cases:
         fa.reset_launches()
         buf = io.StringIO()
@@ -2237,7 +2429,22 @@ def dist_multi_phase(smi: str) -> dict:
     res = json.loads((out / "rank0.json").read_text())
     _, one = run_job(jobs, ["llm", *MULTI_LM])
     one_losses = [r["loss"] for r in one if "loss" in r]
+    _, one_moe = run_job(jobs, ["llm", *MULTI_MOE])
+    one_moe_losses = [r["loss"] for r in one_moe if "loss" in r]
     checks = {}
+    one_pool = pool_run({})
+    for name, mesh in MULTI_POOLS:
+        got = res[name]
+        rows = [near_tie(one_pool["model"], i, row, want, NEAR_TIE,
+                         lambda pre, n=n: decode_logits(
+                             one_pool["cfg"], one_pool["model"], pre, n))
+                for i, (row, want, n) in enumerate(zip(
+                    got["rows"], one_pool["rows"], one_pool["prompts"]))]
+        checks[name] = {"ok": True, "rows": rows,
+                        "near_tie_rows": sum(not r["equal"] for r in rows),
+                        "segment_ms": got["segment_ms"],
+                        "one_rank_segment_ms": one_pool["segment_ms"]}
+    del one_pool
     rc, resumed = run_job(jobs, ["llm", *MULTI_LM, "--ckpt-dir", str(ckpt)])
     third = [r["loss"] for r in resumed if "loss" in r]
     checks["llm_ckpt_dp2"] = {
@@ -2279,15 +2486,19 @@ def dist_multi_phase(smi: str) -> dict:
         if name == "smoke":
             ok = records[-1]["ok"] and records[-1]["psum"] == 2.0
             checks[name] = {"ok": ok, "record": records[-1]}
-        elif name.startswith("llm"):
-            ok = len(losses) == len(one_losses) and all(
+        elif name.startswith(("llm", "moe")):
+            base = one_moe_losses if name.startswith("moe") else one_losses
+            ok = len(losses) == len(base) and all(
                 abs(a - b) <= TOL["atol"] + TOL["rtol"] * abs(b)
-                for a, b in zip(losses, one_losses))
+                for a, b in zip(losses, base))
             flash = min(res[name]["launches"][k] for k, _ in KERNELS)
-            if name in ("llm_dp2", "llm_tp2"):
+            if name in ("llm_dp2", "llm_tp2", "moe_ep2", "moe_dp2"):
                 ok = ok and flash >= 2 * 3
             checks[name] = {"ok": ok, "losses": losses,
-                            "one_rank_losses": one_losses,
+                            "one_rank_losses": base,
+                            "one_rank_step_time_ms": (
+                                one_moe if name.startswith("moe")
+                                else one)[-1]["step_time_ms"],
                             "step_time_ms": records[-1]["step_time_ms"],
                             "mfu": records[-1]["mfu"],
                             "launches": res[name]["launches"]}
@@ -2470,7 +2681,7 @@ def main() -> int:
                              f"once per dQ launch")
 
     # -- 4b. main path: the MoE LM's training --------------------------------
-    moe_launches = moe_train_phase(moe_cfg, smi, peaks)
+    moe_launches, moe_m = moe_train_phase(moe_cfg, smi, peaks)
 
     # -- 5. main path: the llm entry point, then greedy generate -------------
     fa.reset_launches()
@@ -2719,6 +2930,8 @@ def main() -> int:
     with torchrun_env():
         dist_smoke_phase(jobs, smi)
         dist_llm_phase(cfg, jobs, smi, m, total_steps)
+        dist_moe_launches = dist_moe_phase(moe_cfg, jobs, smi, moe_m)
+        dist_serve_phase(cfg, jobs, smi)
         dist_vit_phase(vcfg, smi, vm, v_settings)
         dist_resnet_phase(rcfg, jobs, smi, rm, r_settings, conv_launches,
                           reset_conv)
@@ -2758,8 +2971,10 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "cuda_kernels": {k: defined_at(source, k)
                           for k in CUDA_KERNELS[kname]},
-         # the MoE LM's path runs K1-K3 and Δ too (phase moe_train)
-         **({"moe_train_launches": moe_launches[kname]}
+         # the MoE LM's paths run K1-K3 and Δ too (phase moe_train; the
+         # meshed MoE LM, phase dist_moe)
+         **({"moe_train_launches": moe_launches[kname],
+             "dist_moe_launches": dist_moe_launches[kname]}
             if kname in (*(k for k, _ in KERNELS), "flash_delta")
             else {})}
         for kname, where, source, launches, r in main_runs]})

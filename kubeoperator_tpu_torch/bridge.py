@@ -3,7 +3,9 @@
 the ``VisionTransformer``, ``resnet_params_from_jax`` for the ``ResNet``
 (params and batch stats), and ``stage_params_from_jax`` for the
 ``{embed, stages, head}`` trees of the fsdp and pipeline jobs. The
-weights go in whole: a meshed model or job shards them after loading.
+weights go in whole: a meshed model or job shards them after loading
+(``sharding.parallelize``; MoE experts over ep, their d_ff over tp, the
+router gathered at use).
 
 The port keeps the flax layouts, so the bridge is a copy: it walks the
 (``nn.unbox``-ed, numpy) param tree and names each leaf the way the port's

@@ -21,12 +21,22 @@ cards; gloo with ``--device cpu``). ``--mesh`` names the degrees
 0 prints the records. ``resnet50`` and ``vit`` train a global batch of
 ``--batch-per-chip`` × the world's ranks, and each rank makes or reads only
 its block of it: the synthetic stream seeded by the block's index, the
-``.npy`` dataset's shard of that index.
+``.npy`` dataset's shard of that index. ``llm --experts N`` takes ep
+too (experts over ep, batch over dp and fsdp); ``serve --mesh`` (the
+continuous engine) splits slots and pages over dp, heads over tp and
+experts over ep, and only rank 0 serves HTTP.
 
     python -m kubeoperator_tpu_torch.train.jobs smoke
     torchrun --nproc-per-node 4 -m kubeoperator_tpu_torch.train.jobs llm \\
         --device cpu --mesh dp:2,sp:2 --steps 2 --d-model 64 --heads 4 \\
         --layers 2 --d-ff 128 --seq-len 32 --vocab 256 --batch 2
+    torchrun --nproc-per-node 4 -m kubeoperator_tpu_torch.train.jobs llm \\
+        --device cpu --experts 4 --mesh dp:2,ep:2 --steps 2 --d-model 64 \\
+        --heads 4 --layers 2 --d-ff 128 --seq-len 32 --vocab 256 --batch 2
+    torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs serve \\
+        --device cpu --engine continuous --mesh dp:2 --vocab 128 \\
+        --d-model 32 --heads 2 --layers 1 --max-seq-len 64 --no-bf16 \\
+        --slots 4 --port 8199
     torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs fsdp \\
         --device cpu --mesh fsdp:2 [--no-overlap]
     torchrun --nproc-per-node 2 -m kubeoperator_tpu_torch.train.jobs \\
@@ -445,7 +455,13 @@ def build_server(args: argparse.Namespace):
     ``GET /metrics`` (Prometheus text) and ``POST /generate``
     ``{"prompt_ids": [...], "max_tokens": N, "temperature": T, "seed": S}``
     -> ``{"tokens": [...], "new_tokens": [...]}``; a bad body answers 400,
-    a timeout 503 and an engine failure 500."""
+    a timeout 503 and an engine failure 500.
+
+    ``--mesh`` (``--engine continuous`` only) serves from the ranks of a
+    ``torchrun`` group: every rank builds the model and the engine over
+    the mesh; rank 0 drives it through an ``EngineLeader`` and serves
+    HTTP, and every other rank runs ``follow`` here, returning
+    ``(None, None)`` when rank 0's leader stops."""
     refuse_unported(args)
     import http.server
 
@@ -460,11 +476,14 @@ def build_server(args: argparse.Namespace):
         Transformer, TransformerConfig,
     )
 
-    spec = parse_mesh(args.mesh, 1) if args.mesh else None
-    if spec is not None and spec.n_devices > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the serving mesh is not ported yet "
-            f"(ROADMAP queue 1, item 14d)")
+    spec, lead = None, True
+    if args.mesh:
+        if args.engine != "continuous":
+            raise SystemExit("--mesh requires --engine continuous (the "
+                             "dynamic engine is single-device)")
+        dist_info = maybe_initialize_distributed(args.device)
+        spec = parse_mesh(args.mesh, dist_info["num_processes"])
+        lead = dist_info["process_id"] == 0
     dev = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.heads,
@@ -490,13 +509,18 @@ def build_server(args: argparse.Namespace):
     if weights.startswith("fresh"):
         model.reset_parameters(args.seed)
     model.eval()
-    emit({"job": "serve", "weights": weights, "device": str(dev)})
+    if lead:
+        emit({"job": "serve", "weights": weights, "device": str(dev)})
     # both engines report into the process registry: one /metrics scrape
     # covers the serve plane and the train plane
     stats = BatcherStats(registry=REGISTRY)
 
     if args.engine == "continuous":
         from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+
+        from kubeoperator_tpu_torch.workloads.decode_loop import (
+            EngineLeader, follow,
+        )
 
         try:
             engine = SlotPoolEngine(cfg, model, slots=args.slots,
@@ -506,15 +530,22 @@ def build_server(args: argparse.Namespace):
                                     spill_pages=args.spill_pages,
                                     spec_k=args.spec_k,
                                     draft_layers=args.draft_layers,
-                                    device=dev)
+                                    mesh_spec=spec, device=dev)
         except ValueError as e:
             raise SystemExit(f"serve: {e}") from e
+        if engine.control is not None:
+            if not lead:
+                follow(engine)
+                return None, None
+            engine = EngineLeader(engine)
         batcher = ContinuousBatcher(engine, stats=stats)
         emit({"job": "serve", "engine": "continuous", "slots": args.slots,
               "segment": args.segment, "page": engine.page,
               "pages": engine.pages, "kv_dtype": engine.kv_dtype,
               "spill_pages": engine.spill_pages, "spec_k": engine.spec_k,
-              "draft_layers": engine.draft_layers, "moe": cfg.moe_experts})
+              "draft_layers": engine.draft_layers, "moe": cfg.moe_experts,
+              "mesh": (dict(engine.spec.sizes())
+                       if engine.spec is not None else None)})
         # every request shape shares the one segment path, so an
         # empty-pool segment is the whole warm-up; --warm is moot here
         engine.run_segment()
@@ -617,8 +648,11 @@ def parse_warm(spec: str) -> tuple[int, int, int]:
 
 def cmd_serve(args: argparse.Namespace) -> int:
     """Token-generation HTTP endpoint (the jax-serve chart's entry point):
-    ``build_server``, then serve until interrupted."""
-    server, _ = build_server(args)
+    ``build_server``, then serve until interrupted; on a serving mesh,
+    rank 0 then stops the other ranks, which return once it has."""
+    server, batcher = build_server(args)
+    if server is None:              # a follower of the serving mesh
+        return 0
     host, port = server.server_address[:2]
     emit({"job": "serve", "listening": f"{host}:{port}"})
     try:
@@ -627,6 +661,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
         pass
     finally:
         server.server_close()
+        if hasattr(batcher.engine, "stop"):
+            batcher.engine.stop()
     return 0
 
 
@@ -933,14 +969,17 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--segment", type=int, default=8,
                     help="continuous engine: tokens per segment")
     sv.add_argument("--mesh", type=str, default=None,
-                    help="not ported: a mesh above one device raises")
+                    help="continuous engine under torchrun: slots and "
+                         "pages over dp, heads over tp, MoE experts over "
+                         "ep (e.g. dp:auto or dp:2,tp:2 or dp:2,ep:2)")
     sv.add_argument("--page", type=int, default=None,
                     help="continuous engine: tokens per KV-cache page "
                          "(power of two dividing max_seq_len; default "
                          "min(16, max_seq_len) rounded down)")
     sv.add_argument("--pages", type=int, default=None,
                     help="continuous engine: total KV pages, the admission "
-                         "limiter (default slots * max_seq_len/page + 1)")
+                         "limiter (default slots * max_seq_len/page + one "
+                         "trash page a dp shard)")
     sv.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
                     help="continuous engine: KV page-pool element type — "
                          "int8 stores quantized codes with per-(page, "

@@ -9,7 +9,8 @@ model's parameters and buffers (BatchNorm's running statistics), and the
 optimizer's state as each parameter's moments by that parameter's name
 (whole tensors; scalars such as AdamW's step as they are) beside its
 param groups' settings. Under a mesh every rank gathers the shards
-(``sharding.unshard_tensor``, a collective), rank 0 writes the file and
+(``sharding.unshard_tensor``, a collective over the fsdp, tp and ep
+axes that split a tensor: MoE experts too), rank 0 writes the file and
 the ranks meet at a barrier; each rank restores the file memory-mapped on
 the host and keeps its own shards (``sharding.shard_tensor``). So a
 checkpoint moves between mesh shapes, and between a mesh and one device,

@@ -17,6 +17,11 @@ here is a ``torch.autograd.Function`` whose backward is its transpose:
   ``gather_start`` issues the same gather asynchronously and its handle's
   ``wait()`` joins the result to the graph: the overlapped ZeRO-3 step
   prefetches layer i+1 with it while layer i computes.
+* ``gather_alike(x, group, dim)``: the same tiled gather, for ranks
+  that go on to compute alike with the whole tensor (the ep ranks of an
+  MoE router, which route the same tokens): their gradients of it are
+  equal, so the backward keeps this rank's block of it instead of
+  summing them.
 * ``reduce_from(x, group)``: ``psum``; backward the identity (Megatron's
   "g", after a row-parallel product).
 * ``copy_to(x, group)``: the identity; backward ``psum`` (Megatron's
@@ -184,6 +189,30 @@ def gather_start(shard: torch.Tensor, group, dim: int = 0):
 def all_gather(shard: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The shards of ``group`` concatenated along ``dim`` in rank order."""
     return gather_start(shard, group, dim).wait()
+
+
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, group, dim):
+        ctx.group, ctx.dim = group, dim
+        handle = GatherHandle(shard, group, dim)
+        handle.work.wait()
+        return _concat(handle.out, group_size(group), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        return g.chunk(n, ctx.dim)[group_rank(ctx.group)].contiguous(), \
+            None, None
+
+
+def gather_alike(shard: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The shards of ``group`` concatenated along ``dim``, for ranks that
+    all compute the same function of the whole: the gradient comes back
+    as this rank's block of the (equal) whole gradient, not summed."""
+    if group_size(group) == 1:
+        return shard
+    return _GatherAlike.apply(shard, group, dim)
 
 
 class _ReduceFrom(torch.autograd.Function):

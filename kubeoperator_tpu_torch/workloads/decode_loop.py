@@ -1,8 +1,8 @@
 """Persistent slot-pool decode engine for continuous batching, the
-counterpart of ``kubeoperator_tpu/workloads/decode_loop.py`` on one
-device: paged KV, the prefix cache with copy-on-write and LRU eviction,
-int8/fp8 KV pages, the host spill tier and the engine half of the
-prefill→decode handoff.
+counterpart of ``kubeoperator_tpu/workloads/decode_loop.py``, on one
+device or a serving mesh: paged KV, the prefix cache with copy-on-write
+and LRU eviction, int8/fp8 KV pages, the host spill tier and the engine
+half of the prefill→decode handoff.
 
 ``generate()`` runs one fused batch to completion. This module keeps a
 fixed pool of S decode *slots* alive on the device instead: one
@@ -106,20 +106,56 @@ row equals solo ``generate()`` for power-of-two prompts, whose admission
 chunk is the whole prompt; at one token a step nothing is ever dropped.
 Speculation over MoE is refused (``ValueError``), as in the reference.
 
+The serving mesh (``mesh_spec=MeshSpec(dp=…, tp=…[, ep=…])``, one
+process per device in a ``torch.distributed`` group,
+``validate_serve_mesh``): the slots and the pages split over dp, each dp
+shard owning slots/dp contiguous slots (slot s on shard s // (slots/dp))
+and pages/dp contiguous pages with its own trash page, its own
+allocator, prefix cache and spill tier; a slot's block table names only
+its shard's pages. Attention heads split over tp and each layer's output
+projection and MLP down product are summed over tp (the reference's two
+all-reduces a block); MoE experts split over ep, routing stays whole,
+and the combine is summed over ep (``moe.py``). ``sharding.place_decode``
+cuts the weights; the embedding stays whole, so the logits and the
+draws are every rank's own. A rank holds on the device only its shard's
+rows, pages and heads.
+
+The host protocol is the one-device engine's, run by every rank: the
+host state (allocators, prefix caches, block tables, mirrors) is the
+same on every rank because every rank makes the same calls in the same
+order, and each rank does the device work of its own shard. The ranks
+of a dp shard (its tp and ep ranks) share its rows, so the collectives
+inside a forward pass stay within a shard; only ``poll``,
+``poll_spec``, ``expert_load`` and ``debug_logits`` gather or sum over
+dp, so every rank returns every slot. One process serves: rank 0 holds
+an ``EngineLeader``, which sends each call that touches the engine
+(admit, run_segment, poll, poll_spec, release, expert_load,
+debug_logits) to the other ranks, over a gloo control group, before it
+runs it itself; they run ``follow(engine)``, making the same calls until
+the leader's ``stop()``. The allocator's read-only accounting
+(``pages_for``, ``free_pages``, …) needs no message: every rank holds
+the same. Greedy rows on a mesh equal the one-device pool's.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): a device mesh [14] and the AOT compile cache [15].
+queue 1 item): the AOT compile cache [15], and the handoff
+(``export_prefix``/``import_prefix``) under a mesh [20].
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from dataclasses import replace
+from datetime import timedelta
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from kubeoperator_tpu_torch.workloads import collectives as cl
+from kubeoperator_tpu_torch.workloads import sharding
 from kubeoperator_tpu_torch.workloads.generate import (
     attn_out_mlp, final_logits, gumbel_draw, gumbel_noise, gumbel_pick,
 )
@@ -212,6 +248,43 @@ def validate_page_pool(*, page: int, pages: int, max_seq_len: int,
             f"pages ({pages}) gives {pages // dp} page(s) per dp shard "
             f"({dp}); each shard needs its reserved trash page plus at "
             f"least one allocatable page")
+
+
+def validate_serve_mesh(spec: MeshSpec, *, slots: int, n_heads: int,
+                        page: int | None = None, pages: int | None = None,
+                        max_seq_len: int | None = None,
+                        moe_experts: int = 0) -> None:
+    """Reject un-shardable serving layouts up front with actionable
+    errors. The serving pool shards exactly two ways: the page pool (and
+    with it the slot axis) over dp, attention heads over tp — plus, for
+    MoE models (``moe_experts > 0``), expert weights over ep. Pass
+    ``page``/``pages``/``max_seq_len`` to validate the paged-KV layout in
+    the same breath. The reference's checks and messages."""
+    allowed = ("dp", "tp", "ep") if moe_experts else ("dp", "tp")
+    extra = {n: s for n, s in spec.sizes()
+             if n not in allowed and s > 1}
+    if extra:
+        raise ValueError(
+            f"serving mesh shards slots over dp and heads over tp only; "
+            f"got {', '.join(f'{n}={s}' for n, s in extra.items())} "
+            f"(use --mesh dp:N,tp:M)")
+    if moe_experts and spec.ep > 1 and moe_experts % spec.ep:
+        raise ValueError(
+            f"moe_experts ({moe_experts}) must be divisible by ep "
+            f"({spec.ep}): expert weights shard over ep, so each shard "
+            f"owns moe_experts/ep experts")
+    if slots % spec.dp:
+        raise ValueError(
+            f"slots ({slots}) must be divisible by dp ({spec.dp}): the "
+            f"slot axis shards over dp, so each shard owns slots/dp rows")
+    if n_heads % spec.tp:
+        raise ValueError(
+            f"n_heads ({n_heads}) must be divisible by tp ({spec.tp}): "
+            f"attention heads shard over tp, so each shard owns "
+            f"n_heads/tp heads")
+    if page is not None:
+        validate_page_pool(page=page, pages=int(pages or 0),
+                           max_seq_len=int(max_seq_len or 0), dp=spec.dp)
 
 
 def _rope_grid(x: torch.Tensor, pos: torch.Tensor,
@@ -323,22 +396,39 @@ class SlotPoolEngine:
             raise ValueError(
                 f"draft_layers ({draft_layers}) requires spec_k > 0 "
                 f"(speculation is disabled at spec_k=0)")
-        if mesh_spec is not None and any(s > 1 for _, s in
-                                         mesh_spec.sizes()):
-            raise NotImplementedError(
-                f"mesh {dict(mesh_spec.sizes())}: the slot pool runs on one "
-                f"device until ROADMAP queue 1 item 14d (multi-device part "
-                f"4: the serving mesh)")
         if compile_cache is not None:
             raise NotImplementedError(
                 "the AOT compile cache is not ported yet (ROADMAP queue 1, "
                 "item 15)")
         self.cfg = cfg
-        self.model = model
         self.slots = int(slots)
         self.segment = int(segment)
         self.max_total = int(cfg.max_seq_len)
         self._decode_cfg = replace(cfg, decode=True, remat=False)
+
+        # -- the mesh: slots and pages over dp, heads over tp, experts over
+        # ep; a 1-device spec is the one-device engine
+        self.spec = (mesh_spec if mesh_spec is not None
+                     and mesh_spec.n_devices > 1 else None)
+        if self.spec is not None:
+            validate_serve_mesh(self.spec, slots=self.slots,
+                                n_heads=cfg.n_heads,
+                                moe_experts=cfg.moe_experts)
+            self.mesh = sharding.build_mesh(self.spec, self.device.type)
+            model = sharding.place_decode(model, cfg, self.mesh, self.spec)
+            # the engine commands' channel (EngineLeader, follow): a gloo
+            # group every rank's engine makes, in the same order
+            self.control = dist.new_group(backend="gloo",
+                                          timeout=_CONTROL_TIMEOUT)
+        else:
+            self.mesh = self.control = None
+        self.model = model
+        self.dp = self.spec.dp if self.spec is not None else 1
+        self._dp_group = sharding.axis_group(self.mesh, "dp")
+        self._shard_slots = self.slots // self.dp
+        # this rank's dp shard: its slots [lo, lo + shard_slots) and pages
+        self._my_shard = sharding.axis_index(self.mesh, "dp")
+        self._lo = self._my_shard * self._shard_slots
 
         # -- paged-KV geometry ----------------------------------------------
         self.page = int(page) if page is not None else _default_page(
@@ -346,12 +436,14 @@ class SlotPoolEngine:
         # default pool: dense-equivalent capacity (every slot can still go
         # to max_seq_len) plus the trash page; callers cap memory by
         # passing a smaller `pages` and letting admission backpressure work
+        # (one trash page per dp shard)
         self.pages = (int(pages) if pages is not None else
-                      self.slots * (self.max_total // max(self.page, 1)) + 1)
+                      self.slots * (self.max_total // max(self.page, 1))
+                      + self.dp)
         self.kv_dtype = str(kv_dtype)
         self.spill_pages = int(spill_pages)
         validate_page_pool(page=self.page, pages=self.pages,
-                           max_seq_len=self.max_total,
+                           max_seq_len=self.max_total, dp=self.dp,
                            kv_dtype=self.kv_dtype,
                            spill_pages=self.spill_pages)
         self._quantized = self.kv_dtype != "bf16"
@@ -366,7 +458,13 @@ class SlotPoolEngine:
         self._qmax = _QMAX.get(self.kv_dtype)
         self.logit_tolerance = LOGIT_TOLERANCE[self.kv_dtype]
         self.blocks = self.max_total // self.page
-        self._shards = [_PageShard(0, 0, self.pages)]
+        # one allocator per dp shard over its contiguous page range, each
+        # with its own trash page; this rank's device pool holds its own
+        # shard's pages (local page = global page - _base)
+        self._span = self.pages // self.dp
+        self._shards = [_PageShard(i, i * self._span, self._span)
+                        for i in range(self.dp)]
+        self._base = self._my_shard * self._span
         self._slot_pages: dict[int, list[int]] = {}
         self.prefix_hits = 0          # admissions that reused cached pages
         self.prefix_pages_reused = 0  # pages whose prefill was skipped
@@ -375,8 +473,11 @@ class SlotPoolEngine:
         self.promoted_hits = 0        # admissions served from the spill tier
         self.last_plans: dict[int, dict] = {}   # last wave's admission plans
 
-        s, t, dev = self.slots, self.max_total, self.device
-        h, d, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
+        # device state covers this rank's shard: its slots' rows, its pages,
+        # its heads; the host mirrors and block tables cover every slot
+        s, t, dev = self._shard_slots, self.max_total, self.device
+        h = cfg.n_heads // (self.spec.tp if self.spec is not None else 1)
+        d, dt = cfg.head_dim, cfg.dtype
         self._rows = torch.arange(s, device=dev)
         self._key_pos = torch.arange(t, device=dev)
         self._buf = torch.zeros((s, t), dtype=torch.long, device=dev)
@@ -384,18 +485,19 @@ class SlotPoolEngine:
         # final token index; empty=0, so an empty row never advances
         self._last = torch.zeros((s,), dtype=torch.long, device=dev)
         self._plen = torch.ones((s,), dtype=torch.long, device=dev)
-        # host mirrors: the draws are seeded on the host, and their keys
-        # must not cost a device read
-        self._pos_h = np.zeros(s, np.int64)
-        self._last_h = np.zeros(s, np.int64)
-        self._plen_h = np.ones(s, np.int64)
-        self._temp_h = np.zeros(s, np.float64)
-        self._seed_h = np.zeros(s, np.int64)
+        # host mirrors of every slot: the draws are seeded on the host, and
+        # their keys must not cost a device read
+        n = self.slots
+        self._pos_h = np.zeros(n, np.int64)
+        self._last_h = np.zeros(n, np.int64)
+        self._plen_h = np.ones(n, np.int64)
+        self._temp_h = np.zeros(n, np.float64)
+        self._seed_h = np.zeros(n, np.int64)
         self._gen = torch.Generator(device=dev)
         # model-dtype pools keep 2-tuples; quantized ones widen each layer
         # entry to (k_pool, v_pool, k_scale, v_scale): 1-byte pools plus
         # per-(page, offset, head) float32 scales that start at 1
-        shape = (self.pages, self.page, h, d)
+        shape = (self._span, self.page, h, d)
 
         def entry():
             if not self._quantized:
@@ -407,15 +509,19 @@ class SlotPoolEngine:
                     torch.ones(shape[:3], dtype=torch.float32, device=dev))
 
         self._pools = [entry() for _ in range(cfg.n_layers)]
-        self._bt_np = np.full((s, self.blocks), self._shards[0].trash,
-                              np.int64)
-        self._bt = torch.as_tensor(self._bt_np, device=dev)
+        # block tables of every slot in global page ids (each slot its own
+        # shard's trash page); the device holds this shard's rows in its
+        # local ids
+        self._bt_np = np.repeat(
+            np.array([sh.trash for sh in self._shards], np.int64),
+            self._shard_slots)[:, None].repeat(self.blocks, 1)
+        self._bt = torch.as_tensor(self._local_pages(self._mine(self._bt_np)),
+                                   device=dev)
         # draft block tables: the draft's KV pages live in the same pool
         # (one allocator, one backpressure signal) behind their own
         # [S, blocks] tables, trash-initialised like the target's
         self._dbt_np = self._bt_np.copy() if self.spec_k else None
-        self._dbt = (torch.as_tensor(self._dbt_np, device=dev)
-                     if self.spec_k else None)
+        self._dbt = self._bt.clone() if self.spec_k else None
         # speculative accounting: [drafted, accepted] summed on the device
         # over the rounds since the last poll_spec, which drains it into
         # the host counters; _stale_h marks the rows whose position mirror
@@ -423,10 +529,33 @@ class SlotPoolEngine:
         self.spec_draft_tokens = 0
         self.spec_accepted_tokens = 0
         self._spec_stats = None
-        self._stale_h = np.zeros(s, bool)
+        self._stale_h = np.zeros(n, bool)
         # MoE per-expert load of every micro-step, summed on the device
         # (empty for a dense model)
         self._expert_load = torch.zeros(cfg.moe_experts, device=dev)
+
+    # -- this rank's share of the mesh ----------------------------------------
+    def _mine(self, host: np.ndarray) -> np.ndarray:
+        """This rank's rows (its dp shard's slots) of a per-slot host
+        array."""
+        return host[self._lo:self._lo + self._shard_slots]
+
+    def _local_pages(self, pages) -> np.ndarray:
+        """Global page ids of this rank's shard as indices into its
+        device pool."""
+        return np.asarray(pages, np.int64) - self._base
+
+    def _owns(self, shard: int) -> bool:
+        return shard == self._my_shard
+
+    def _shard_of(self, slot: int) -> int:
+        """The dp shard slot ``slot`` lives on."""
+        return int(slot) // self._shard_slots
+
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows from each dp shard's [shard_slots, ...] block
+        (a gather over dp; this rank's block on one device)."""
+        return cl.all_gather(local, self._dp_group, 0)
 
     @property
     def pool_bytes(self) -> int:
@@ -534,8 +663,8 @@ class SlotPoolEngine:
         replaced by ``pos`` and the dense cache row by the gathered
         pages."""
         cfg, dt = self._decode_cfg, self._decode_cfg.dtype
-        s, t = self.slots, self.max_total
-        nh, hd = cfg.n_heads, cfg.head_dim
+        s, t = self._shard_slots, self.max_total
+        nh, hd = self._pools[0][0].shape[2], cfg.head_dim     # heads here
         scale = 1.0 / (cfg.head_dim ** 0.5)
         blk = pos // self.page
         pg = bt[self._rows[:, None], blk]
@@ -579,13 +708,14 @@ class SlotPoolEngine:
         rows, pos, t = self._rows, self._pos, self.max_total
         nxt = (pos + 1).clamp(max=t - 1)
         choice = torch.argmax(logits, dim=-1)
-        for i in np.flatnonzero((self._temp_h > 0)
-                                & (self._pos_h < self._last_h)
-                                & (self._pos_h + 1 >= self._plen_h)):
+        temp, pos_h, seed = (self._mine(a) for a in (
+            self._temp_h, self._pos_h, self._seed_h))
+        for i in np.flatnonzero((temp > 0)
+                                & (pos_h < self._mine(self._last_h))
+                                & (pos_h + 1 >= self._mine(self._plen_h))):
             choice[i] = gumbel_draw(
-                logits[i:i + 1], float(self._temp_h[i]),
-                [(int(self._seed_h[i]), 0, int(self._pos_h[i]))],
-                self._gen)[0]
+                logits[i:i + 1], float(temp[i]),
+                [(int(seed[i]), 0, int(pos_h[i]))], self._gen)[0]
         chosen = torch.where(pos + 1 < self._plen, self._buf[rows, nxt],
                              choice)
         active = pos < self._last
@@ -610,11 +740,14 @@ class SlotPoolEngine:
                 self._expert_load += load
             self._choose(logits)
 
+    @torch.no_grad()
     def poll(self) -> tuple[np.ndarray, np.ndarray]:
         """ONE batched device->host fetch: (token buffers [S, max_total],
         positions [S]) — retirement reads rows out of this, never
-        per-scalar fetches."""
-        both = torch.cat([self._buf, self._pos[:, None]], dim=1).cpu().numpy()
+        per-scalar fetches. Under a mesh the dp shards' rows are gathered
+        first, so every rank returns every slot."""
+        both = self._gather_rows(torch.cat([self._buf, self._pos[:, None]],
+                                           dim=1)).cpu().numpy()
         return both[:, :-1], both[:, -1]
 
     def poll_spec(self) -> tuple[np.ndarray, int, int]:
@@ -625,8 +758,11 @@ class SlotPoolEngine:
         ``spec_accepted_tokens``."""
         stats = (self._spec_stats if self._spec_stats is not None
                  else torch.zeros(2, dtype=torch.long, device=self.device))
-        both = torch.cat([self._pos, stats]).cpu().numpy()
-        pos, drafted, accepted = both[:-2], int(both[-2]), int(both[-1])
+        # each dp shard's positions and counts: [shards, shard_slots + 2]
+        both = self._gather_rows(torch.cat([self._pos, stats])[None])
+        both = both.cpu().numpy()
+        pos = both[:, :-2].reshape(-1)
+        drafted, accepted = (int(v) for v in both[:, -2:].sum(0))
         self._spec_stats = None
         self._stale_h[:] = False
         self._pos_h[:] = pos
@@ -634,11 +770,14 @@ class SlotPoolEngine:
         self.spec_accepted_tokens += accepted
         return pos, drafted, accepted
 
+    @torch.no_grad()
     def expert_load(self) -> np.ndarray:
         """Per-expert dispatched-token counts ([moe_experts] float32) of
-        every micro-step since the engine started, summed over layers;
-        zeros before the first segment. One device->host fetch."""
-        return self._expert_load.cpu().numpy()
+        every micro-step since the engine started, summed over layers (and
+        over the dp shards: each routes its own rows whole); zeros before
+        the first segment. One device->host fetch."""
+        return cl.reduce_from(self._expert_load,
+                              self._dp_group).cpu().numpy()
 
     @torch.no_grad()
     def debug_logits(self) -> np.ndarray:
@@ -646,7 +785,7 @@ class SlotPoolEngine:
         choose from, by the micro-step's own path (the same quantizing
         write and dequantizing gather), without advancing any slot. (Its
         page writes are the ones the next micro-step makes.)"""
-        return self._forward()[0].cpu().numpy()
+        return self._gather_rows(self._forward()[0]).cpu().numpy()
 
     # -- speculative decoding ---------------------------------------------------
     def _rewind(self, pos0: torch.Tensor, adv: torch.Tensor,
@@ -665,16 +804,17 @@ class SlotPoolEngine:
         row: its Gumbel noise of positions pos0 .. pos0+K-1, keyed
         ``(seed, 0, position)`` from the host mirror and drawn once for
         both phases. Raises while a round has outdated the mirror."""
-        rows = np.flatnonzero((self._temp_h > 0)
-                              & (self._pos_h < self._last_h))
-        if self._stale_h[rows].any():
+        temp, pos_h, seed = (self._mine(a) for a in (
+            self._temp_h, self._pos_h, self._seed_h))
+        rows = np.flatnonzero((temp > 0) & (pos_h < self._mine(self._last_h)))
+        if self._mine(self._stale_h)[rows].any():
             raise RuntimeError(
                 "speculative run_segment with live sampled rows needs "
                 "poll_spec() after the previous round: their draws are "
                 "keyed by the positions it fetches")
         vocab = self.cfg.vocab_size
-        return {int(i): (float(self._temp_h[i]), gumbel_noise(
-                    [(int(self._seed_h[i]), 0, int(self._pos_h[i]) + j)
+        return {int(i): (float(temp[i]), gumbel_noise(
+                    [(int(seed[i]), 0, int(pos_h[i]) + j)
                      for j in range(self.spec_k)],
                     vocab, self._gen, self.device))
                 for i in rows}
@@ -794,9 +934,9 @@ class SlotPoolEngine:
 
     @property
     def max_request_pages(self) -> int:
-        """Largest page reservation one request may ask for: the whole
-        pool minus its trash page."""
-        return self.pages - 1
+        """Largest page reservation one request may ask for: a whole dp
+        shard's pool minus its trash page."""
+        return self._span - 1
 
     def spill_pages_used(self, shard: int = 0) -> int:
         """Host pages the spill tier currently holds (bounded by
@@ -838,16 +978,18 @@ class SlotPoolEngine:
         while sh.spill_used + n > self.spill_pages and sh.spill:
             _k, (_t, _p, m) = sh.spill.popitem(last=False)
             sh.spill_used -= m
-        idx = torch.as_tensor(list(pgs), device=self.device)
-        parts = [self._split(e) for e in self._pools]
-        pin = self.device.type == "cuda"
         payload = []
-        for kind in range(4 if self._quantized else 2):
-            dev = torch.stack([self._page_export(p[kind], idx)
-                               for p in parts])
-            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
-            host.copy_(dev)
-            payload.append(host)
+        if self._owns(sh.index):    # another shard's pages are not here
+            idx = torch.as_tensor(self._local_pages(pgs), device=self.device)
+            parts = [self._split(e) for e in self._pools]
+            pin = self.device.type == "cuda"
+            for kind in range(4 if self._quantized else 2):
+                dev = torch.stack([self._page_export(p[kind], idx)
+                                   for p in parts])
+                host = torch.empty(dev.shape, dtype=dev.dtype,
+                                   pin_memory=pin)
+                host.copy_(dev)
+                payload.append(host)
         sh.spill[key] = (toks, tuple(payload), n)
         sh.spill_used += n
         self.demotions += 1
@@ -909,7 +1051,8 @@ class SlotPoolEngine:
             sh.spill_used += n
             return self._lookup_prefix(sh.index, prompt)
         pages = [sh.free.pop() for _ in range(n)]
-        self._land_pages(pages, payload)
+        if self._owns(sh.index):
+            self._land_pages(pages, payload)
         self._publish_prefix(sh, list(toks), pages)
         self.promoted_hits += 1
         return n, tuple(pages)
@@ -918,7 +1061,7 @@ class SlotPoolEngine:
         """Land one spill payload (per kind of buffer, stacked over
         layers) in freshly allocated device pages: one host→device
         transfer per kind, then ``_page_copy`` per layer."""
-        dst = torch.as_tensor(pages, device=self.device)
+        dst = torch.as_tensor(self._local_pages(pages), device=self.device)
         src = torch.arange(len(pages), device=self.device)
         kinds = [b.to(self.device) for b in payload]
         for li, entry in enumerate(self._pools):
@@ -956,7 +1099,7 @@ class SlotPoolEngine:
         pages = self._slot_pages.pop(slot, None)
         if not pages:
             return
-        sh = self._shards[0]
+        sh = self._shards[self._shard_of(slot)]
         for pg in pages:
             sh.ref[pg] -= 1
             if not sh.ref[pg]:
@@ -972,11 +1115,12 @@ class SlotPoolEngine:
         freed = [int(s) for s in slots if int(s) in self._slot_pages]
         for s in freed:
             self._release_slot(s)
-            self._bt_np[s, :] = self._shards[0].trash
+            trash = self._shards[self._shard_of(s)].trash
+            self._bt_np[s, :] = trash
             if self.spec_k:
                 # the draft run and the over-speculated lookahead go back
                 # with the tables: no data moves
-                self._dbt_np[s, :] = self._shards[0].trash
+                self._dbt_np[s, :] = trash
         self._push_block_tables(freed)
 
     # -- admission ----------------------------------------------------------
@@ -1006,24 +1150,27 @@ class SlotPoolEngine:
                              else "cover" if pl["h"] >= pl["c"]
                              else "partial" if pl["h"] else "miss"),
             } for pl in plans}
-        self._apply_cow(cow_pairs)
+        # the device work is this rank's shard's: its plans, its pages
+        mine = [pl for pl in plans if self._owns(pl["shard"])]
+        self._apply_cow([pair for pair, shard in cow_pairs
+                         if self._owns(shard)])
         groups: dict[tuple[int, int], list[dict]] = {}
         nopass: list[dict] = []
-        for pl in plans:
+        for pl in mine:
             if pl["h"] < pl["c"]:
                 groups.setdefault((pl["c"], pl["h"]), []).append(pl)
             else:
                 nopass.append(pl)
-        out: dict[int, int] = {}
         for (c, h), group in sorted(groups.items()):
-            out.update(self._admit_group(c, h, group))
+            self._admit_group(c, h, group)
         if nopass:
-            out.update(self._admit_nopass(nopass))
+            self._admit_nopass(nopass)
+        self._set_mirrors(plans)
         if self.spec_k:
-            self._seed_draft(plans)
+            self._seed_draft(mine)
         self._push_block_tables([pl["slot"] for pl in plans])
         self._register_prefixes(plans)
-        return out
+        return {pl["slot"]: pl["pos0"] for pl in plans}
 
     def _seed_draft(self, plans: list[dict]) -> None:
         """Seed each admitted slot's draft pages: the draft IS the
@@ -1038,20 +1185,20 @@ class SlotPoolEngine:
             src.extend(pl["pages"][:n])
         if not dst:
             return
-        dj = torch.as_tensor(dst, device=self.device)
-        sj = torch.as_tensor(src, device=self.device)
+        dj = torch.as_tensor(self._local_pages(dst), device=self.device)
+        sj = torch.as_tensor(self._local_pages(src), device=self.device)
         for entry in self._pools[:self.draft_layers]:
             kp, vp, ks, vs = self._split(entry)
             self._page_copy(kp, dj, sj, scale=ks)
             self._page_copy(vp, dj, sj, scale=vs)
 
-    def _plan_entries(self, entries) -> tuple[list[dict],
-                                              list[tuple[int, int]]]:
+    def _plan_entries(self, entries) -> tuple[list[dict], list]:
         """Validate, look up prefixes, and reserve pages for one admission
-        wave. Host-only, apart from a spill promotion's page landing."""
+        wave, each slot on its dp shard's allocator. Host-only, apart from
+        a spill promotion's page landing. Returns the plans and the
+        copy-on-write ((dst, src), shard) pairs."""
         plans: list[dict] = []
-        cow_pairs: list[tuple[int, int]] = []
-        sh = self._shards[0]
+        cow_pairs: list[tuple[tuple[int, int], int]] = []
         for slot, prompt_ids, max_tokens, temperature, seed in entries:
             prompt = list(map(int, prompt_ids))
             if not prompt:
@@ -1063,6 +1210,7 @@ class SlotPoolEngine:
             if not 0 <= int(slot) < self.slots:
                 raise ValueError(f"slot {slot} outside pool [0, {self.slots})")
             slot, mt = int(slot), int(max_tokens)
+            sh = self._shards[self._shard_of(slot)]
             plen = len(prompt)
             # a re-admitted slot implicitly releases its previous pages
             # (its block table is rewritten below, before any segment runs)
@@ -1109,7 +1257,7 @@ class SlotPoolEngine:
                     pg = sh.free.pop()
                     sh.ref[pg] = 1
                     if b == cow_blk:
-                        cow_pairs.append((pg, hit_pages[b]))
+                        cow_pairs.append(((pg, hit_pages[b]), sh.index))
                         self.cow_copies += 1
                     pages.append(pg)
             dpages: list[int] = []
@@ -1134,8 +1282,10 @@ class SlotPoolEngine:
         one scatter into all destinations per buffer."""
         if not cow_pairs:
             return
-        dst = torch.as_tensor([d for d, _ in cow_pairs], device=self.device)
-        src = torch.as_tensor([s for _, s in cow_pairs], device=self.device)
+        dst = torch.as_tensor(self._local_pages([d for d, _ in cow_pairs]),
+                              device=self.device)
+        src = torch.as_tensor(self._local_pages([s for _, s in cow_pairs]),
+                              device=self.device)
         for entry in self._pools:
             kp, vp, ks, vs = self._split(entry)
             self._page_copy(kp, dst, src, scale=ks)
@@ -1150,7 +1300,7 @@ class SlotPoolEngine:
         the pass attends over exactly the K/V the micro-step would see —
         then one page-routed write of positions [h, c) into each pool."""
         cfg, dev = self._decode_cfg, self.device
-        nh, hd = cfg.n_heads, cfg.head_dim
+        nh, hd = self._pools[0][0].shape[2], cfg.head_dim     # heads here
         k, w = len(group), c - h
         chunk = torch.as_tensor(np.array([pl["prompt"][h:c] for pl in group]),
                                 dtype=torch.long, device=dev)
@@ -1159,8 +1309,8 @@ class SlotPoolEngine:
                     torch.zeros((k, c, nh, hd), dtype=cfg.dtype, device=dev))
                    for _ in range(cfg.n_layers)]
         if h:
-            blk = torch.as_tensor(np.array([pl["pages"][:h // self.page]
-                                            for pl in group]), device=dev)
+            blk = torch.as_tensor(self._local_pages(
+                [pl["pages"][:h // self.page] for pl in group]), device=dev)
             for (sk, sv), (kp, vp, ks, vs) in zip(scratch, parts):
                 sk[:, :h] = self._gather_kv(kp, ks, blk).reshape(k, h, nh, hd)
                 sv[:, :h] = self._gather_kv(vp, vs, blk).reshape(k, h, nh, hd)
@@ -1169,9 +1319,9 @@ class SlotPoolEngine:
         # route positions [h, c) through each plan's block table into the
         # pools: indices stacked on the host, moved once, one write each
         hpos = np.arange(h, c)
-        pg = torch.as_tensor(np.array([[pl["pages"][p // self.page]
-                                        for p in hpos] for pl in group]
-                                      ).reshape(-1), device=dev)
+        pg = torch.as_tensor(self._local_pages(
+            [[pl["pages"][p // self.page] for p in hpos] for pl in group]
+        ).reshape(-1), device=dev)
         off = torch.as_tensor(np.tile(hpos % self.page, k), device=dev)
         for (kp, vp, ks, vs), (sk, sv) in zip(parts, scratch):
             self._page_write(kp, pg, off, sk[:, h:c].reshape(k * w, nh, hd),
@@ -1191,9 +1341,8 @@ class SlotPoolEngine:
                                           self._gen)[0]
                               if pl["temp"] > 0 else torch.argmax(lg[0]))
         self._scatter_state(group, np.full(k, c, np.int64), rows)
-        return {pl["slot"]: c for pl in group}
 
-    def _admit_nopass(self, group: list[dict]) -> dict[int, int]:
+    def _admit_nopass(self, group: list[dict]) -> None:
         """Plans whose prefill the prefix cache covers: no forward pass at
         all. A full-prompt hit starts one position back (pos = plen-1) and
         re-decodes the boundary token inside its copy-on-write page to
@@ -1201,7 +1350,6 @@ class SlotPoolEngine:
         pos_np = np.array([pl["pos0"] for pl in group], np.int64)
         rows = torch.as_tensor(self._prompt_rows(group), device=self.device)
         self._scatter_state(group, pos_np, rows)
-        return {pl["slot"]: int(pl["pos0"]) for pl in group}
 
     def _prompt_rows(self, group: list[dict]) -> np.ndarray:
         rows_np = np.zeros((len(group), self.max_total), np.int64)
@@ -1211,33 +1359,44 @@ class SlotPoolEngine:
 
     def _scatter_state(self, group: list[dict], pos_np: np.ndarray,
                        rows: torch.Tensor) -> None:
-        """One batched transfer and one indexed write per state vector,
-        and the same values into the host mirrors."""
+        """One batched transfer and one indexed write per state vector of
+        this shard's admitted rows."""
         slots_np = np.array([pl["slot"] for pl in group], np.int64)
         plens_np = np.array([pl["plen"] for pl in group], np.int64)
         last_np = plens_np + np.array([pl["mt"] for pl in group]) - 1
-        idx = torch.as_tensor(slots_np, device=self.device)
+        idx = torch.as_tensor(slots_np - self._lo, device=self.device)
         self._buf[idx] = rows
         self._pos[idx] = torch.as_tensor(pos_np, device=self.device)
         self._last[idx] = torch.as_tensor(last_np, device=self.device)
         self._plen[idx] = torch.as_tensor(plens_np, device=self.device)
-        self._pos_h[slots_np] = pos_np
-        self._last_h[slots_np] = last_np
+
+    def _set_mirrors(self, plans: list[dict]) -> None:
+        """The host mirrors of every admitted slot, on every shard: the
+        values ``_scatter_state`` wrote on the device."""
+        slots_np = np.array([pl["slot"] for pl in plans], np.int64)
+        plens_np = np.array([pl["plen"] for pl in plans], np.int64)
+        self._pos_h[slots_np] = [pl["pos0"] for pl in plans]
+        self._last_h[slots_np] = plens_np + np.array(
+            [pl["mt"] for pl in plans]) - 1
         self._plen_h[slots_np] = plens_np
-        self._temp_h[slots_np] = [pl["temp"] for pl in group]
-        self._seed_h[slots_np] = [pl["seed"] for pl in group]
+        self._temp_h[slots_np] = [pl["temp"] for pl in plans]
+        self._seed_h[slots_np] = [pl["seed"] for pl in plans]
         self._stale_h[slots_np] = False
 
     def _push_block_tables(self, slots: Sequence[int]) -> None:
-        if not slots:
+        """Copy the host block tables of ``slots`` that live on this
+        rank's shard to the device, in its local page ids."""
+        idx_np = np.asarray(sorted(set(int(s) for s in slots
+                                       if self._owns(self._shard_of(s)))),
+                            np.int64)
+        if not len(idx_np):
             return
-        idx_np = np.asarray(sorted(set(int(s) for s in slots)), np.int64)
-        idx = torch.as_tensor(idx_np, device=self.device)
-        self._bt[idx] = torch.as_tensor(self._bt_np[idx_np],
-                                        device=self.device)
+        idx = torch.as_tensor(idx_np - self._lo, device=self.device)
+        self._bt[idx] = torch.as_tensor(
+            self._local_pages(self._bt_np[idx_np]), device=self.device)
         if self.spec_k:
-            self._dbt[idx] = torch.as_tensor(self._dbt_np[idx_np],
-                                             device=self.device)
+            self._dbt[idx] = torch.as_tensor(
+                self._local_pages(self._dbt_np[idx_np]), device=self.device)
 
     def _register_prefixes(self, plans: list[dict]) -> None:
         """Publish every page-aligned prefix strictly below each plan's
@@ -1260,6 +1419,13 @@ class SlotPoolEngine:
                     sh.cache_ref[pg] = sh.cache_ref.get(pg, 0) + 1
 
     # -- prefill→decode handoff, engine half ----------------------------------
+    def _refuse_mesh(self, what: str) -> None:
+        if self.spec is not None:
+            raise NotImplementedError(
+                f"{what} under a serving mesh: the handoff's caller, the "
+                f"batcher's handoff lever, is not ported yet (ROADMAP "
+                f"queue 1, item 20)")
+
     @torch.no_grad()
     def export_prefix(self, slot: int, n_pages: int
                       ) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -1269,6 +1435,7 @@ class SlotPoolEngine:
         Returns one ``(k_pages, v_pages)`` pair per layer, each ``[n,
         page, H, D]`` in the model dtype: a quantized pool exports
         dequantized pages, so any pool layout can import them."""
+        self._refuse_mesh("export_prefix")
         pages = self._slot_pages.get(int(slot), [])
         if n_pages > len(pages):
             raise ValueError(
@@ -1290,6 +1457,7 @@ class SlotPoolEngine:
         cache-only, i.e. evictable. Returns the pages newly imported (0
         when the cache already covers the prefix). Call from the thread
         that drives admit/release."""
+        self._refuse_mesh("import_prefix")
         toks = [int(t) for t in tokens]
         if not toks or len(toks) % self.page:
             raise ValueError(
@@ -1315,3 +1483,74 @@ class SlotPoolEngine:
             self._page_copy(vp, dst, src, lv.to(self.device, dt), scale=vs)
         self._publish_prefix(sh, toks, pages)
         return n
+
+
+# ---------------------------------------------------------------------------
+# the host protocol across the ranks of a serving mesh
+# ---------------------------------------------------------------------------
+
+#: the engine calls the leader sends to every rank before running them
+ENGINE_COMMANDS = ("admit", "run_segment", "poll", "poll_spec", "release",
+                   "expert_load", "debug_logits")
+
+# a follower waits for the leader's next command as long as the server
+# idles, so the control group's collectives must outlast any idle spell
+_CONTROL_TIMEOUT = timedelta(days=30)
+
+
+class EngineLeader:
+    """Rank 0's handle on a ``SlotPoolEngine`` over a serving mesh, for
+    ``ContinuousBatcher``: each of ``ENGINE_COMMANDS`` is broadcast to the
+    other ranks (which run ``follow``) and then run here; everything else
+    is the engine's own attribute. One lock orders the commands, so the
+    batcher's worker and ``stop()`` never interleave theirs."""
+
+    def __init__(self, engine: SlotPoolEngine):
+        if engine.control is None:
+            raise ValueError("EngineLeader needs an engine on a serving "
+                             "mesh")
+        self.engine = engine
+        self._group = engine.control
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def _command(self, name: str, args: tuple, kwargs: dict):
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("the serving mesh has stopped")
+            dist.broadcast_object_list([(name, args, kwargs)], src=0,
+                                       group=self._group)
+            return getattr(self.engine, name)(*args, **kwargs)
+
+    def __getattr__(self, name: str):
+        if name in ENGINE_COMMANDS:
+            return lambda *a, **kw: self._command(name, a, kw)
+        return getattr(self.engine, name)
+
+    def stop(self) -> None:
+        """Release the followers (idempotent)."""
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                dist.broadcast_object_list([("stop", (), {})], src=0,
+                                           group=self._group)
+
+
+def follow(engine: SlotPoolEngine) -> None:
+    """A rank other than 0 of a serving mesh: run each engine command the
+    leader broadcasts, in order, until its ``stop()``. A command that
+    raises here raises on the leader too (every rank holds the same host
+    state), where the batcher fails its requests and resets the pool with
+    further commands, so the follower goes on to the next one."""
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=engine.control)
+        name, args, kwargs = box[0]
+        if name == "stop":
+            return
+        if name not in ENGINE_COMMANDS:
+            raise RuntimeError(f"unknown engine command {name!r}")
+        try:
+            getattr(engine, name)(*args, **kwargs)
+        except Exception:  # noqa: BLE001 — the leader meets the same error
+            continue

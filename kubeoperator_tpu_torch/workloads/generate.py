@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads.train import resolve_device
 from kubeoperator_tpu_torch.workloads.transformer import (
     Block, Transformer, TransformerConfig, dense, rms_norm, rope, tied_logits,
@@ -172,16 +173,20 @@ def attn_out_mlp(blk: Block, x: torch.Tensor, probs: torch.Tensor,
     MoE layer (``_layer_tail`` of the reference's engine) the FFN is the
     ``MoEMlp`` on the UNCAST norm output, as the flax block feeds it, and
     load [E] f32 counts the tokens dispatched to each expert; a dense
-    layer's load is None."""
+    layer's load is None. On a serving mesh (``sharding.place_decode``)
+    the block holds H/tp heads and d_ff/tp of its MLP, so the output
+    projection and the MLP's down product are summed over tp: the
+    reference's two all-reduces a block."""
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), cv)
-    x = x + dense(out, blk.attn.o, dt, n_in=2)
+    x = x + cl.reduce_from(dense(out, blk.attn.o, dt, n_in=2), blk.attn.tp)
     if hasattr(blk, "moe"):
         y, load = blk.moe.serve(rms_norm(x, blk.ln2.scale))
         return x + y, load
     m = blk.mlp
     h2 = rms_norm(x, blk.ln2.scale).to(dt)
     gate, up = dense(h2, m.gate, dt), dense(h2, m.up, dt)
-    return x + dense(F.silu(gate) * up, m.down, dt), None
+    return x + cl.reduce_from(dense(F.silu(gate) * up, m.down, dt),
+                              m.tp), None
 
 
 def final_logits(cfg: TransformerConfig, model: Transformer,

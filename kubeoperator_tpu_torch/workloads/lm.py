@@ -18,8 +18,10 @@ divides its own sum by the global T − 1 and the loss and the gradients
 are summed over the ranks, never averaged: fsdp by the parameter
 gathers' reduce-scatter, dp and sp after the backward
 (``sharding.reduce_grads``). Under tp the logits are vocab-parallel and
-so is the softmax (``vocab_parallel_cross_entropy``). MoE under a mesh
-waits for ROADMAP queue 1, item 14c.
+so is the softmax (``vocab_parallel_cross_entropy``). An MoE config runs
+under any of these axes and ep (``moe.py``): every rank holds the global
+batch's aux loss, so each adds its share of it, 1/(dp·fsdp·sp), and the
+summed loss counts it once, as the reference's does.
 """
 
 from __future__ import annotations
@@ -85,12 +87,10 @@ class LMTrainer:
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         self.mesh = sharding.build_mesh(self.spec, self.device.type)
-        if cfg.moe_experts > 0 and self.spec.n_devices > 1:
-            raise NotImplementedError(
-                f"MoE under the mesh {dict(self.spec.sizes())}: expert "
-                f"parallelism and the global capacity are not ported yet "
-                f"(ROADMAP queue 1, item 14c, multi-device part 3)")
         self.cfg = replace(cfg, ring=self.spec.sp > 1)
+        # ranks whose loss shares sum to the global loss: each adds this
+        # share of the (global) MoE aux loss
+        self.aux_share = 1.0 / (self.spec.dp * self.spec.fsdp * self.spec.sp)
         self.learning_rate = learning_rate
         self.tp = sharding.axis_group(self.mesh, "tp")
         self.placements: dict = {}
@@ -141,12 +141,13 @@ class LMTrainer:
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, aux) of this rank's block of the global batch ``tokens``:
         its share of the next-token loss plus the MoE aux loss, and the aux
-        alone (0-d zero for a dense config). Summed over the ranks, the
-        shares are the global loss."""
+        alone (0-d zero for a dense config), the global batch's on every
+        rank. Summed over the ranks, the shares are the global loss."""
         inputs, targets, mask = self.local_batch(tokens)
         logits, aux = model(inputs, return_aux=True)
         losses = vocab_parallel_cross_entropy(logits.float(), targets, self.tp)
-        return (losses * mask).sum() / (tokens.shape[1] - 1) + aux, aux
+        return ((losses * mask).sum() / (tokens.shape[1] - 1)
+                + aux * self.aux_share, aux)
 
     def loss(self, model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         return self.objective(model, tokens)[0]

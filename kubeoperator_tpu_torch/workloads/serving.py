@@ -426,6 +426,12 @@ class ContinuousBatcher:
     wave were promised. Admission is FIFO — a head request that does not
     fit blocks the line (no starvation), and retirement ``release``s its
     slots' pages before new admissions.
+
+    On a serving mesh (``engine.dp`` > 1) the slots and pages split over
+    the dp shards: slot s lives on shard s // (slots/dp), each shard with
+    its own pool, so a request needs one shard with a free slot and the
+    pages for it, and the occupancy, pages, spill and host-blocked
+    gauges carry one ``shard=`` series each.
     """
 
     def __init__(self, engine: Any, *, stats: BatcherStats | None = None):
@@ -438,6 +444,11 @@ class ContinuousBatcher:
         self._queue: deque[_Pending] = deque()
         self._track: dict[int, dict] = {}       # slot -> in-flight state
         self._free = list(range(engine.slots))
+        # slot s lives on dp shard s // (slots/dp): the engine shards the
+        # slot axis over dp in contiguous blocks, so occupancy is reported
+        # per shard without device reads
+        self._dp = max(1, int(getattr(engine, "dp", 1)))
+        self._shard_slots = engine.slots // self._dp
         # the engine's counters as last reported (only the worker reads
         # and writes this)
         self._seen = dict.fromkeys(("prefix_hits", "demotions",
@@ -487,16 +498,23 @@ class ContinuousBatcher:
 
     # -- worker side -------------------------------------------------------
     def _report_occupancy(self) -> None:
-        self.stats.occupancy(len(self._track))
+        busy = [0] * self._dp
+        for s in self._track:
+            busy[s // self._shard_slots] += 1
+        for shard, n in enumerate(busy):
+            self.stats.occupancy(n, shard=shard)
 
     def _report_pages(self) -> None:
-        """Pages in use and the spill tier's pages as gauges; the engine's
-        prefix-hit, demotion and promotion counters as their growth since
-        the last report (an engine without them reports none)."""
+        """Pages in use and the spill tier's pages as gauges, per dp
+        shard; the engine's prefix-hit, demotion and promotion counters as
+        their growth since the last report (an engine without them reports
+        none)."""
         eng = self.engine
-        self.stats.pages_used(eng.pages_in_use())
-        if getattr(eng, "spill_pages", 0):
-            self.stats.kv_spill_pages(eng.spill_pages_used())
+        for shard in range(self._dp):
+            self.stats.pages_used(eng.pages_in_use(shard), shard=shard)
+            if getattr(eng, "spill_pages", 0):
+                self.stats.kv_spill_pages(eng.spill_pages_used(shard),
+                                          shard=shard)
         now = {k: int(getattr(eng, k, 0)) for k in self._seen}
         for key, report in (("prefix_hits", self.stats.prefix_hit),
                             ("demotions", self.stats.kv_demotion),
@@ -507,26 +525,32 @@ class ContinuousBatcher:
 
     def _admit_wave_locked(self) -> list[tuple[int, _Pending]]:
         """Pick the next admissions (caller holds the lock): FIFO page
-        accounting — the head request enters when the pool can cover its
-        full page reservation net of pages already promised to earlier
-        picks in this same wave (``pending``; without it two requests
-        could both be admitted against the same free pages). A head that
-        does not fit stops the wave: in-flight rows keep decoding,
-        retirement releases pages, and — because submit caps every request
-        at ``max_request_pages`` — a drained pool always admits the head,
-        so backpressure cannot deadlock."""
+        accounting — the head request enters when a shard with a free slot
+        can cover its full page reservation net of pages already promised
+        to earlier picks in this same wave (``pending``, per shard;
+        without it two requests could both be admitted against the same
+        free pages). A head that fits nowhere stops the wave: in-flight
+        rows keep decoding, retirement releases pages, and — because
+        submit caps every request at ``max_request_pages`` — a drained
+        shard always admits the head, so backpressure cannot deadlock."""
         admit_now: list[tuple[int, _Pending]] = []
-        pending = 0
+        pending = [0] * self._dp
         while self._queue and self._free:
             r = self._queue[0]
             need = self.engine.pages_for(len(r.prompt_ids), r.max_tokens)
-            cap = (self.engine.free_pages() + self.engine.evictable_pages()
-                   - pending)
-            if need > cap:
+            slot = None
+            for i, s in enumerate(self._free):
+                shard = s // self._shard_slots
+                cap = (self.engine.free_pages(shard)
+                       + self.engine.evictable_pages(shard) - pending[shard])
+                if need <= cap:
+                    slot = self._free.pop(i)
+                    pending[shard] += need
+                    break
+            if slot is None:
                 break           # head-of-line backpressure: keep FIFO order
-            pending += need
             self._queue.popleft()
-            admit_now.append((self._free.pop(0), r))
+            admit_now.append((slot, r))
         return admit_now
 
     def _loop(self) -> None:
@@ -587,7 +611,8 @@ class ContinuousBatcher:
             t0 = now()
             buf, _ = self.engine.poll()         # ONE batched fetch
             poll_end = now()
-            self.stats.host_blocked(poll_end - t0)
+            for shard in sorted({s // self._shard_slots for s in done}):
+                self.stats.host_blocked(poll_end - t0, shard=shard)
             # the fetch forces the last dispatch to device-complete, so
             # dispatch→fetch-return bounds its device time
             if self._dispatch_t0 is not None:

@@ -19,15 +19,20 @@ inner, and only those above 1 are in the mesh.
              row-parallel product.
 * ``sp``   — the sequence split over it: ring or Ulysses attention.
 * ``pp``   — pipeline stages (``pipeline.py``).
-* ``ep``   — experts; not ported yet (ROADMAP queue 1, item 14c).
+* ``ep``   — experts: each rank keeps E/ep of every MoE layer's experts.
+             The batch is not split over ep, so the ranks of an ep group
+             route the same tokens, each runs its own experts, and the
+             combine is a sum over ep (``moe.py``).
 
 ``parallelize`` places a model built and loaded whole on every rank:
-it keeps each rank's tp shard of every parameter and replaces fsdp-split
-parameters by their shard, gathered on access through a parametrization.
+it keeps each rank's tp and ep shard of every parameter and replaces
+fsdp-split parameters by their shard, gathered on access through a
+parametrization.
 A parameter's placement comes from its logical names (the LM, the ViT) or
 from its shape (``place_by_shape``, the ResNet's rule).
 ``set_data_groups`` hands the data groups to the BatchNorm modules, whose
-statistics cover the global batch.
+statistics cover the global batch. ``place_decode`` cuts a whole model
+for the serving mesh (dp × tp × ep) by ``decode_axis_rules``.
 The ZeRO-3 step with explicit gather/compute overlap
 (``fsdp_overlapped_loss_fn``) follows at the end.
 """
@@ -161,9 +166,23 @@ def logical_axis_rules(spec: MeshSpec) -> tuple[tuple[str, Any], ...]:
     )
 
 
-def placement(logical: Sequence[str], spec: MeshSpec) -> tuple:
-    """The mesh axis (or None) of each dimension named ``logical``."""
-    rules = dict(logical_axis_rules(spec))
+def decode_axis_rules(spec: MeshSpec) -> tuple[tuple[str, Any], ...]:
+    """The serving placement (the reference's ``shard_params_decode_tp``):
+    heads and the MLP's d_ff over tp, experts over ep (their d_ff over tp
+    too); the router, the norms and the tied embedding stay whole, so
+    routing and the vocabulary matmul, and with them sampling, do not
+    depend on the layout."""
+    has = {n for n, s in spec.sizes() if s > 1}
+    pick = lambda a: a if a in has else None  # noqa: E731
+    return (("mlp", pick("tp")), ("heads", pick("tp")),
+            ("expert", pick("ep")))
+
+
+def placement(logical: Sequence[str], spec: MeshSpec,
+              rules: Sequence | None = None) -> tuple:
+    """The mesh axis (or None) of each dimension named ``logical`` under
+    ``rules`` (default ``logical_axis_rules``)."""
+    rules = dict(rules if rules is not None else logical_axis_rules(spec))
     return tuple(rules.get(name) for name in logical)
 
 
@@ -254,32 +273,59 @@ class FsdpGather(nn.Module):
 
 
 def parallelize(model: nn.Module, mesh, spec: MeshSpec,
-                axes_of: Callable[[str], Sequence[str]] | None = None
-                ) -> dict:
+                axes_of: Callable[[str], Sequence[str]] | None = None,
+                rules: Sequence | None = None) -> dict:
     """Place a model that every rank built and loaded whole: each
     parameter ``name`` has the logical names ``axes_of(name)`` or, with no
     ``axes_of``, the placement ``place_by_shape`` gives its shape; a dim
     ruled to tp keeps this rank's block, a dim ruled to fsdp becomes an
     ``FsdpGather`` parametrization over this rank's block. Returns {name:
     placement} for ``unshard_tensor`` and the gradient reduction. The
-    modules read their tp/sp groups from the mesh themselves."""
+    modules read their tp, sp and ep groups from the mesh themselves.
+    ``rules`` replaces ``logical_axis_rules`` (``decode_axis_rules`` for
+    the serving placement)."""
     placements = {}
     fsdp = axis_group(mesh, "fsdp")
     for name, p in list(model.named_parameters()):
         spec_dims = (place_by_shape(p, spec) if axes_of is None
-                     else placement(axes_of(name), spec))
+                     else placement(axes_of(name), spec, rules))
         placements[name] = spec_dims
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner)
-        tp_dims = tuple(a if a == "tp" else None for a in spec_dims)
-        if "tp" in tp_dims:
+        kept = tuple(a if a in ("tp", "ep") else None for a in spec_dims)
+        if any(kept):
             setattr(module, leaf, nn.Parameter(shard_tensor(
-                p.detach(), tp_dims, mesh)))
+                p.detach(), kept, mesh)))
         if "fsdp" in spec_dims and fsdp is not None:
             parametrize.register_parametrization(
                 module, leaf, FsdpGather(fsdp, spec_dims.index("fsdp")),
                 unsafe=True)
     return placements
+
+
+def place_decode(model: nn.Module, cfg, mesh, spec: MeshSpec) -> nn.Module:
+    """A serving copy of the whole ``Transformer`` ``model`` (the same on
+    every rank) on a dp×tp(×ep) mesh: built with the mesh's tp and ep
+    groups and cut by ``decode_axis_rules``, each rank keeping its slices
+    (q/k/v and gate/up by column, o and down by row, E/ep experts with
+    d_ff/tp each); the embedding stays whole. Its MoE layers compute no
+    aux over the batch: the pool's rows are not one batch."""
+    from kubeoperator_tpu_torch.workloads.transformer import (
+        Transformer, param_axes,
+    )
+
+    def axes_of(name: str) -> tuple:
+        # the router stays whole: its expert axis is not the experts'
+        return (None, None) if name.endswith(".router") else param_axes(name)
+
+    with torch.device(model.embedding.device):
+        placed = Transformer(cfg, mesh, vocab_parallel=False)
+    placed.load_state_dict(model.state_dict())
+    parallelize(placed, mesh, spec, axes_of, decode_axis_rules(spec))
+    for m in placed.modules():
+        if hasattr(m, "batch_groups"):
+            m.batch_groups = []
+    return placed.eval()
 
 
 def set_data_groups(model: nn.Module, mesh) -> None:

@@ -21,7 +21,9 @@ Under a mesh (``Transformer(cfg, mesh)``, placed by
 tp, the reference's ``logical_axis_rules`` split: each rank holds H/tp
 heads, d_ff/tp of the MLP and V/tp rows of the tied embedding, so the
 embedding lookup, the attention and MLP outputs and (in the trainer) the
-softmax's sums are all-reduced over tp. With ``cfg.ring`` and an sp axis
+softmax's sums are all-reduced over tp. An MoE FFN keeps E/ep experts a
+rank, each split over tp like the dense MLP (``moe.py``). With
+``cfg.ring`` and an sp axis
 the sequence is split over sp: positions are global and attention is
 ring or Ulysses (``sp_attention``), as the reference dispatches it. With
 neither axis the flash dispatch is the one-device one.
@@ -306,7 +308,7 @@ class Block(nn.Module):
             self.moe = MoEMlp(cfg.d_model, cfg.d_ff, cfg.moe_experts,
                               top_k=cfg.moe_top_k,
                               capacity_factor=cfg.moe_capacity_factor,
-                              dtype=cfg.dtype)
+                              dtype=cfg.dtype, mesh=mesh, sp=cfg.ring)
         else:
             self.mlp = Mlp(cfg, mesh)
 
@@ -372,6 +374,8 @@ PARAM_AXES = {
     "q": ("embed", "heads", "kv"), "k": ("embed", "heads", "kv"),
     "v": ("embed", "heads", "kv"), "o": ("heads", "kv", "embed"),
     "gate": ("embed", "mlp"), "up": ("embed", "mlp"), "down": ("mlp", "embed"),
+    "router": ("embed", "expert"), "w_gate": ("expert", "embed", "mlp"),
+    "w_up": ("expert", "embed", "mlp"), "w_down": ("expert", "mlp", "embed"),
 }
 
 
@@ -395,10 +399,14 @@ def vocab_parallel_embed(tokens: torch.Tensor, emb: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, mesh=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None,
+                 vocab_parallel: bool = True):
         super().__init__()
         self.cfg = cfg
         self.tp, self.sp = _groups(mesh)
+        if not vocab_parallel:
+            # the embedding stays whole under tp (the serving placement)
+            self.tp = None
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
         self.layers = nn.ModuleList(Block(cfg, mesh)
                                     for _ in range(cfg.n_layers))

@@ -323,10 +323,20 @@ def test_engine_validates_requests(model):
     (dict(compile_cache=object()), "item 15")])
 def test_unported_options_raise(model, kw, item):
     """Each option of a part not ported yet raises, naming its ROADMAP
-    queue 1 item. Items 7 (quantized KV pages, the host spill tier) and 9
-    (speculative decoding) are ported: their cases show the engine builds
-    with the option and reports it, a quantized pool's bytes count its
-    scale buffers, and a speculative one keeps draft block tables."""
+    queue 1 item. Items 7 (quantized KV pages, the host spill tier), 9
+    (speculative decoding) and 14 (the serving mesh) are ported: their
+    cases show the engine builds with the option and reports it, a
+    quantized pool's bytes count its scale buffers, a speculative one
+    keeps draft block tables, and a mesh needs its ranks (a process
+    without a group is a world of one: dp 2 raises naming the count, a
+    one-device spec is the one-device pool; the meshed pool runs in
+    tests/test_torch_serve_mesh.py)."""
+    if item == "item 14":
+        with pytest.raises(ValueError, match="wants 2 devices, got 1"):
+            engine(model, **kw)
+        eng = engine(model, mesh_spec=MeshSpec())
+        assert (eng.dp, eng.mesh, eng.control) == (1, None, None)
+        return
     if item == "item 9":
         eng = engine(model, **kw)
         assert (eng.spec_k, eng.draft_layers) == (2, 1)

@@ -1,6 +1,7 @@
 """The port's multi-device job entry points as ``--device cpu`` JSON lines on
-2 gloo ranks: smoke's psum, llm over dp, sp (Ulysses) and tp (then
-sampling from the gathered weights) against the one-device job's losses,
+2 gloo ranks, in three spawns (llm, vision, mlp): smoke's psum, llm over
+dp, sp (Ulysses) and tp (then sampling from the gathered weights) and
+the MoE llm over ep against the one-device job's losses,
 the fsdp job with and without overlap, the pipeline job, llm's
 ``--ckpt-dir`` under a mesh (saved, resumed, then served by ``serve
 --ckpt-dir`` in this process), resnet50 over dp and over fsdp (the same
@@ -32,33 +33,48 @@ def workdir(tmp_path_factory):
     return tmp_path_factory.mktemp("jobs")
 
 
+def spawned(group: str, workdir):
+    return spawn_group(group, 2, workdir, {"workdir": str(workdir)})
+
+
+# three spawns: a case that fails fails its own tests only
 @pytest.fixture(scope="module")
-def ranks(workdir):
-    return spawn_group("jobs", 2, workdir, {"workdir": str(workdir)})
+def llm_ranks(workdir):
+    return spawned("jobs_llm", workdir)
+
+
+@pytest.fixture(scope="module")
+def vision_ranks(workdir):
+    return spawned("jobs_vision", workdir)
+
+
+@pytest.fixture(scope="module")
+def mlp_ranks(workdir):
+    return spawned("jobs_mlp", workdir)
 
 
 def losses(records: list) -> list:
     return [r["loss"] for r in records if "loss" in r and "step" in r]
 
 
-def test_smoke_psum_is_the_world(ranks):
-    rec = ranks[0]["smoke"]
+def test_smoke_psum_is_the_world(llm_ranks):
+    rec = llm_ranks[0]["smoke"]
     assert rec["rc"] == 0 and len(rec["records"]) == 1
     assert rec["records"][0] == {
         "job": "smoke", "devices": 2, "device_kind": "cpu", "platform": "cpu",
         "matmul_sum": 16_777_216.0, "psum": 2.0, "process_id": 0,
         "num_processes": 2, "ok": True}
-    assert ranks[1]["smoke"] == {"rc": 0, "records": []}   # rank 0 prints
+    assert llm_ranks[1]["smoke"] == {"rc": 0, "records": []}   # rank 0 prints
 
 
 @pytest.mark.parametrize("name", MESHED_LLM)
-def test_meshed_llm_matches_the_one_device_job(ranks, name, capsys):
+def test_meshed_llm_matches_the_one_device_job(llm_ranks, name, capsys):
     """The same global batch and weights on one device and over the mesh:
     the same losses (the records round to 4 places)."""
     assert jobs.main(["llm", *LLM_TINY]) == 0
     one = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    rec = ranks[0][name]
-    assert rec["rc"] == 0 and ranks[1][name]["rc"] == 0
+    rec = llm_ranks[0][name]
+    assert rec["rc"] == 0 and llm_ranks[1][name]["rc"] == 0
     np.testing.assert_allclose(losses(rec["records"]), losses(one),
                                atol=1.5e-4)
     done = rec["records"][-1]
@@ -69,14 +85,29 @@ def test_meshed_llm_matches_the_one_device_job(ranks, name, capsys):
     assert done["mfu"] is None                 # no device peak on the CPU
 
 
-def test_meshed_llm_samples_from_the_gathered_weights(ranks):
+def test_moe_llm_over_ep_is_the_one_device_job(llm_ranks, capsys):
+    """``llm --experts 4 --mesh ep:auto``: each rank holds 2 of the 4
+    experts of a layer and the same global batch, so the losses (the aux
+    included) are the one-device job's, and it samples from the gathered
+    weights."""
+    assert jobs.main(["llm", *LLM_TINY, "--experts", "4"]) == 0
+    one = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rec = llm_ranks[0]["llm_moe_ep2"]
+    assert rec["rc"] == 0 and llm_ranks[1]["llm_moe_ep2"]["records"] == []
+    np.testing.assert_allclose(losses(rec["records"]), losses(one),
+                               atol=1.5e-4)
+    assert rec["records"][-1]["mesh"]["ep"] == 2
+    assert any("sampled_tokens" in r for r in rec["records"])
+
+
+def test_meshed_llm_samples_from_the_gathered_weights(llm_ranks):
     sampled = next(r["sampled_tokens"] for r in
-                   ranks[0]["llm_tp2_sample"]["records"]
+                   llm_ranks[0]["llm_tp2_sample"]["records"]
                    if "sampled_tokens" in r)
     assert len(sampled) == 4 + 3 and all(0 <= t < 64 for t in sampled)
 
 
-def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks, workdir,
+def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(llm_ranks, workdir,
                                                      capsys):
     """``--ckpt-dir`` under a mesh, once refused as ROADMAP item 14f, now
     ported: the job saves every step at dp 2, a rerun resumes at step 2
@@ -92,12 +123,12 @@ def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks, workdir,
     )
     from test_torch_jobs import call, serving
 
-    first, again = ranks[0]["llm_ckpt_under_mesh"]
+    first, again = llm_ranks[0]["llm_ckpt_under_mesh"]
     assert first["rc"] == again["rc"] == 0
     assert again["records"][0] == {"job": "llm", "resumed_at": 2}
     assert [r["step"] for r in again["records"] if "step" in r] == [3]
     assert again["records"][-1]["steps"] == 3
-    assert ranks[1]["llm_ckpt_under_mesh"][1]["records"] == []
+    assert llm_ranks[1]["llm_ckpt_under_mesh"][1]["records"] == []
     ckpt = str(workdir / "llm_ckpt")
     assert WorkloadCheckpointer(ckpt).steps() == [1, 2, 3]
     cfg = TransformerConfig(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
@@ -115,14 +146,14 @@ def test_ckpt_dir_under_a_mesh_names_its_roadmap_item(ranks, workdir,
         "weights"] == "checkpoint step 3"
 
 
-def test_resnet50_over_dp_and_over_fsdp_take_the_same_steps(ranks):
+def test_resnet50_over_dp_and_over_fsdp_take_the_same_steps(vision_ranks):
     """The same global batch (each rank its block, seeded by the block)
     over dp 2 and over fsdp 2, 2 steps saved, then resumed to a third
     (whose schedule, as the reference job's, spans the new ``--steps``):
     the same losses, to the records' 4 places, and only rank 0 prints."""
     runs = {}
     for axis in ("dp", "fsdp"):
-        first, again = ranks[0][f"resnet50_{axis}2_ckpt"]
+        first, again = vision_ranks[0][f"resnet50_{axis}2_ckpt"]
         assert first["rc"] == again["rc"] == 0
         assert again["records"][0] == {"job": "resnet50", "resumed_at": 2}
         runs[axis] = losses(first["records"]) + losses(again["records"])
@@ -133,12 +164,12 @@ def test_resnet50_over_dp_and_over_fsdp_take_the_same_steps(ranks):
         assert done["img_per_sec_per_chip"] == pytest.approx(
             done["img_per_sec"] / 2, abs=0.1)
         assert all(r["records"] == [] for r in
-                   ranks[1][f"resnet50_{axis}2_ckpt"])
+                   vision_ranks[1][f"resnet50_{axis}2_ckpt"])
     np.testing.assert_allclose(runs["fsdp"], runs["dp"], atol=2e-4)
 
 
-def test_vit_over_tp_is_the_one_device_job_on_its_global_batch(ranks,
-                                                               capsys):
+def test_vit_over_tp_is_the_one_device_job_on_its_global_batch(
+        vision_ranks, capsys):
     """tp 2 has one block of the batch: both ranks train on the stream of
     seed 0 at the global batch of 2 × 2, as the one-device job at 4 a
     chip does. The job runs bf16, as the reference's, and tp sums the
@@ -149,19 +180,19 @@ def test_vit_over_tp_is_the_one_device_job_on_its_global_batch(ranks,
     assert jobs.main(["vit", *flags]) == 0
     one = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     for name in ("vit_tp2", "vit_dp2"):
-        rec = ranks[0][name]
-        assert rec["rc"] == 0 and ranks[1][name]["records"] == []
+        rec = vision_ranks[0][name]
+        assert rec["rc"] == 0 and vision_ranks[1][name]["records"] == []
         done = rec["records"][-1]
         assert done["done"] and done["chips"] == 2 and done["steps"] == 3
         assert done["mesh"][name[4:6]] == 2
         assert all(np.isfinite(losses(rec["records"])))
-    np.testing.assert_allclose(losses(ranks[0]["vit_tp2"]["records"]),
+    np.testing.assert_allclose(losses(vision_ranks[0]["vit_tp2"]["records"]),
                                losses(one), rtol=5e-3)
 
 
 @pytest.mark.parametrize("name", ["fsdp", "fsdp_no_overlap"])
-def test_fsdp_job_trains(ranks, name):
-    rec = ranks[0][name]
+def test_fsdp_job_trains(mlp_ranks, name):
+    rec = mlp_ranks[0][name]
     assert rec["rc"] == 0
     ls = losses(rec["records"])
     assert len(ls) == 4 and all(np.isfinite(ls)) and ls[-1] < ls[0]
@@ -171,13 +202,13 @@ def test_fsdp_job_trains(ranks, name):
     assert done["attribution_source"] is None and done["mfu"] is None
 
 
-def test_fsdp_overlap_is_a_schedule_not_a_result(ranks):
-    assert losses(ranks[0]["fsdp"]["records"]) == losses(
-        ranks[0]["fsdp_no_overlap"]["records"])
+def test_fsdp_overlap_is_a_schedule_not_a_result(mlp_ranks):
+    assert losses(mlp_ranks[0]["fsdp"]["records"]) == losses(
+        mlp_ranks[0]["fsdp_no_overlap"]["records"])
 
 
-def test_pipeline_job_trains(ranks):
-    rec = ranks[0]["pipeline"]
+def test_pipeline_job_trains(mlp_ranks):
+    rec = mlp_ranks[0]["pipeline"]
     assert rec["rc"] == 0
     ls = losses(rec["records"])
     assert len(ls) == 3 and ls[-1] < ls[0]

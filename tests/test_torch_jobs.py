@@ -589,13 +589,19 @@ SERVE_PORTED = {"--kv-dtype": ("int8", 0, 0, 0, 0),
 def test_serve_unported_flags_raise(flag, value, capsys, tmp_path):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
     ``--ckpt-dir``, ``--kv-dtype``, ``--spill-pages``, ``--spec-k``,
-    ``--draft-layers`` and ``--moe`` are ported: their cases show the
-    parser takes them and ``build_server`` builds an engine with them
-    (``--spec-k`` beside ``--draft-layers 1``; ``--ckpt-dir`` on an empty
-    directory under ``tmp_path`` serves fresh weights and says so);
+    ``--draft-layers``, ``--moe`` and ``--mesh`` are ported: their cases
+    show the parser takes them and ``build_server`` builds an engine with
+    them (``--spec-k`` beside ``--draft-layers 1``; ``--ckpt-dir`` on an
+    empty directory under ``tmp_path`` serves fresh weights and says so);
     ``--draft-layers`` alone reaches the engine's validation, which needs
-    ``--spec-k``."""
+    ``--spec-k``; ``--mesh dp:2`` outside ``torchrun`` is a world of one,
+    which the engine refuses naming the count (the meshed job runs in
+    tests/test_torch_serve_mesh.py)."""
     argv = ["serve", *SERVE_TINY, "--engine", "continuous", flag, value]
+    if flag == "--mesh":
+        with pytest.raises(SystemExit, match="wants 2 devices, got 1"):
+            jobs.main(argv)
+        return
     if flag == "--ckpt-dir":
         argv[-1] = str(tmp_path / value)
         server, batcher = jobs.build_server(

@@ -2,14 +2,25 @@
 by ``kubeoperator_tpu_torch.train.launch.spawn``). Imports no JAX: the
 ranks are new processes that import this module by name. Each group of
 cases reads its inputs from ``workdir/inputs.pt`` (written by the test's
-parent) and rank r writes its results to ``workdir/rank{r}.pt``; the test
-files assert on them, one test per case."""
+parent); rank r writes each case's result to ``workdir/rank{r}.{case}.pt``
+as soon as the case returns, and the test files assert on them, one test
+per case.
+
+A case that raises, or that a rank's collective gives up on, ends the
+spawn: the other ranks would wait on its collectives. ``spawn_group``
+then records the failure under that case, with each rank's traceback,
+and spawns the ranks again from the next case, so one failing case fails
+its own tests and no others. Each rank also writes when each case
+started and ended (``{group}.rank{r}.times.jsonl``): how long a group
+takes, and how far its ranks drift apart under load."""
 
 from __future__ import annotations
 
 import contextlib
 import io
 import json
+import time
+import traceback
 from pathlib import Path
 
 import torch
@@ -18,26 +29,101 @@ from kubeoperator_tpu_torch.workloads import ring_attention as ra
 from kubeoperator_tpu_torch.workloads import sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 
+# how long a collective waits for the other ranks, and how long one spawn
+# of a group may run
+COLLECTIVE_TIMEOUT_S = 60.0
+DEADLINE_S = 240.0
 
-def run(rank: int, world: int, group: str, workdir: str) -> None:
-    """The rank function ``launch.spawn`` calls: every case of ``group``,
-    in order, on every rank."""
-    inputs = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
-    results = {name: case(rank, inputs) for name, case in GROUPS[group]}
-    torch.save(results, Path(workdir) / f"rank{rank}.pt")
+
+class CaseFailed(AssertionError):
+    """A case raised on a rank (or its spawn died): the ranks'
+    tracebacks."""
+
+
+class FailedCase:
+    """What a failed case leaves in the results: reading anything from it
+    raises ``CaseFailed`` with the ranks' tracebacks, so the failure
+    shows under the tests of that case only."""
+
+    def __init__(self, case: str, message: str):
+        self.case, self.message = case, message
+
+    def _raise(self, *_):
+        raise CaseFailed(f"case {self.case!r} failed:\n{self.message}")
+
+    __getitem__ = __iter__ = __len__ = __eq__ = __contains__ = _raise
+    __hash__ = object.__hash__
+
+    def __repr__(self):
+        return f"FailedCase({self.case!r})"
+
+
+def run(rank: int, world: int, group: str, workdir: str,
+        start: int = 0) -> None:
+    """The rank function ``launch.spawn`` calls: every case of ``group``
+    from the ``start``-th on, in order, on every rank, each saved as it
+    returns."""
+    work = Path(workdir)
+    inputs = torch.load(work / "inputs.pt", weights_only=False)
+    for name, case in GROUPS[group][start:]:
+        began = time.time()
+        try:
+            result = case(rank, inputs)
+        except BaseException:
+            (work / f"rank{rank}.{name}.err").write_text(
+                traceback.format_exc())
+            raise
+        torch.save(result, work / f"rank{rank}.{name}.tmp")
+        (work / f"rank{rank}.{name}.tmp").replace(
+            work / f"rank{rank}.{name}.pt")
+        with open(work / f"{group}.rank{rank}.times.jsonl", "a") as f:
+            f.write(json.dumps({"case": name, "start": began,
+                                "end": time.time()}) + "\n")
 
 
 def spawn_group(group: str, world: int, workdir: Path, inputs: dict) -> list:
     """Write ``inputs``, run ``group`` on ``world`` gloo ranks, and return
-    each rank's results in rank order (called by the test files)."""
+    each rank's {case: result} in rank order (called by the test files).
+    A case that failed holds a ``FailedCase``; the cases after it ran on
+    a new spawn."""
     from kubeoperator_tpu_torch.train import launch
 
     torch.save(inputs, workdir / "inputs.pt")
-    launch.spawn(run, world, (group, str(workdir)), backend="gloo",
-                 store=str(workdir / "store"), timeout_s=60.0,
-                 deadline_s=240.0)
-    return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
+    names = [name for name, _ in GROUPS[group]]
+    results: list[dict] = [{} for _ in range(world)]
+    start = 0
+    for attempt in range(len(names)):
+        if start == len(names):
+            break
+        for name in names[start:]:
+            for r in range(world):
+                for ext in ("pt", "err"):
+                    (workdir / f"rank{r}.{name}.{ext}").unlink(missing_ok=True)
+        error = None
+        try:
+            launch.spawn(run, world, (group, str(workdir), start),
+                         backend="gloo",
+                         store=str(workdir / f"{group}.store{attempt}"),
+                         timeout_s=COLLECTIVE_TIMEOUT_S,
+                         deadline_s=DEADLINE_S)
+        except Exception as e:          # a rank raised, died or overran
+            error = f"{type(e).__name__}: {e}"
+        for name in names[start:]:
+            files = [workdir / f"rank{r}.{name}.pt" for r in range(world)]
+            if all(f.exists() for f in files):
+                for r, f in enumerate(files):
+                    results[r][name] = torch.load(f, weights_only=False)
+                start += 1
+                continue
+            errs = [workdir / f"rank{r}.{name}.err" for r in range(world)]
+            message = "\n".join(
+                [f"-- rank {r}:\n{e.read_text()}" for r, e in enumerate(errs)
+                 if e.exists()] + [f"-- the spawn: {error}"])
+            for r in range(world):
+                results[r][name] = FailedCase(name, message)
+            start += 1
+            break
+    return results
 
 
 def coords(mesh) -> dict:
@@ -96,7 +182,7 @@ def _lm(spec: MeshSpec, params: str, **cfg_kw):
         lt = LMTrainer(replace(inputs["cfg"], **cfg_kw), spec, device="cpu")
         state = lt.init_state(params=inputs["params"][params])
         _, metrics = lt.train_step(state, inputs["tokens"])
-        return {"loss": float(metrics["loss"]),
+        return {"loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
                 "grads": lt.full_params(state["model"], grads=True),
                 "params": lt.full_params(state["model"])}
     return case
@@ -143,6 +229,326 @@ LM = [
                             sp_attention="ulysses")),
     ("dp4", _lm(MeshSpec(dp=4), "dp2_sp2_ring")),
     ("dtensor_to_kernels", _dtensor_to_kernels),
+]
+
+
+# -- the MoE LM over ep, with dp, fsdp, tp and sp ------------------------------
+
+def _moe_aux(spec: MeshSpec):
+    """The model's aux loss (the global batch's) and this rank's share of
+    the objective at ``spec``, forward only."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+
+        lt = LMTrainer(inputs["cfg"], spec, device="cpu")
+        model = lt.init_state(params=inputs["params"]["moe"])["model"]
+        with torch.no_grad():
+            loss, aux = lt.objective(model, inputs["tokens"])
+        return {"aux": float(aux), "share": float(loss)}
+    return case
+
+
+def _moe_save(spec: MeshSpec):
+    """One step at ``spec``, then its checkpoint under ``moe_ckpt``: the
+    whole state (layout-free) it saved."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+
+        tr = LMTrainer(inputs["cfg"], spec, device="cpu")
+        state = tr.init_state(params=inputs["params"]["moe"])
+        state, _ = tr.train_step(state, inputs["tokens"])
+        _checkpointer(f"{inputs['workdir']}/moe_ckpt", tr).save(
+            state["step"], state)
+        return _layout_free(tr, state)
+    return case
+
+
+def _moe_restore(spec: MeshSpec):
+    """The ``moe_ckpt`` checkpoint restored at ``spec`` into a state of
+    another seed, whole (layout-free) again."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+
+        tr = LMTrainer(inputs["cfg"], spec, device="cpu")
+        state = tr.init_state(seed=5)
+        _checkpointer(f"{inputs['workdir']}/moe_ckpt", tr).restore(state)
+        return _layout_free(tr, state)
+    return case
+
+
+# one step of the MoE LM at each mesh (the parent holds each against the
+# JAX trainer at that mesh), on 2 and on 4 ranks
+MOE_MESHES = {"ep2": dict(ep=2), "dp2_ep2": dict(dp=2, ep=2),
+              "ep2_tp2": dict(ep=2, tp=2), "fsdp2_ep2": dict(fsdp=2, ep=2),
+              "dp2_sp2": dict(dp=2, sp=2)}
+MOE2 = [(n, _lm(MeshSpec(**d), n)) for n, d in MOE_MESHES.items()
+        if MeshSpec(**d).n_devices == 2] + [
+    ("aux_dp2", _moe_aux(MeshSpec(dp=2)))]
+MOE4 = [(n, _lm(MeshSpec(**d), n)) for n, d in MOE_MESHES.items()
+        if MeshSpec(**d).n_devices == 4] + [
+    ("save_ep2_tp2", _moe_save(MeshSpec(ep=2, tp=2))),
+    ("restore_dp4", _moe_restore(MeshSpec(dp=4))),
+    # the llm job with --experts over 4 ranks (LLM_TINY is defined below;
+    # the cases read it when they run)
+    *((f"job_{name}", lambda rank, inputs, mesh=mesh: _job(
+        "llm", *LLM_TINY, "--experts", "4", "--mesh", mesh)(rank, inputs))
+      for name, mesh in (("dp2_ep2", "dp:2,ep:2"), ("ep2_tp2", "ep:2,tp:2")))]
+
+
+# -- the serving mesh: the slot pool over dp × tp (× ep) ------------------------
+
+# the pool's requests: (slot, prompt, max_tokens, temperature, seed);
+# slots 0-1 are dp shard 0's and 2-3 shard 1's at dp 2
+POOL_MIXED = [(0, [1, 2, 3, 4, 5], 6, 0.0, 0),
+              (1, [7, 8, 9, 10, 11, 12, 13, 14], 5, 0.0, 0),
+              (2, [42], 9, 0.0, 0),
+              (3, [3, 1, 4, 1, 5, 9, 2], 12, 0.0, 0)]
+POOL_SAMPLED = [(0, [2, 4, 6, 8], 8, 0.9, 123),
+                (2, [1, 1, 1, 1, 1], 10, 0.0, 0)]
+POOL_MOE = [(0, [1, 2, 3, 4, 5, 6, 7, 8], 6, 0.0, 0),
+            (2, [9, 10, 11, 12], 8, 0.0, 0)]
+
+
+def _drain(eng, entries, mid_flight=None) -> list:
+    """Admit ``entries``, run segments until each is done (admitting
+    ``mid_flight`` after the first), and return each request's row."""
+    pos = eng.admit(entries)
+    track = {slot: [pos[slot], len(pr) + mt - 1]
+             for slot, pr, mt, _t, _s in entries}
+    later = list(mid_flight or [])
+    for _ in range(200):
+        if all(p >= last for p, last in track.values()) and not later:
+            break
+        eng.run_segment()
+        for t in track.values():
+            t[0] = min(t[0] + eng.segment, t[1])
+        if later:
+            pos = eng.admit(later)
+            track.update({slot: [pos[slot], len(pr) + mt - 1]
+                          for slot, pr, mt, _t, _s in later})
+            entries, later = list(entries) + later, []
+    buf, _ = eng.poll()
+    return [buf[slot][:len(pr) + mt].tolist()
+            for slot, pr, mt, _t, _s in entries]
+
+
+# the prefix-cache and spill script's prompts (tests/test_torch_prefix_cache)
+SPILL_PRE = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3]
+SPILL_B = [(3 * i + 5) % 60 + 1 for i in range(16)]
+SPILL_C = [(3 * i + 7) % 60 + 1 for i in range(20)]
+SPILL_D = [(11 * i + 13) % 60 + 1 for i in range(20)]
+SPILL_COUNTERS = ("prefix_hits", "prefix_pages_reused", "cow_copies",
+                  "demotions", "promoted_hits")
+
+
+def prefix_spill_script(eng) -> dict:
+    """Waves of prefix-sharing prompts on both dp shards of a small pool
+    with a host spill tier (any engine with the reference's host API, so
+    the JAX engine runs it too): shared prefixes hit, LRU eviction demotes
+    to the host tier and a later hit promotes back. After every wave the
+    host state (counters, each shard's page accounting and spill pages,
+    the wave's plans, the block tables), and at the end every slot's
+    rows."""
+    states, rows = [], {}
+
+    def snap():
+        states.append({
+            "counters": {k: int(getattr(eng, k)) for k in SPILL_COUNTERS},
+            "shards": [(eng.free_pages(i), eng.evictable_pages(i),
+                        eng.pages_in_use(i), eng.spill_pages_used(i))
+                       for i in range(eng.dp)],
+            "plans": {int(k): v for k, v in eng.last_plans.items()},
+            "bt": [list(map(int, r)) for r in eng._bt_np]})
+
+    def wave(entries):
+        pos = eng.admit(entries)
+        snap()
+        left = {slot: [pos[slot], len(pr) + mt - 1]
+                for slot, pr, mt, _t, _s in entries}
+        while any(p < last for p, last in left.values()):
+            eng.run_segment()
+            for t in left.values():
+                t[0] = min(t[0] + eng.segment, t[1])
+        buf, _ = eng.poll()
+        for slot, pr, mt, _t, _s in entries:
+            rows.setdefault(slot, []).append(
+                list(map(int, buf[slot][:len(pr) + mt])))
+        eng.release([slot for slot, *_ in entries])
+        snap()
+
+    wave([(0, SPILL_PRE, 4, 0.0, 0), (2, SPILL_PRE, 4, 0.0, 0)])
+    wave([(1, SPILL_B, 4, 0.0, 0), (3, SPILL_C, 4, 0.0, 0)])
+    wave([(0, SPILL_C, 4, 0.0, 0), (2, SPILL_D, 4, 0.0, 0)])
+    wave([(1, SPILL_PRE[:8] + [9, 9, 9], 4, 0.0, 0),
+          (3, SPILL_PRE + [7], 3, 0.0, 0)])
+    return {"states": states, "rows": rows}
+
+
+def _prefix_spill(spec: MeshSpec):
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.decode_loop import (
+            SlotPoolEngine,
+        )
+
+        cfg, model = _pool_model(inputs, "dense")
+        return prefix_spill_script(SlotPoolEngine(
+            cfg, model, slots=4, segment=4, page=8, pages=12,
+            spill_pages=2, mesh_spec=spec, device="cpu"))
+    return case
+
+
+def _pool_model(inputs, key: str):
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    cfg = inputs[key]["cfg"]
+    model = Transformer(cfg)
+    model.load_state_dict(inputs[key]["params"])
+    return cfg, model.eval()
+
+
+def _pool(spec: MeshSpec, key: str = "dense", runs=("mixed", "mid",
+                                                   "sampled", "spec")):
+    """The slot pool at ``spec``, every rank making the same engine calls
+    (SPMD, no leader): each run's rows, every rank's copy of them."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.decode_loop import (
+            SlotPoolEngine,
+        )
+
+        cfg, model = _pool_model(inputs, key)
+
+        def engine(**kw):
+            return SlotPoolEngine(cfg, model, slots=4, mesh_spec=spec,
+                                  device="cpu", **kw)
+
+        out = {}
+        if "mixed" in runs:
+            eng = engine(segment=3)
+            out["mixed"] = _drain(eng, POOL_MIXED)
+            out["dp"], out["pages"] = eng.dp, eng.pages
+        if "mid" in runs:
+            out["mid"] = _drain(engine(segment=2),
+                                [(0, [5, 6, 7, 8, 9, 10], 10, 0.0, 3)],
+                                [(2, [11, 12, 13], 8, 0.0, 4)])
+        if "sampled" in runs:
+            out["sampled"] = _drain(engine(segment=3), POOL_SAMPLED)
+        if "moe" in runs:
+            eng = engine(segment=2)
+            out["moe"] = _drain(eng, POOL_MOE)
+            out["expert_load"] = eng.expert_load()
+        if "spec" in runs:
+            out["spec"] = _drain_spec(engine(segment=1, spec_k=2,
+                                             draft_layers=1, pages=40),
+                                      POOL_MIXED)
+        return out
+    return case
+
+
+def _drain_spec(eng, entries) -> list:
+    """``_drain`` for a speculative engine: a round moves each row 1..K
+    tokens, so the positions come back with ``poll_spec`` after each."""
+    eng.admit(entries)
+    last = {slot: len(pr) + mt - 1 for slot, pr, mt, _t, _s in entries}
+    for _ in range(200):
+        eng.run_segment()
+        pos, _, _ = eng.poll_spec()
+        if all(pos[s] >= stop for s, stop in last.items()):
+            break
+    buf, _ = eng.poll()
+    return [buf[slot][:len(pr) + mt].tolist()
+            for slot, pr, mt, _t, _s in entries]
+
+
+def _batcher(spec: MeshSpec, key: str = "dense"):
+    """``ContinuousBatcher`` on rank 0 over an ``EngineLeader``, the other
+    ranks following: the replies of concurrent submits, the stats and the
+    engine's per-shard page accounting (rank 0's)."""
+    def case(rank, inputs):
+        import threading
+
+        from kubeoperator_tpu_torch.workloads import decode_loop as tdl
+        from kubeoperator_tpu_torch.workloads.serving import (
+            ContinuousBatcher,
+        )
+
+        cfg, model = _pool_model(inputs, key)
+        eng = tdl.SlotPoolEngine(cfg, model, slots=4, segment=2, page=8,
+                                 pages=8, mesh_spec=spec, device="cpu")
+        if rank:
+            tdl.follow(eng)
+            return {}
+        leader = tdl.EngineLeader(eng)
+        cb = ContinuousBatcher(leader)
+        replies: dict = {}
+
+        def ask(i, prompt, mt):
+            replies[i] = cb.submit(prompt, mt)
+
+        asks = [threading.Thread(target=ask, args=(i, pr, mt))
+                for i, (_s, pr, mt, _t, _d) in enumerate(POOL_MIXED)]
+        for t in asks:
+            t.start()
+        for t in asks:
+            t.join()
+        shards = [{"free": eng.free_pages(i), "used": eng.pages_in_use(i)}
+                  for i in range(eng.dp)]
+        leader.stop()
+        return {"replies": [replies[i] for i in range(len(asks))],
+                "prometheus": cb.stats.prometheus(), "shards": shards,
+                "batcher_dp": cb._dp}
+    return case
+
+
+def _serve_job(*flags):
+    """``jobs.build_server`` with ``flags`` on every rank: rank 0 serves
+    HTTP on a free port and answers ``POOL_MIXED``'s prompts (greedy),
+    then shuts down and stops the followers, which return from
+    ``build_server`` with no server."""
+    def case(rank, inputs):
+        import threading
+        import urllib.request
+
+        from kubeoperator_tpu_torch.train import jobs
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            server, batcher = jobs.build_server(jobs.build_parser().parse_args(
+                ["serve", *flags, "--port", "0", "--host", "127.0.0.1"]))
+        if server is None:
+            return {"server": None}
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = "http://127.0.0.1:%d/generate" % server.server_address[1]
+        replies = []
+        for _slot, prompt, mt, _t, _s in POOL_MIXED:
+            req = urllib.request.Request(url, data=json.dumps(
+                {"prompt_ids": prompt, "max_tokens": mt}).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                replies.append(json.loads(r.read())["tokens"])
+        server.shutdown()
+        server.server_close()
+        batcher.engine.stop()
+        return {"server": True, "replies": replies,
+                "records": [json.loads(x) for x in
+                            out.getvalue().splitlines()]}
+    return case
+
+
+SERVE_TINY = ("--device", "cpu", "--vocab", "64", "--d-model", "32",
+              "--heads", "4", "--layers", "2", "--max-seq-len", "24",
+              "--no-bf16", "--engine", "continuous", "--slots", "4",
+              "--segment", "2")
+SERVE2 = [
+    ("pool_dp2", _pool(MeshSpec(dp=2))),
+    ("pool_tp2", _pool(MeshSpec(tp=2))),
+    ("batcher_dp2", _batcher(MeshSpec(dp=2))),
+    ("prefix_spill_dp2", _prefix_spill(MeshSpec(dp=2))),
+    ("job_dp2", _serve_job(*SERVE_TINY, "--mesh", "dp:2")),
+]
+SERVE4 = [
+    ("moe_dp2_ep2", _pool(MeshSpec(dp=2, ep=2), "moe", ("moe",))),
+    ("pool_dp2_tp2", _pool(MeshSpec(dp=2, tp=2), runs=("mixed",))),
+    ("job_moe_dp2_ep2", _serve_job(*SERVE_TINY, "--moe", "4", "--mesh",
+                                   "dp:2,ep:2")),
 ]
 
 
@@ -431,6 +837,30 @@ SHARDING = [
 ]
 
 
+# -- the harness itself: a failing case fails alone ----------------------------
+
+def _psum_rank(rank, inputs):
+    import torch.distributed as dist
+
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    return {"sum": float(x)}
+
+
+def _raise_on_rank1(rank, inputs):
+    """Rank 1 raises while rank 0 waits in a collective it never joins."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return {}
+
+
+HARNESS = [("before", _psum_rank), ("fails", _raise_on_rank1),
+           ("after", _psum_rank)]
+
+
 # -- the job entry points ------------------------------------------------------
 
 def _run_job(argv: list) -> dict:
@@ -469,19 +899,24 @@ VIT_TINY = ("--device", "cpu", "--batch-per-chip", "2", "--image-size", "32",
             "--patch", "8", "--d-model", "32", "--heads", "4", "--layers",
             "2", "--classes", "10", "--steps", "3")
 
-JOBS = [
+# the job entry points in three groups, each its own spawn
+JOBS_LLM = [
     ("smoke", _job("smoke", "--device", "cpu")),
     ("llm_dp2", _job("llm", *LLM_TINY, "--mesh", "dp:auto")),
     ("llm_sp2_ulysses", _job("llm", *LLM_TINY, "--mesh", "sp:2",
                              "--sp-attention", "ulysses")),
     ("llm_tp2_sample", _job("llm", *LLM_TINY, "--mesh", "tp:2", "--sample",
                             "3")),
+    ("llm_moe_ep2", _job("llm", *LLM_TINY, "--experts", "4", "--mesh",
+                         "ep:auto", "--sample", "3")),
     # saved at every step under dp 2, then resumed for a third step
     ("llm_ckpt_under_mesh", _jobs(
         ("llm", *LLM_TINY, "--mesh", "dp:2", "--ckpt-every", "1",
          "--ckpt-dir", "{workdir}/llm_ckpt"),
         ("llm", *LLM_TINY, "--steps", "3", "--mesh", "dp:2", "--ckpt-dir",
          "{workdir}/llm_ckpt"))),
+]
+JOBS_VISION = [
     # 2 steps saved, then resumed to 3, over dp and over fsdp
     *((f"resnet50_{axis}2_ckpt", _jobs(
         ("resnet50", *RESNET_TINY, "--mesh", f"{axis}:auto", "--ckpt-dir",
@@ -490,6 +925,8 @@ JOBS = [
          f"{{workdir}}/resnet_{axis}"))) for axis in ("dp", "fsdp")),
     ("vit_dp2", _job("vit", *VIT_TINY, "--mesh", "dp:2")),
     ("vit_tp2", _job("vit", *VIT_TINY, "--mesh", "tp:2")),
+]
+JOBS_MLP = [
     ("fsdp", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2", "--steps", "3",
                   "--warmup", "1", "--layers", "3")),
     ("fsdp_no_overlap", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2",
@@ -500,5 +937,8 @@ JOBS = [
 ]
 
 GROUPS = {"ring": RING, "lm": LM, "pipeline": PIPELINE,
-          "sharding": SHARDING, "jobs": JOBS, "resnet": RESNET,
-          "vit2": VIT2, "vit4": VIT4, "checkpoint": CHECKPOINT}
+          "sharding": SHARDING, "jobs_llm": JOBS_LLM,
+          "jobs_vision": JOBS_VISION, "jobs_mlp": JOBS_MLP, "resnet": RESNET,
+          "vit2": VIT2, "vit4": VIT4, "checkpoint": CHECKPOINT,
+          "moe2": MOE2, "moe4": MOE4, "serve2": SERVE2, "serve4": SERVE4,
+          "harness": HARNESS}
