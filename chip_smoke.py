@@ -135,6 +135,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     resnet_dot2: the K7/K8 configuration with ``conv_bwd="dot2"`` and
     ``fused_bn=False``: finite loss, no K7/K8 launch, step ms beside
     resnet_train's.
+    aot_bringup: the compile cache (``aot.CompileCache``) in a fresh
+    directory under ``build/``: a fresh process builds
+    ``Trainer(RESNET_K7_K8, compile_cache=...)`` under
+    ``compile_count_guard`` and takes one step (cold: one nvcc build,
+    ``conv_bwd``), then another fresh process does the same against the
+    populated directory (warm: none); both launch K7 24 times and each K8
+    kernel 9 times from the cache's library and give the same loss bits;
+    each arm's bring-up seconds (construction to the first kernel launch),
+    the speedup and the library's bytes. Then the slot pool with
+    ``compile_cache=``: ``source`` "none", nothing written, greedy rows
+    equal to the same engine's without a cache.
     dist (phases ``dist_smoke``, ``dist_llm``, ``dist_vit``,
     ``dist_resnet``, ``dist_multi``): the smoke job joins an NCCL group
     from ``torchrun``'s environment (one rank, this process): its psum
@@ -165,7 +176,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     against its one-rank run: losses within ``TOL``, the BatchNorm
     running statistics equal on both ranks, greedy rows equal or first
     different at a near-tie (bf16 GEMMs of other shapes round
-    otherwise); with one card it says so and runs nothing.
+    otherwise); then its ``multislice`` case: four NCCL ranks in two
+    virtual slices (``with_virtual_slices``) at dp 2 × tp 2 where four
+    cards are visible, else two at dp 2 (a slice a rank), the 2-layer
+    bench LM for 3 steps: each dp row's ranks in one slice, tp across the
+    slices refused before any collective, the losses within ``TOL`` of
+    one rank's, K1-K3 on every rank. With one card it says so and runs
+    nothing.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
@@ -178,8 +195,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     and launches (measured with the bench's settings), so each
     configuration is measured once.
 
-Then the ``kernels`` line (each kernel also with the CUDA kernels behind
-it and where they are defined), and last the device line the harness
+Then ``script_total`` (the whole script's seconds beside the new phases'),
+the ``kernels`` line (each kernel also with the CUDA kernels behind it
+and where they are defined), and last the device line the harness
 reads.
 """
 
@@ -194,6 +212,7 @@ import json
 import math
 import queue
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -295,6 +314,9 @@ K8_SITES = ((401408, 64, 64, True, 1), (401408, 256, 64, True, 2),
             (401408, 64, 256, False, 4), (401408, 256, 128, True, 1),
             (100352, 128, 512, False, 1))
 K8_PATH = (401408, 64, 256, True)
+# the launches of one such step: K7 at its 24 sites, each K8 kernel at 9
+RESNET_STEP_LAUNCHES = {"conv1x1_bwd_dx": 24, "conv1x1_bwd_dw": 24,
+                        "bn_bwd_stats": 9, "bn_bwd_dx": 9, "bn_bwd_dw": 9}
 # dx (bf16): a right K7/K8 rounds the same f32 sums, taken in another
 # order, to bf16, so it is off by a bf16 step here and there (on an H100:
 # at most 7.2e-5 in norm and an atol of 4.6e-4 at rtol 2e-2 at the path
@@ -1914,6 +1936,126 @@ def resnet_dot2_phase(rcfg, smi: str, resnet_ms: float, conv_launches,
     return rec
 
 
+def aot_bringup_arm(cache_dir: str, out: str) -> None:
+    """One arm of aot_bringup, run in a process of its own: under
+    ``compile_count_guard``, ``Trainer(RESNET_K7_K8,
+    compile_cache=CompileCache(cache_dir))`` built and stepped once on the
+    card. Writes to ``out`` the nvcc builds the guard counted, the
+    bring-up seconds (from construction to the first kernel launch; each
+    wrapper loads its library just before it launches), the first step's
+    seconds, the launches, the loss and its bits, the cache's result, and
+    the file the wrappers' ``conv_bwd`` library was opened from."""
+    from kubeoperator_tpu_torch import kernels
+    from kubeoperator_tpu_torch.analysis import compile_count_guard
+    from kubeoperator_tpu_torch.aot import CompileCache
+    from kubeoperator_tpu_torch.profile_lm import RESNET_K7_K8
+    from kubeoperator_tpu_torch.workloads import bn_fused, conv_vjp
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    first_launch: list[float] = []
+    load = kernels.load
+
+    def timed_load(name):
+        if not first_launch:
+            first_launch.append(time.perf_counter())
+        return load(name)
+
+    kernels.load = timed_load
+    torch.zeros(1, device="cuda")              # the context, before t0
+    with compile_count_guard() as guard:
+        t0 = time.perf_counter()
+        tr = Trainer(RESNET_K7_K8, compile_cache=CompileCache(cache_dir))
+        state = tr.init_state()
+        state, metrics = tr.train_step(state, *tr.synthetic_batch())
+        loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+    path = kernels.loaded_path("conv_bwd")
+    Path(out).write_text(json.dumps({
+        "compiles": guard.total(), "builds": guard.by_function(),
+        "bringup_s": first_launch[0] - t0, "first_step_s": step_s,
+        "loss": loss, "loss_hex": loss.hex(),
+        "launches": {**conv_vjp.LAUNCHES, **bn_fused.LAUNCHES},
+        "aot": {"hit": tr.aot.hit, "source": tr.aot.source,
+                "fingerprint": tr.aot.fingerprint,
+                "seconds": tr.aot.seconds,
+                "libraries": [{"name": r.name, "hit": r.hit,
+                               "source": r.source, "path": r.path,
+                               "seconds": r.seconds}
+                              for r in tr.aot.libraries]},
+        "loaded_path": str(path), "artifact_bytes": path.stat().st_size}))
+
+
+def aot_bringup_phase(smi: str) -> dict:
+    """The compile cache on the card, the counterpart of
+    ``scripts/bench_serving.py::bench_bringup``: ``aot_bringup_arm`` in a
+    fresh process against an empty cache under ``build/`` (cold: one nvcc
+    build, ``conv_bwd``), then in another against the same cache (warm:
+    none). Both arms launch K7 24 times and each K8 kernel 9 times from
+    the cache's library and give the same loss bits. Then the slot pool
+    with ``compile_cache=``: ``source`` "none", nothing written, and its
+    greedy rows equal to the same engine's without a cache."""
+    from kubeoperator_tpu_torch.aot import CompileCache
+
+    t0 = time.perf_counter()
+    cache_dir = ROOT / "build" / "aot_smoke"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {}
+    for arm in ("cold", "warm"):
+        out = ROOT / "build" / f"aot_smoke_{arm}.json"
+        out.unlink(missing_ok=True)
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+             f"aot_bringup_arm({str(cache_dir)!r}, {str(out)!r})"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"aot_bringup {arm}: rc {proc.returncode}"
+                                 f"\n{proc.stderr[-4000:]}")
+        arms[arm] = json.loads(out.read_text())
+    cold, warm = arms["cold"], arms["warm"]
+    plain = pool_run({})
+    cached = pool_run({}, compile_cache=CompileCache(str(cache_dir)))
+    entries = [r["name"] for r in CompileCache(str(cache_dir)).entries()]
+    serve = {"source": cached["aot"].source, "hit": cached["aot"].hit,
+             "libraries": len(cached["aot"].libraries),
+             "rows_equal": cached["rows"] == plain["rows"],
+             "cache_entries_after": entries}
+    rec = {"phase": "aot_bringup", "nvidia_smi": smi,
+           "cold": cold, "warm": warm,
+           "bringup_speedup": cold["bringup_s"] / warm["bringup_s"],
+           "artifact_bytes": warm["artifact_bytes"], "serve": serve,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    bad = []
+    if cold["compiles"] != 1 or set(cold["builds"]) != {"conv_bwd"}:
+        bad.append(f"cold arm built {cold['builds']}, not conv_bwd once")
+    if warm["compiles"] != 0:
+        bad.append(f"warm arm built {warm['builds']}")
+    if (cold["aot"]["hit"], cold["aot"]["source"]) != (False, "compile"):
+        bad.append(f"cold arm: {cold['aot']}")
+    if (warm["aot"]["hit"], warm["aot"]["source"]) != (True, "cache"):
+        bad.append(f"warm arm: {warm['aot']}")
+    for arm in (cold, warm):
+        if arm["launches"] != RESNET_STEP_LAUNCHES:
+            bad.append(f"launches {arm['launches']}, not "
+                       f"{RESNET_STEP_LAUNCHES}")
+        if Path(arm["loaded_path"]) != Path(
+                arm["aot"]["libraries"][0]["path"]).resolve():
+            bad.append(f"the wrappers launched {arm['loaded_path']}, not "
+                       f"the cache's library")
+    if cold["loss_hex"] != warm["loss_hex"]:
+        bad.append(f"loss {cold['loss']} cold, {warm['loss']} warm")
+    if (serve["source"], serve["hit"], serve["libraries"]) != ("none", True,
+                                                                0):
+        bad.append(f"serve engine: {serve}")
+    if not serve["rows_equal"] or entries != ["conv_bwd"]:
+        bad.append(f"serve engine: {serve}")
+    if bad:
+        raise AssertionError(f"aot_bringup: {bad}")
+    return rec
+
+
 @contextlib.contextmanager
 def torchrun_env():
     """The environment ``torchrun`` gives rank 0 of a world of one (a free
@@ -2265,11 +2407,11 @@ MULTI_POOL_REQS = ((16, 48), (200, 32), (64, 40), (33, 64), (128, 24),
                    (7, 56), (256, 32), (90, 40))
 
 
-def pool_run(mesh: dict) -> dict:
+def pool_run(mesh: dict, compile_cache=None) -> dict:
     """``MULTI_POOL_REQS`` through ``SlotPoolEngine(slots=8, segment=8)``
     over ``mesh`` (one device for {}) on the bench LM cut to 2 layers,
-    seeded: every request's row, the segment ms (median) and the model
-    (for the near-tie rule)."""
+    seeded: every request's row, the segment ms (median), the model (for
+    the near-tie rule) and the engine's compile-cache result."""
     from kubeoperator_tpu_torch.profile_lm import BENCH_LM
     from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
     from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
@@ -2279,7 +2421,8 @@ def pool_run(mesh: dict) -> dict:
     with torch.device("cuda"):
         model = Transformer(cfg).reset_parameters(4).eval()
     eng = SlotPoolEngine(cfg, model, slots=8, segment=8,
-                         mesh_spec=MeshSpec(**mesh), device="cuda")
+                         mesh_spec=MeshSpec(**mesh),
+                         compile_cache=compile_cache, device="cuda")
     rng = np.random.default_rng(4)
     entries = [(i, rng.integers(0, cfg.vocab_size, n).tolist(), mt, 0.0, 0)
                for i, (n, mt) in enumerate(MULTI_POOL_REQS)]
@@ -2295,7 +2438,7 @@ def pool_run(mesh: dict) -> dict:
     buf, _ = eng.poll()
     rows = [buf[i][:len(pr) + mt].tolist() for i, pr, mt, _, _ in entries]
     return {"rows": rows, "segment_ms": statistics.median(times) * 1e3,
-            "cfg": cfg, "model": model,
+            "cfg": cfg, "model": model, "aot": eng.aot,
             "prompts": [len(pr) for _, pr, _, _, _ in entries]}
 
 
@@ -2391,6 +2534,95 @@ def mlp_serial_loss(jobs, argv: list) -> float:
     return float(fns["loss_fn"](fns["head_fn"](head, h), y).mean())
 
 
+# dist_multi's multislice case: the 2-layer bench LM, 3 steps of a global
+# batch of 4 × 2,048 from seed 1, over two virtual slices: dp 2 × tp 2 on
+# four ranks, dp 2 on two (a slice a rank)
+MULTISLICE_LM_STEPS, MULTISLICE_BATCH = 3, 4
+MULTISLICE_SPECS = {4: {"dp": 2, "tp": 2}, 2: {"dp": 2}}
+
+
+def multislice_lm(mesh: dict, slices=None) -> dict:
+    """``MULTISLICE_LM_STEPS`` steps of ``LMTrainer`` on the 2-layer bench
+    LM over ``mesh`` (one device for {}) and ``slices``, seeded: the
+    losses, K1-K3's launches and the mesh's ranks."""
+    from kubeoperator_tpu_torch.profile_lm import BENCH_LM
+    from kubeoperator_tpu_torch.workloads import flash_attention as fa
+    from kubeoperator_tpu_torch.workloads.lm import LMTrainer
+    from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
+
+    tr = LMTrainer(dataclasses.replace(BENCH_LM, n_layers=2),
+                   MeshSpec(**mesh), slices=slices)
+    state = tr.init_state(seed=1)
+    tokens = tr.synthetic_batch(MULTISLICE_BATCH, 2048, seed=1)
+    fa.reset_launches()
+    losses = []
+    for _ in range(MULTISLICE_LM_STEPS):
+        state, metrics = tr.train_step(state, tokens)
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "launches": dict(fa.LAUNCHES),
+            "mesh": tr.mesh.mesh.tolist() if tr.mesh is not None else None}
+
+
+def multislice_rank(rank: int, world: int, out: str) -> None:
+    """One NCCL rank of the multislice case: the refusal of a model axis
+    across the two virtual slices (``MeshSpec(tp=2, sp=world/2)``, which
+    must raise before any collective), then ``multislice_lm`` over
+    ``MULTISLICE_SPECS[world]``; each rank writes its result."""
+    from kubeoperator_tpu_torch.workloads import sharding
+
+    slices = sharding.with_virtual_slices(world, 2)
+    try:
+        sharding.build_mesh(sharding.MeshSpec(tp=2, sp=world // 2), "cuda",
+                            slices)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    got = multislice_lm(MULTISLICE_SPECS[world], slices)
+    Path(out, f"multislice.rank{rank}.json").write_text(json.dumps(
+        {**got, "slices": slices, "refusal": refusal}))
+
+
+def multislice_case(out: Path, cards: int) -> dict:
+    """dist_multi's multislice case on four NCCL ranks where four cards
+    are visible (two virtual slices of two, dp 2 × tp 2), else two (dp 2,
+    a slice each): each dp row's ranks in one slice, the refusal of tp
+    across the slices, every loss within ``TOL`` of one rank's, K1-K3
+    each at least once a layer and step on every rank."""
+    from kubeoperator_tpu_torch.train import launch
+
+    world = 4 if cards >= 4 else 2
+    mesh = MULTISLICE_SPECS[world]
+    t0 = time.perf_counter()
+    out = out.resolve()                     # the file:// store's path
+    launch.spawn(multislice_rank, world, (str(out),), backend="nccl",
+                 store=str(out / "store_multislice"), timeout_s=300.0,
+                 deadline_s=600.0)
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out / f"multislice.rank{r}.json").read_text())
+             for r in range(world)]
+    one = multislice_lm({})
+    slices = ranks[0]["slices"]
+    rows = np.asarray(ranks[0]["mesh"]).reshape(mesh["dp"], -1).tolist()
+    rows_in_one_slice = all(len({slices[r] for r in row}) == 1
+                            for row in rows)
+    refused = all(r["refusal"] is not None and "only a data axis" in
+                  r["refusal"] for r in ranks)
+    close = all(len(r["losses"]) == len(one["losses"]) and all(
+        abs(a - b) <= TOL["atol"] + TOL["rtol"] * abs(b)
+        for a, b in zip(r["losses"], one["losses"])) for r in ranks)
+    flash = min(r["launches"][k] for r in ranks for k, _ in KERNELS)
+    return {"ok": rows_in_one_slice and refused and close
+            and flash >= 2 * MULTISLICE_LM_STEPS,
+            "case": f"{'dp2_tp2' if world == 4 else 'dp2'} over 2 virtual "
+                    f"slices on {world} ranks",
+            "world": world, "slices": slices, "dp_rows": rows,
+            "dp_rows_in_one_slice": rows_in_one_slice,
+            "refusal": ranks[0]["refusal"],
+            "losses": [r["losses"] for r in ranks],
+            "one_rank_losses": one["losses"],
+            "min_flash_launches": flash, "seconds": seconds}
+
+
 def dist_multi_phase(smi: str) -> dict:
     """With two or more cards: ``MULTI_CASES`` and ``MULTI_TRAINERS`` on
     two NCCL ranks spawned by ``launch.spawn``, each against its one-rank
@@ -2414,10 +2646,8 @@ def dist_multi_phase(smi: str) -> dict:
         emit(rec)
         return rec
     out = ROOT / "build" / "dist_multi"
-    if out.exists():
-        for f in out.iterdir():
-            f.unlink()
-    out.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
     ckpt = out / "llm_ckpt"
     cases = (*MULTI_CASES, ("llm_ckpt_dp2", [
         "llm", *MULTI_LM, "--mesh", "dp:2", "--steps", "2", "--ckpt-dir",
@@ -2510,6 +2740,7 @@ def dist_multi_phase(smi: str) -> dict:
                             "step_time_s": records[-1]["step_time_s"]}
     if checks["fsdp"]["losses"] != checks["fsdp_no_overlap"]["losses"]:
         checks["fsdp"]["ok"] = False
+    checks["multislice"] = multislice_case(out, cards)
     rec = {"phase": "dist_multi", "ran": True, "cards": cards, "world": 2,
            "nvidia_smi": smi, "seconds": seconds, "cases": checks}
     emit(rec)
@@ -2593,6 +2824,7 @@ def bench_phase(smi: str, resnet_ms: float, conv_launches,
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -2865,9 +3097,7 @@ def main() -> int:
     if not math.isfinite(rm["final_loss"]):
         raise AssertionError(f"resnet_train: loss not finite "
                              f"({rm['final_loss']})")
-    per_step = {"conv1x1_bwd_dx": 24, "conv1x1_bwd_dw": 24,
-                "bn_bwd_stats": 9, "bn_bwd_dx": 9, "bn_bwd_dw": 9}
-    for kname, want in per_step.items():
+    for kname, want in RESNET_STEP_LAUNCHES.items():
         if resnet_launches[kname] < want * r_total:
             raise AssertionError(f"resnet_train: {kname} launched "
                                  f"{resnet_launches[kname]} times, expected "
@@ -2923,7 +3153,10 @@ def main() -> int:
     resnet_dot2_phase(rcfg, smi, rm["step_time_ms"], conv_launches,
                       reset_conv)
 
-    # -- 10c. multi-device: the smoke, llm, ViT and ResNet paths in an NCCL
+    # -- 10c. the compile cache: cold and warm bring-up of the K7/K8 path ----
+    aot = aot_bringup_phase(smi)
+
+    # -- 10d. multi-device: the smoke, llm, ViT and ResNet paths in an NCCL
     # group of one rank, each against its one-device phase; then two ranks
     # where two cards are visible
     dist_t0 = time.perf_counter()
@@ -2936,7 +3169,7 @@ def main() -> int:
         dist_resnet_phase(rcfg, jobs, smi, rm, r_settings, conv_launches,
                           reset_conv)
     emit({"phase": "dist_total", "seconds": time.perf_counter() - dist_t0})
-    dist_multi_phase(smi)
+    multi = dist_multi_phase(smi)
 
     # -- 11. K9's probe -----------------------------------------------------
     bp.reset_launches()
@@ -2951,6 +3184,11 @@ def main() -> int:
     # -- 12. the port's bench -------------------------------------------------
     bench_phase(smi, rm["step_time_ms"], conv_launches, reset_conv,
                 {"llm": (m, train_launches), "vit": (vm, vit_launches)})
+
+    emit({"phase": "script_total", "seconds": time.perf_counter() - script_t0,
+          "aot_bringup_seconds": aot["seconds"],
+          "multislice_seconds": (multi["cases"]["multislice"]["seconds"]
+                                 if multi["ran"] else None)})
 
     # -- the kernels line and the device line --------------------------------
     # each kernel with its own main path's launches and its own path shape;

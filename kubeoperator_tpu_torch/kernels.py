@@ -4,9 +4,11 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, into ``build/torch_kernels/`` at the root
 of the checkout, keyed on a hash of the source, so a fresh checkout builds
-everything the first time a kernel launches and reuses it after. Nothing
-here runs when the module is imported: the CPU tests import it without a
-compiler.
+everything the first time a kernel launches and reuses it after. A
+compile cache (``aot.CompileCache``) can ``install`` a library it stored,
+which ``load`` then opens instead. Each nvcc run is reported to the active
+compile-count guard (``analysis.compile_guard``). Nothing here runs when
+the module is imported: the CPU tests import it without a compiler.
 """
 
 from __future__ import annotations
@@ -64,8 +66,13 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_lib_paths: dict[str, Path] = {}    # name -> the file _libs[name] came from
+_installed: dict[str, Path] = {}    # name -> a library installed from a cache
 _lock = threading.Lock()
 build_log: dict[str, dict] = {}     # name -> {"seconds", "cached", "ptxas"}
+# the active compile-count guards, innermost last
+# (``analysis.compile_guard``): each nvcc build is reported to the last
+guards: list = []
 
 
 def _nvcc() -> str:
@@ -79,24 +86,57 @@ def _nvcc() -> str:
                        "machine with the card (PATH or /usr/local/cuda)")
 
 
+def nvcc_version() -> str:
+    """nvcc's release line (``Cuda compilation tools, release 12.8,
+    V12.8.93``)."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return next((line.strip() for line in out.splitlines()
+                 if "release" in line), out.strip())
+
+
 def _source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
-def lib_path(name: str) -> Path:
-    """The library's path, keyed on its source, the shared headers and
-    the flags."""
+def source_digest(name: str) -> str:
+    """A digest of what the library ``name`` is built from: its source,
+    the shared headers and the flags."""
     text = _source(name).read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    """The library's path, keyed on ``source_digest``."""
+    return BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
+
+
+def report_compile(name: str) -> None:
+    """One nvcc build of ``name``, to the innermost active compile-count
+    guard (if any)."""
+    if guards:
+        guards[-1].record_aot_compile(name, source_digest(name))
+
+
+def compile_library(name: str, out: Path) -> str:
+    """Run nvcc on ``csrc/<name>.cu`` into ``out``; returns its
+    ``-Xptxas -v`` output, raises with its errors if it fails. Reports
+    nothing: its callers do."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                           str(_source(name))],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    return proc.stderr
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source hash
     exists. Safe against concurrent builds: each writes a temporary file
-    and renames it into place."""
+    and renames it into place. Each nvcc run is reported to the active
+    compile-count guard."""
     out = lib_path(name)
     if out.exists():
         build_log.setdefault(name, {"seconds": 0.0, "cached": True, "ptxas": ""})
@@ -104,14 +144,11 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_source(name))],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+    ptxas = compile_library(name, tmp)
     os.replace(tmp, out)
+    report_compile(name)
     build_log[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                       "ptxas": proc.stderr}
+                       "ptxas": ptxas}
     return out
 
 
@@ -123,17 +160,41 @@ def build_all() -> dict[str, dict]:
     return dict(build_log)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, building it first if needed."""
+def install(name: str, path: str | os.PathLike) -> None:
+    """Make ``path``, a library of ``name`` built elsewhere (a compile
+    cache's entry), the one the wrappers' next ``load(name)`` opens in
+    place of ``build(name)``'s. Opens nothing: installing on a host
+    without a card is a file operation."""
+    if name not in SIGNATURES:
+        raise KeyError(f"no kernel library {name!r} (have: "
+                       f"{sorted(SIGNATURES)})")
     with _lock:
+        _installed[name] = Path(path).resolve()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``: the installed one if any, else the
+    build's, building it first if needed. A library is opened once: the
+    same handle serves every later load until another path is
+    installed."""
+    with _lock:
+        want = _installed.get(name)
         lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+        if lib is None or (want is not None and _lib_paths[name] != want):
+            path = want or build(name)
+            lib = ctypes.CDLL(str(path))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name], _lib_paths[name] = lib, Path(path)
         return lib
+
+
+def loaded_path(name: str) -> Path | None:
+    """The file the wrappers' library ``name`` was opened from (None
+    before the first ``load``)."""
+    with _lock:
+        return _lib_paths.get(name)
 
 
 def kernel_name(mangled: str) -> str:

@@ -496,7 +496,53 @@ def record_train_step(workload: str, step_seconds: float,
                                    collective=kind)
 
 
+# -- compile-cache families (aot/cache.py) -----------------------------------
+# Bring-up spans loading a stored kernel library (milliseconds) to an nvcc
+# build of one (tens of seconds); the reference's buckets.
+AOT_BRINGUP_BUCKETS: tuple[float, ...] = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0, 180.0,
+    600.0)
+
+
+def declare_aot_metrics(registry: Registry) -> dict:
+    """Declare the ``ko_aot_*`` vocabulary on ``registry`` and return the
+    families keyed by short name. The port's ``CompileCache`` records one
+    sample per library it consults into the process ``REGISTRY``, so a
+    scrape of any worker shows whether its bring-up loaded its kernel
+    libraries or built them."""
+    return {
+        "hits": registry.counter(
+            "ko_aot_cache_hits_total",
+            "Compile-cache consults that loaded a stored kernel library "
+            "(no nvcc run), by library.",
+            labels=("fn",)),
+        "misses": registry.counter(
+            "ko_aot_cache_misses_total",
+            "Compile-cache consults that built the kernel library with "
+            "nvcc (entry absent, corrupt, or built by another toolkit), "
+            "by library.",
+            labels=("fn",)),
+        "bringup": registry.histogram(
+            "ko_aot_bringup_seconds",
+            "Wall-clock bring-up of one kernel library through the compile "
+            "cache: check and load on a hit, nvcc build and publish on a "
+            "miss.",
+            labels=("fn", "outcome"), buckets=AOT_BRINGUP_BUCKETS),
+    }
+
+
+def record_aot_event(fn: str, *, hit: bool, seconds: float,
+                     registry: Registry | None = None) -> None:
+    """One call per library a ``CompileCache`` consults: bump the hit or
+    miss counter and observe the bring-up histogram."""
+    fams = declare_aot_metrics(registry if registry is not None else REGISTRY)
+    (fams["hits"] if hit else fams["misses"]).inc(fn=fn)
+    fams["bringup"].observe(float(seconds), fn=fn,
+                            outcome="hit" if hit else "miss")
+
+
 # declared at import, as the reference does, so a scrape of the process
-# registry shows both vocabularies from boot
+# registry shows every vocabulary from boot
 declare_serve_metrics(REGISTRY)
 declare_train_metrics(REGISTRY)
+declare_aot_metrics(REGISTRY)

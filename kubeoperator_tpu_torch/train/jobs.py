@@ -85,15 +85,16 @@ import torch
 
 from kubeoperator_tpu_torch.train.launch import maybe_initialize_distributed
 
-# flags of the JAX command whose non-default values need a part of the
-# system this port does not have yet, and where the ROADMAP queues it
-NOT_PORTED = {
-    "aot_cache": (None, "the AOT compile cache (ROADMAP queue 1, item 15)"),
-}
-
-
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def aot_record(aot) -> dict | None:
+    """The reference's ``aot`` record of a compile-cache consult."""
+    if aot is None:
+        return None
+    return {"hit": aot.hit, "fingerprint": aot.fingerprint,
+            "seconds": round(aot.seconds, 4)}
 
 
 def parse_mesh(arg: str | None, n_devices: int):
@@ -126,15 +127,6 @@ def parse_mesh(arg: str | None, n_devices: int):
                              f"axes ({fixed})")
         sizes[auto_axis] = n_devices // fixed
     return MeshSpec(**sizes)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise for a flag of ``NOT_PORTED`` that the command has and that is
-    set away from its default."""
-    for flag, (default, what) in NOT_PORTED.items():
-        if getattr(args, flag, default) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet: {what}")
 
 
 def maybe_start_metrics_server(port: int):
@@ -264,7 +256,6 @@ def cmd_llm(args: argparse.Namespace) -> int:
     ``--sample`` tokens from the trained model. The done record carries
     the median step ms after the first step and, on a card, MFU against
     the world's peak."""
-    refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
     if lead:
@@ -339,7 +330,6 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
     data stream continue). The config is the JAX job's: ``TrainConfig``
     defaults (so no K7/K8 backward), the s2d stem for even images of at
     least 64, warmup min(100, steps)."""
-    refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
     from kubeoperator_tpu_torch.workloads import data as data_pipe
@@ -399,7 +389,6 @@ def cmd_vit(args: argparse.Namespace) -> int:
     ``TransformerConfig`` defaults (attention ``auto``, remat ``dots``)
     with d_ff = 4·d_model, non-causal; at 196 patches ``auto`` takes the
     dense attention path."""
-    refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
     from kubeoperator_tpu_torch.workloads.data import (
@@ -462,7 +451,6 @@ def build_server(args: argparse.Namespace):
     the mesh; rank 0 drives it through an ``EngineLeader`` and serves
     HTTP, and every other rank runs ``follow`` here, returning
     ``(None, None)`` when rank 0's leader stops."""
-    refuse_unported(args)
     import http.server
 
     from kubeoperator_tpu_torch.telemetry.metrics import REGISTRY
@@ -522,6 +510,13 @@ def build_server(args: argparse.Namespace):
             EngineLeader, follow,
         )
 
+        # --aot-cache: bring-up consults the compile cache, as the
+        # reference's engine does (the pool builds no kernel library)
+        compile_cache = None
+        if args.aot_cache:
+            from kubeoperator_tpu_torch.aot import CompileCache
+
+            compile_cache = CompileCache(args.aot_cache)
         try:
             engine = SlotPoolEngine(cfg, model, slots=args.slots,
                                     segment=args.segment, page=args.page,
@@ -530,7 +525,8 @@ def build_server(args: argparse.Namespace):
                                     spill_pages=args.spill_pages,
                                     spec_k=args.spec_k,
                                     draft_layers=args.draft_layers,
-                                    mesh_spec=spec, device=dev)
+                                    mesh_spec=spec,
+                                    compile_cache=compile_cache, device=dev)
         except ValueError as e:
             raise SystemExit(f"serve: {e}") from e
         if engine.control is not None:
@@ -545,7 +541,8 @@ def build_server(args: argparse.Namespace):
               "spill_pages": engine.spill_pages, "spec_k": engine.spec_k,
               "draft_layers": engine.draft_layers, "moe": cfg.moe_experts,
               "mesh": (dict(engine.spec.sizes())
-                       if engine.spec is not None else None)})
+                       if engine.spec is not None else None),
+              "aot": aot_record(engine.aot)})
         # every request shape shares the one segment path, so an
         # empty-pool segment is the whole warm-up; --warm is moot here
         engine.run_segment()
@@ -718,7 +715,6 @@ def cmd_fsdp(args: argparse.Namespace) -> int:
     the cost model's shares (``costmodel.fsdp_step_model`` with the card's
     NVLink) scaled onto the measured step, or the NCCL kernels' device
     time from the profiler when it traces any. Records ``ko_train_*``."""
-    refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
     if lead:
@@ -753,6 +749,15 @@ def cmd_fsdp(args: argparse.Namespace) -> int:
     batch = args.batch or 8 * max(1, spec.dp * spec.fsdp)
     x = synthetic_ids(batch, vocab, 1, dev)
     y = synthetic_ids(batch, vocab, 2, dev)
+    # --aot-cache: the step consults the compile cache, as the reference's
+    # does; the MLP launches no kernel library, so nothing is built
+    if args.aot_cache:
+        from kubeoperator_tpu_torch.aot import CompileCache
+
+        aot = CompileCache(args.aot_cache).consult("step_fn", [],
+                                                   mesh_spec=spec)
+        if lead:
+            emit({"job": "fsdp", "aot": aot_record(aot)})
     times: list[float] = []
     total = args.warmup + args.steps
     for i in range(total):
@@ -1003,7 +1008,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "promotes them back instead of recomputing "
                          "(0 disables)")
     sv.add_argument("--aot-cache", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="continuous engine: compile-cache directory "
+                         "consulted at bring-up (python -m "
+                         "kubeoperator_tpu_torch.aot warm pre-builds it)")
 
     fs = sub.add_parser("fsdp", help="chunked ZeRO-3 training with "
                                      "gather/compute overlap")
@@ -1026,7 +1033,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gather each layer chunk in the tick that uses it "
                          "(the A/B baseline schedule)")
     fs.add_argument("--aot-cache", type=str, default=None,
-                    help="not ported: must stay unset")
+                    help="compile-cache directory consulted before the "
+                         "first step")
 
     pp = sub.add_parser("pipeline",
                         help="device-pipelined training over a pp mesh axis")

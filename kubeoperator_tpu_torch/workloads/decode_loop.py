@@ -136,9 +136,14 @@ the leader's ``stop()``. The allocator's read-only accounting
 (``pages_for``, ``free_pages``, …) needs no message: every rank holds
 the same. Greedy rows on a mesh equal the one-device pool's.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): the AOT compile cache [15], and the handoff
-(``export_prefix``/``import_prefix``) under a mesh [20].
+``compile_cache`` (an ``aot.CompileCache``) is consulted at
+construction, as the reference's engine consults its segment executable:
+the pool launches no port kernel, so the result (``engine.aot``) says
+``source`` "none" and nothing is built or written.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue 1
+item): the handoff (``export_prefix``/``import_prefix``) under a mesh
+[20].
 """
 
 from __future__ import annotations
@@ -370,8 +375,9 @@ class SlotPoolEngine:
                  kv_dtype: str = "bf16", spill_pages: int = 0,
                  spec_k: int = 0, draft_layers: int = 0,
                  mesh_spec: MeshSpec | None = None,
-                 compile_cache: object = None,
-                 device: str | torch.device | None = None):
+                 compile_cache: Any = None,
+                 device: str | torch.device | None = None,
+                 slices: Sequence[int] | None = None):
         self.device = resolve_device(device)
         if slots < 1 or segment < 1:
             raise ValueError("slots and segment must be >= 1")
@@ -396,10 +402,6 @@ class SlotPoolEngine:
             raise ValueError(
                 f"draft_layers ({draft_layers}) requires spec_k > 0 "
                 f"(speculation is disabled at spec_k=0)")
-        if compile_cache is not None:
-            raise NotImplementedError(
-                "the AOT compile cache is not ported yet (ROADMAP queue 1, "
-                "item 15)")
         self.cfg = cfg
         self.slots = int(slots)
         self.segment = int(segment)
@@ -414,7 +416,8 @@ class SlotPoolEngine:
             validate_serve_mesh(self.spec, slots=self.slots,
                                 n_heads=cfg.n_heads,
                                 moe_experts=cfg.moe_experts)
-            self.mesh = sharding.build_mesh(self.spec, self.device.type)
+            self.mesh = sharding.build_mesh(self.spec, self.device.type,
+                                            slices)
             model = sharding.place_decode(model, cfg, self.mesh, self.spec)
             # the engine commands' channel (EngineLeader, follow): a gloo
             # group every rank's engine makes, in the same order
@@ -533,6 +536,11 @@ class SlotPoolEngine:
         # MoE per-expert load of every micro-step, summed on the device
         # (empty for a dense model)
         self._expert_load = torch.zeros(cfg.moe_experts, device=dev)
+        # the compile cache: the pool's gathers, scatters and einsums are
+        # PyTorch's, so it launches no port library and the consult says so
+        self.aot = (compile_cache.consult("SlotPoolEngine", [],
+                                          mesh_spec=self.spec)
+                    if compile_cache is not None else None)
 
     # -- this rank's share of the mesh ----------------------------------------
     def _mine(self, host: np.ndarray) -> np.ndarray:

@@ -39,7 +39,8 @@ from kubeoperator_tpu_torch.workloads.train import (
     peak_flops_per_chip, resolve_device, step_stats, timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
-    Transformer, TransformerConfig, flops_per_token, param_axes,
+    Transformer, TransformerConfig, flash_block, flops_per_token,
+    param_axes,
 )
 
 __all__ = ["LMTrainer", "MeshSpec", "lm_loss",
@@ -81,13 +82,29 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 class LMTrainer:
+    """``slices`` (one id a rank) places the mesh over slices
+    (``sharding.build_mesh``); ``compile_cache`` (an
+    ``aot.CompileCache``) brings up the kernel library the configuration
+    launches, ``flash_attention`` when its attention takes flash on the
+    card, at construction, into ``self.aot``."""
+
     def __init__(self, cfg: TransformerConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
-                 learning_rate: float = 3e-4):
+                 learning_rate: float = 3e-4,
+                 slices: list[int] | None = None,
+                 compile_cache=None):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
-        self.mesh = sharding.build_mesh(self.spec, self.device.type)
+        self.mesh = sharding.build_mesh(self.spec, self.device.type, slices)
         self.cfg = replace(cfg, ring=self.spec.sp > 1)
+        self.aot = None
+        if compile_cache is not None:
+            flash = (self.device.type == "cuda" and not self.cfg.ring
+                     and flash_block(self.cfg, self.cfg.max_seq_len, True)
+                     is not None)
+            self.aot = compile_cache.consult(
+                "LMTrainer", ["flash_attention"] if flash else [],
+                mesh_spec=self.spec)
         # ranks whose loss shares sum to the global loss: each adds this
         # share of the (global) MoE aux loss
         self.aux_share = 1.0 / (self.spec.dp * self.spec.fsdp * self.spec.sp)

@@ -30,6 +30,9 @@ fsdp-split parameters by their shard, gathered on access through a
 parametrization.
 A parameter's placement comes from its logical names (the LM, the ViT) or
 from its shape (``place_by_shape``, the ResNet's rule).
+Across slices (``slices=``, one id a rank: the nodes of a ``torchrun``
+job by default, or ``with_virtual_slices``) only the outermost data axis
+spans them (``mesh_ranks``), as in the reference's multi-slice meshes.
 ``set_data_groups`` hands the data groups to the BatchNorm modules, whose
 statistics cover the global batch. ``place_decode`` cuts a whole model
 for the serving mesh (dp × tp × ep) by ``decode_axis_rules``.
@@ -40,9 +43,11 @@ The ZeRO-3 step with explicit gather/compute overlap
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -103,26 +108,113 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def build_mesh(spec: MeshSpec, device_type: str | None = None):
+def with_virtual_slices(world: int, n_slices: int) -> list[int]:
+    """The slice of each of ``world`` ranks when they are split into
+    ``n_slices`` contiguous synthetic slices (the reference's
+    ``with_virtual_slices`` over devices): what ``build_mesh(...,
+    slices=)`` takes, so a multi-slice layout runs on hosts with one."""
+    if world % n_slices:
+        raise ValueError(f"{world} devices do not split into "
+                         f"{n_slices} equal slices")
+    per = world // n_slices
+    return [r // per for r in range(world)]
+
+
+def node_slices() -> list[int]:
+    """Each rank's slice when none is given: its node. Under ``torchrun``
+    a node's ranks share NVLink and nodes talk over the network, the part
+    of a TPU pod that DCN separates, so each rank's ``GROUP_RANK`` is
+    gathered over the world. Outside ``torchrun``, or when one node holds
+    the whole world, every rank is in slice 0 and nothing is gathered."""
+    world = world_size()
+    if (world == 1 or "GROUP_RANK" not in os.environ
+            or int(os.environ.get("LOCAL_WORLD_SIZE", world)) == world):
+        return [0] * world
+    out: list = [None] * world
+    dist.all_gather_object(out, int(os.environ["GROUP_RANK"]))
+    return [int(s) for s in out]
+
+
+def mesh_ranks(spec: MeshSpec, slices: Sequence[int]) -> np.ndarray:
+    """The rank at each coordinate of the spec's mesh (axes above 1, outer
+    to inner; [1] for a single device) over ranks whose slices are
+    ``slices[rank]``. Several slices are the reference's multi-slice
+    mesh: only the outermost axis may span them, it must be a data axis
+    (dp, or fsdp when dp is 1) and a multiple of the slice count, so each
+    of its rows holds ranks of one slice and the model axes stay inside
+    one. Raises, with the reference's messages, for a layout that would
+    put model axes across slices.
+
+    Each slice's ranks, ascending, fill its rows of the outermost axis,
+    row-major; the rows come in the order of their lowest rank. Where the
+    slice ids ascend with the ranks, as ``with_virtual_slices`` and
+    ``torchrun``'s nodes give them, that is the reference's slice-major
+    layout. A process group numbers its ranks in rank order
+    (``torch.distributed.new_group`` sorts them) and an axis's index is a
+    rank's place in its group, so the ranks must ascend along every axis:
+    slices whose ranks interleave so that no order of the rows ascends
+    raise."""
+    if spec.n_devices != len(slices):
+        raise ValueError(f"MeshSpec wants {spec.n_devices} devices, got "
+                         f"{len(slices)}")
+    names = [n for n, s in spec.sizes() if s > 1] or ["dp"]
+    shape = [s for _, s in spec.sizes() if s > 1] or [1]
+    members: dict[int, list[int]] = {}
+    for rank, s in enumerate(slices):
+        members.setdefault(s, []).append(rank)
+    if len(members) > 1:
+        if names[0] not in ("dp", "fsdp"):
+            raise ValueError(
+                f"multi-slice mesh: outermost axis is {names[0]!r} but only "
+                "a data axis (dp/fsdp) may span slices — model-parallel "
+                "collectives must stay on ICI")
+        if shape[0] % len(members):
+            raise ValueError(
+                f"multi-slice mesh: outermost axis {names[0]}={shape[0]} "
+                f"must be a multiple of the slice count {len(members)}")
+        if len({len(m) for m in members.values()}) > 1:
+            raise ValueError(
+                f"multi-slice mesh: slices of "
+                f"{sorted(len(m) for m in members.values())} ranks; each "
+                f"must hold as many")
+    row = len(slices) // shape[0]
+    rows = sorted((m[i:i + row] for m in members.values()
+                   for i in range(0, len(m), row)), key=lambda r: r[0])
+    ranks = np.asarray(rows).reshape(shape)
+    for axis in range(ranks.ndim):
+        if not (np.diff(ranks, axis=axis) > 0).all():
+            raise ValueError(
+                f"multi-slice mesh: slices {list(slices)} interleave their "
+                f"ranks, so {names[axis]}'s ranks cannot ascend along it "
+                f"as its process groups number them (in rank order)")
+    return ranks
+
+
+def build_mesh(spec: MeshSpec, device_type: str | None = None,
+               slices: Sequence[int] | None = None):
     """A ``DeviceMesh`` over the world with the spec's axes above 1, outer
-    to inner (dp, fsdp, pp, ep, tp, sp; ("dp",) of 1 for a single device).
-    Raises when the spec's device count is not the world size. In a
-    process with no process group the world is one device and the mesh is
-    None: every axis then has one rank and every collective is the
-    identity."""
+    to inner (dp, fsdp, pp, ep, tp, sp; ("dp",) of 1 for a single device),
+    its ranks placed by ``mesh_ranks`` over ``slices`` (one slice per
+    rank; default ``node_slices()``). Raises when the spec's device count
+    is not the world size, or for a multi-slice layout the reference
+    refuses, before any process group is made. In a process with no
+    process group the world is one device and the mesh is None: every
+    axis then has one rank and every collective is the identity."""
     world = world_size()
     if spec.n_devices != world:
         raise ValueError(f"MeshSpec wants {spec.n_devices} devices, got "
                          f"{world}")
+    if slices is not None and len(slices) != world:
+        raise ValueError(f"{len(slices)} slice ids for a world of {world}")
     if not dist.is_initialized():
         return None
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
-    names = spec.axis_names
-    shape = tuple(s for _, s in spec.sizes() if s > 1) or (1,)
+    ranks = mesh_ranks(spec, node_slices() if slices is None else slices)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    return DeviceMesh(device_type, torch.as_tensor(ranks),
+                      mesh_dim_names=spec.axis_names)
 
 
 def _has(mesh, axis: str) -> bool:

@@ -222,21 +222,37 @@ class Trainer:
     mode (batch statistics, running ones updated in place), label-smoothed
     cross-entropy, backward, and Nesterov SGD at the step's learning rate,
     updating model and optimizer state in place. ``cfg.batch_size`` is the
-    global batch. Other mesh axes raise: the reference places its state by
+    global batch. ``slices`` (one id a rank) places the mesh over slices
+    (``sharding.build_mesh``); ``compile_cache`` (an ``aot.CompileCache``)
+    is consulted at construction, into ``self.aot``. Other mesh axes raise: the reference places its state by
     shape over fsdp and splits the batch over dp×fsdp, so they have no
     meaning for it."""
 
     def __init__(self, cfg: TrainConfig | None = None,
                  spec: MeshSpec | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 slices: list[int] | None = None,
+                 compile_cache: Any = None):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         refuse_axes(self.spec, ("dp", "fsdp"),
                     "the ResNet trainer places its state by shape over fsdp "
                     "and splits the batch over dp×fsdp, as the reference's; "
                     "no other axis has a meaning for it")
-        self.mesh = sharding.build_mesh(self.spec, self.device.type)
+        self.mesh = sharding.build_mesh(self.spec, self.device.type, slices)
         self.cfg = cfg or TrainConfig()
+        # the compile cache brings up the conv_bwd library (K7-K9) here, at
+        # construction, when the kernel modes are on and the trainer is on
+        # the card; the reference consults at its first step, when its
+        # executable's example arguments exist
+        self.aot = None
+        if compile_cache is not None:
+            kernels = (self.device.type == "cuda"
+                       and (self.cfg.conv_bwd == "pallas"
+                            or self.cfg.fused_bn))
+            self.aot = compile_cache.consult(
+                "Trainer", ["conv_bwd"] if kernels else [],
+                mesh_spec=self.spec)
         self.schedule = lr_schedule(self.cfg)
         self.placements: dict = {}
         self.last_metrics: dict = {}

@@ -191,6 +191,21 @@ def _groups(mesh) -> tuple:
     return axis_group(mesh, "tp"), axis_group(mesh, "sp")
 
 
+def flash_block(cfg: TransformerConfig, seq_len: int,
+                on_cuda: bool) -> int | None:
+    """Flash block for this sequence, or None for the dense path.
+    ``auto`` takes flash on CUDA from seq 2048 up (the counterpart of the
+    JAX package's TPU-only test)."""
+    block = cfg.flash_block or next(
+        (b for b in (DEFAULT_BLOCK, 128)
+         if seq_len >= b and seq_len % b == 0), 128)
+    if cfg.attention == "flash":
+        return block
+    if cfg.attention == "auto" and on_cuda and seq_len >= 2048:
+        return block
+    return None
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
@@ -213,18 +228,7 @@ class Attention(nn.Module):
         _lecun_normal_(self.o, self.o.shape[0] * self.o.shape[1], gen)
 
     def flash_block(self, seq_len: int, on_cuda: bool) -> int | None:
-        """Flash block for this sequence, or None for the dense path.
-        ``auto`` takes flash on CUDA from seq 2048 up (the counterpart of
-        the JAX package's TPU-only test)."""
-        cfg = self.cfg
-        block = cfg.flash_block or next(
-            (b for b in (DEFAULT_BLOCK, 128)
-             if seq_len >= b and seq_len % b == 0), 128)
-        if cfg.attention == "flash":
-            return block
-        if cfg.attention == "auto" and on_cuda and seq_len >= 2048:
-            return block
-        return None
+        return flash_block(self.cfg, seq_len, on_cuda)
 
     def forward(self, x, positions, cache=None):
         cfg = self.cfg

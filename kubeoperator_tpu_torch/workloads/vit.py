@@ -42,8 +42,8 @@ from kubeoperator_tpu_torch.workloads.train import (
     step_stats, synthetic_images, timed_steps,
 )
 from kubeoperator_tpu_torch.workloads.transformer import (
-    Block, RMSNorm, TransformerConfig, _lecun_normal_, param_axes,
-    remat_context_fn, run_blocks,
+    Block, RMSNorm, TransformerConfig, _lecun_normal_, flash_block,
+    param_axes, remat_context_fn, run_blocks,
 )
 
 
@@ -169,13 +169,24 @@ class ViTTrainer:
 
     def __init__(self, cfg: ViTConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
-                 learning_rate: float = 3e-4):
+                 learning_rate: float = 3e-4,
+                 slices: list[int] | None = None,
+                 compile_cache=None):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         refuse_axes(self.spec, ("dp", "fsdp", "tp", "sp"),
                     "the ViT has no experts and no pipeline stages; the "
                     "reference's ViTTrainer gives the axis no meaning")
-        self.mesh = sharding.build_mesh(self.spec, self.device.type)
+        self.mesh = sharding.build_mesh(self.spec, self.device.type, slices)
+        # the compile cache (as LMTrainer's): flash_attention when the
+        # encoder takes flash on the card
+        self.aot = None
+        if compile_cache is not None:
+            flash = (self.device.type == "cuda" and flash_block(
+                cfg.encoder, cfg.seq_len, True) is not None)
+            self.aot = compile_cache.consult(
+                "ViTTrainer", ["flash_attention"] if flash else [],
+                mesh_spec=self.spec)
         self.cfg = cfg
         self.learning_rate = learning_rate
         self.placements: dict = {}

@@ -320,17 +320,27 @@ def test_engine_validates_requests(model):
     (dict(kv_dtype="int8"), "item 7"), (dict(spill_pages=4), "item 7"),
     (dict(spec_k=2, draft_layers=1), "item 9"),
     (dict(mesh_spec=MeshSpec(dp=2)), "item 14"),
-    (dict(compile_cache=object()), "item 15")])
-def test_unported_options_raise(model, kw, item):
+    (dict(compile_cache="aot"), "item 15")])
+def test_unported_options_raise(model, kw, item, tmp_path):
     """Each option of a part not ported yet raises, naming its ROADMAP
     queue 1 item. Items 7 (quantized KV pages, the host spill tier), 9
-    (speculative decoding) and 14 (the serving mesh) are ported: their
-    cases show the engine builds with the option and reports it, a
-    quantized pool's bytes count its scale buffers, a speculative one
-    keeps draft block tables, and a mesh needs its ranks (a process
-    without a group is a world of one: dp 2 raises naming the count, a
-    one-device spec is the one-device pool; the meshed pool runs in
-    tests/test_torch_serve_mesh.py)."""
+    (speculative decoding), 14 (the serving mesh) and 15 (the compile
+    cache) are ported: their cases show the engine builds with the option
+    and reports it, a quantized pool's bytes count its scale buffers, a
+    speculative one keeps draft block tables, a mesh needs its ranks (a
+    process without a group is a world of one: dp 2 raises naming the
+    count, a one-device spec is the one-device pool; the meshed pool runs
+    in tests/test_torch_serve_mesh.py), and a compile cache is consulted
+    for no library (the pool launches none), so nothing is written
+    (tests/test_torch_aot.py)."""
+    if item == "item 15":
+        from kubeoperator_tpu_torch.aot import CompileCache
+
+        eng = engine(model, compile_cache=CompileCache(str(tmp_path / "aot")))
+        assert (eng.aot.hit, eng.aot.source, eng.aot.libraries) == (
+            True, "none", ())
+        assert list((tmp_path / "aot").iterdir()) == []
+        return
     if item == "item 14":
         with pytest.raises(ValueError, match="wants 2 devices, got 1"):
             engine(model, **kw)

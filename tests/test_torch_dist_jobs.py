@@ -202,6 +202,19 @@ def test_fsdp_job_trains(mlp_ranks, name):
     assert done["attribution_source"] is None and done["mfu"] is None
 
 
+def test_fsdp_aot_cache_emits_the_aot_record(mlp_ranks, workdir):
+    """``fsdp --aot-cache DIR`` consults the compile cache before the
+    first step and emits the reference's ``aot`` record from rank 0 only;
+    the MLP launches no kernel library, so nothing is built or written."""
+    recs = [r["fsdp_aot_cache"] for r in mlp_ranks]
+    assert [r["rc"] for r in recs] == [0, 0]
+    assert recs[0]["records"][0] == {"job": "fsdp", "aot": {
+        "hit": True, "fingerprint": "none", "seconds": 0.0}}
+    assert not any("aot" in x for x in recs[1]["records"])
+    assert recs[0]["records"][-1]["done"]
+    assert (workdir / "aot").is_dir() and not any((workdir / "aot").iterdir())
+
+
 def test_fsdp_overlap_is_a_schedule_not_a_result(mlp_ranks):
     assert losses(mlp_ranks[0]["fsdp"]["records"]) == losses(
         mlp_ranks[0]["fsdp_no_overlap"]["records"])

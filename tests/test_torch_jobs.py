@@ -3,8 +3,9 @@
 emit loss lines (and the llm job its sampled tokens) and a done record,
 checkpoint and resume (a resumed run ends on the bits of an uninterrupted
 one), the llm job serves ``/metrics``, the serve job answers over HTTP
-with both engines and from a checkpoint, and each refuses the flags whose
-parts are not ported yet."""
+with both engines and from a checkpoint, and each takes the flags of the
+reference's job, every one of which is ported now (the cases of
+``test_unported_flags_raise`` and ``test_serve_unported_flags_raise``)."""
 
 import contextlib
 import http.server
@@ -589,15 +590,32 @@ SERVE_PORTED = {"--kv-dtype": ("int8", 0, 0, 0, 0),
 def test_serve_unported_flags_raise(flag, value, capsys, tmp_path):
     """Each flag of a part not ported yet raises, naming the ROADMAP.
     ``--ckpt-dir``, ``--kv-dtype``, ``--spill-pages``, ``--spec-k``,
-    ``--draft-layers``, ``--moe`` and ``--mesh`` are ported: their cases
-    show the parser takes them and ``build_server`` builds an engine with
-    them (``--spec-k`` beside ``--draft-layers 1``; ``--ckpt-dir`` on an
-    empty directory under ``tmp_path`` serves fresh weights and says so);
-    ``--draft-layers`` alone reaches the engine's validation, which needs
-    ``--spec-k``; ``--mesh dp:2`` outside ``torchrun`` is a world of one,
-    which the engine refuses naming the count (the meshed job runs in
+    ``--draft-layers``, ``--moe``, ``--mesh`` and ``--aot-cache`` are
+    ported: their cases show the parser takes them and ``build_server``
+    builds an engine with them (``--spec-k`` beside ``--draft-layers 1``;
+    ``--ckpt-dir`` on an empty directory under ``tmp_path`` serves fresh
+    weights and says so; ``--aot-cache`` consults the compile cache in a
+    directory under ``tmp_path`` and the engine's record carries the
+    reference's ``aot`` record, a consult that builds and writes nothing,
+    since the pool launches no kernel library); ``--draft-layers`` alone
+    reaches the engine's validation, which needs ``--spec-k``; ``--mesh
+    dp:2`` outside ``torchrun`` is a world of one, which the engine
+    refuses naming the count (the meshed job runs in
     tests/test_torch_serve_mesh.py)."""
     argv = ["serve", *SERVE_TINY, "--engine", "continuous", flag, value]
+    if flag == "--aot-cache":
+        argv[-1] = str(tmp_path / value)
+        server, batcher = jobs.build_server(
+            jobs.build_parser().parse_args(argv))
+        server.server_close()
+        pool = next(json.loads(line) for line in
+                    capsys.readouterr().out.splitlines()
+                    if json.loads(line).get("engine") == "continuous")
+        assert pool["aot"] == {"hit": True, "fingerprint": "none",
+                               "seconds": 0.0}
+        assert batcher.engine.aot.source == "none"
+        assert list((tmp_path / value).iterdir()) == []
+        return
     if flag == "--mesh":
         with pytest.raises(SystemExit, match="wants 2 devices, got 1"):
             jobs.main(argv)
@@ -613,10 +631,6 @@ def test_serve_unported_flags_raise(flag, value, capsys, tmp_path):
         return
     if flag == "--draft-layers":
         with pytest.raises(SystemExit, match="requires spec_k"):
-            jobs.main(argv)
-        return
-    if flag not in SERVE_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
             jobs.main(argv)
         return
     if flag == "--spec-k":

@@ -1,6 +1,6 @@
 """One f32 LMTrainer step of the port on 4 gloo ranks at (dp 2, sp 2) with
-ring attention, (fsdp 2, tp 2) with remat and (tp 2, sp 2) with Ulysses,
-against the JAX LMTrainer at the same degrees on the 4 virtual CPU
+ring attention, (fsdp 2, tp 2) with remat, (tp 2, sp 2) with Ulysses and
+(dp 2, tp 2) over two virtual slices, against the JAX LMTrainer at the same degrees on the 4 virtual CPU
 devices, on its own weights bridged to the port: the loss, the gradients
 and the parameters after one AdamW step to 1e-5, the tolerance of the
 one-device step (tests/test_torch_lm.py). Also the reference's
@@ -18,17 +18,22 @@ import torch
 
 from kubeoperator_tpu.workloads.lm import LMTrainer as JaxLMTrainer
 from kubeoperator_tpu.workloads.sharding import MeshSpec as JMeshSpec
+from kubeoperator_tpu.workloads.sharding import with_virtual_slices
 from kubeoperator_tpu_torch.bridge import params_from_jax
 from test_torch_bridge import JAX_TINY, port_cfg, tokens
 from torch_dist_cases import spawn_group
 
 torch.set_num_threads(2)
 
-# case → (the JAX mesh, config changes); the port runs the same degrees
+# case → (the JAX mesh, config changes); the port runs the same degrees.
+# The multislice case puts dp across two virtual slices of two devices
+# (ranks), tp inside each: the reference's build_mesh on
+# with_virtual_slices(devices, 2), the port's on with_virtual_slices(4, 2)
 CASES = {
     "dp2_sp2_ring": (JMeshSpec(dp=2, sp=2), {}),
     "fsdp2_tp2": (JMeshSpec(fsdp=2, tp=2), {}),
     "tp2_sp2_ulysses": (JMeshSpec(tp=2, sp=2), {"sp_attention": "ulysses"}),
+    "dp2_tp2_multislice": (JMeshSpec(dp=2, tp=2), {}),
 }
 WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_fwd_packed", "conv1x1_bwd_dx",
             "bn_bwd_stats", "channel_sum")
@@ -37,7 +42,10 @@ WRAPPERS = ("flash_fwd", "flash_bwd_dq", "flash_fwd_packed", "conv1x1_bwd_dx",
 def jax_step(name: str, toks: np.ndarray) -> dict:
     spec, changes = CASES[name]
     jcfg = dataclasses.replace(JAX_TINY, **changes)
-    jt = JaxLMTrainer(jcfg, spec, devices=jax.devices()[:4])
+    devices = jax.devices()[:4]
+    if name.endswith("multislice"):
+        devices = with_virtual_slices(devices, 2)
+    jt = JaxLMTrainer(jcfg, spec, devices=devices)
     state = jt.init_state(jax.random.key(11))
     params = jax.tree.map(np.asarray, state["params"])
 

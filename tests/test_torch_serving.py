@@ -373,17 +373,19 @@ def test_train_metrics_render_like_jax():
 
 def test_process_registry_holds_the_workload_vocabularies():
     """The port's ``REGISTRY`` declares the reference's workload families
-    (``declare_serve_metrics``, ``declare_train_metrics``) from import,
-    and none of its control plane's."""
+    (``declare_serve_metrics``, ``declare_train_metrics`` and, since the
+    compile cache is ported, ``declare_aot_metrics``) from import, and
+    none of its control plane's."""
     from kubeoperator_tpu.telemetry import metrics as jm
     from kubeoperator_tpu_torch.telemetry import metrics as tm
 
     ref = jm.Registry()
     jm.declare_serve_metrics(ref)
     jm.declare_train_metrics(ref)
+    jm.declare_aot_metrics(ref)
     assert tm.REGISTRY.names() == ref.names()
     assert set(ref.names()) <= set(jm.REGISTRY.names())
-    assert len(ref.names()) == 25
+    assert len(ref.names()) == 28
 
 
 def test_dynamic_batcher_counts_a_batch_once_when_its_rows_fail():

@@ -172,14 +172,16 @@ RING = [
 
 # -- the LM trainer ------------------------------------------------------------
 
-def _lm(spec: MeshSpec, params: str, **cfg_kw):
-    """One LMTrainer step at ``spec`` from ``inputs["params"][params]``."""
+def _lm(spec: MeshSpec, params: str, slices=None, **cfg_kw):
+    """One LMTrainer step at ``spec`` (over ``slices``) from
+    ``inputs["params"][params]``."""
     def case(rank, inputs):
         from dataclasses import replace
 
         from kubeoperator_tpu_torch.workloads.lm import LMTrainer
 
-        lt = LMTrainer(replace(inputs["cfg"], **cfg_kw), spec, device="cpu")
+        lt = LMTrainer(replace(inputs["cfg"], **cfg_kw), spec, device="cpu",
+                       slices=slices)
         state = lt.init_state(params=inputs["params"][params])
         _, metrics = lt.train_step(state, inputs["tokens"])
         return {"loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
@@ -229,6 +231,9 @@ LM = [
                             sp_attention="ulysses")),
     ("dp4", _lm(MeshSpec(dp=4), "dp2_sp2_ring")),
     ("dtensor_to_kernels", _dtensor_to_kernels),
+    # dp over two virtual slices of two ranks, tp inside each
+    ("dp2_tp2_multislice", _lm(MeshSpec(dp=2, tp=2), "dp2_tp2_multislice",
+                               sharding.with_virtual_slices(4, 2))),
 ]
 
 
@@ -582,15 +587,17 @@ def _norm_unit(name: str):
     return case
 
 
-def _resnet_steps(spec: MeshSpec, steps: int = 3):
-    """``steps`` Trainer steps from the bridged JAX start on this rank's
-    block of the global batch: the losses, the whole params and the
-    buffers (the BatchNorm running statistics)."""
+def _resnet_steps(spec: MeshSpec, steps: int = 3, slices=None,
+                  key: str = "trainer"):
+    """``steps`` Trainer steps (over ``slices``) from the bridged JAX
+    start ``inputs[key]`` on this rank's block of the global batch: the
+    losses, the whole params and the buffers (the BatchNorm running
+    statistics)."""
     def case(rank, inputs):
         from kubeoperator_tpu_torch.workloads import train as ttrain
 
-        p = inputs["trainer"]
-        tr = ttrain.Trainer(p["cfg"], spec, device="cpu")
+        p = inputs[key]
+        tr = ttrain.Trainer(p["cfg"], spec, device="cpu", slices=slices)
         state = tr.init_state(params=p["params"])
         x = sharding.shard_batch(tr.mesh, p["x"])
         y = sharding.shard_batch(tr.mesh, p["y"])
@@ -828,12 +835,80 @@ def _mesh_layouts(rank, inputs):
     return out
 
 
+def _multislice_psum(slices):
+    """A tp psum over a dp 2 × tp 2 mesh over ``slices``: each rank's
+    coordinates, the mesh's ranks, its tp group's sum of rank + 1 and its
+    rows of an 8-row batch."""
+    def case(rank, inputs):
+        import torch.distributed as dist
+
+        mesh = sharding.build_mesh(MeshSpec(dp=2, tp=2), slices=slices)
+        x = torch.tensor([float(rank + 1)])
+        dist.all_reduce(x, group=sharding.axis_group(mesh, "tp"))
+        return {"coords": coords(mesh), "mesh": mesh.mesh.tolist(),
+                "tp_sum": float(x),
+                "rows": sharding.shard_batch(mesh, torch.arange(8)).tolist()}
+    return case
+
+
+def _node_slices(rank, inputs):
+    """``torchrun``'s environment of two nodes whose ranks interleave
+    (``GROUP_RANK`` = rank % 2): the gathered slices, and the default
+    mesh built over them."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("GROUP_RANK",
+                                            "LOCAL_WORLD_SIZE")}
+    os.environ.update({"GROUP_RANK": str(rank % 2),
+                       "LOCAL_WORLD_SIZE": "2"})
+    try:
+        slices = sharding.node_slices()
+        mesh = sharding.build_mesh(MeshSpec(dp=2, tp=2))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"slices": slices, "mesh": mesh.mesh.tolist()}
+
+
+def _multislice_refusals(rank, inputs):
+    """The layouts the reference refuses over two slices, built on rank 0
+    alone: a raise that made a process group first would wait for the
+    other ranks, so each returns before any collective. Then every rank
+    meets in a barrier."""
+    import torch.distributed as dist
+
+    out = {}
+    if rank == 0:
+        for name, spec, slices in inputs["refusals"]:
+            try:
+                sharding.build_mesh(spec, slices=slices)
+                out[name] = None
+            except ValueError as e:
+                out[name] = str(e)
+    dist.barrier()
+    return out
+
+
 SHARDING = [
     ("fsdp4_prefetch", _overlap(MeshSpec(fsdp=4), True)),
     ("fsdp4_serial", _overlap(MeshSpec(fsdp=4), False)),
     ("dp2_fsdp2_prefetch", _overlap(MeshSpec(dp=2, fsdp=2), True)),
     ("dp2_fsdp2_serial", _overlap(MeshSpec(dp=2, fsdp=2), False)),
     ("mesh_layouts", _mesh_layouts),
+    # two slices: contiguous (with_virtual_slices) and interleaved ids
+    ("multislice_psum", _multislice_psum(sharding.with_virtual_slices(4,
+                                                                      2))),
+    ("multislice_psum_interleaved", _multislice_psum([1, 0, 1, 0])),
+    ("multislice_refusals", _multislice_refusals),
+    ("node_slices", _node_slices),
+    # ResNet-18 at dp 2 × fsdp 2 over two interleaved slices: dp across
+    # them, fsdp inside each
+    ("resnet_multislice", _resnet_steps(MeshSpec(dp=2, fsdp=2), steps=2,
+                                        slices=[0, 1, 0, 1],
+                                        key="resnet_multislice")),
 ]
 
 
@@ -929,6 +1004,9 @@ JOBS_VISION = [
 JOBS_MLP = [
     ("fsdp", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2", "--steps", "3",
                   "--warmup", "1", "--layers", "3")),
+    ("fsdp_aot_cache", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2", "--steps",
+                            "1", "--warmup", "0", "--layers", "2",
+                            "--aot-cache", "{workdir}/aot")),
     ("fsdp_no_overlap", _job("fsdp", *MLP_TINY, "--mesh", "fsdp:2",
                              "--steps", "3", "--warmup", "1", "--layers",
                              "3", "--no-overlap")),
