@@ -183,6 +183,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     slices refused before any collective, the losses within ``TOL`` of
     one rank's, K1-K3 on every rank. With one card it says so and runs
     nothing.
+    benches: the port's benches and dry run on the card. The cost-model
+    mode of ``bench_multichip`` priced for this card (fsdp overlap win
+    growing with the device count, the GPipe bubble within 10% of the
+    analytic); its measured matrix over the visible cards (one NCCL spawn
+    a world of 1, 2 or 4), ring attention at the priced width (B 1, H 32,
+    D 128, bf16) at T 8192 beside ``ring_attention_model``'s
+    ``compute_s``, every record ok; from two cards the fsdp A/B (its
+    losses within ``TOL``) and the GPipe bubble, with one card a record
+    that says they did not run; the serving arms (``bench_serving``) at the bench LM's width: the
+    speculative engine against its plain twin (greedy rows equal or
+    first different at a near-tie), the pool per (dp, tp) shape that
+    fits, cold and warm bring-up through a fresh compile cache (no
+    build); ``dryrun_multichip`` over the visible cards (an OK line a
+    config) and ``entry()``'s forward.
 11. bitcast_probe: K9's probe, the per-channel sum of a conv output by the
     library, by K9 on the channels-last output, and by K9 after a layout
     copy.
@@ -1154,6 +1168,7 @@ def serve_prefix_phase(cfg, model, smi: str) -> dict:
         engine.admit([(0, prime, 1, 0.0, 0)])
         engine.release([0])
         cached = engine._shards[0].prefix[hash(tuple(prime))][1]
+        # ko: lint-ok[KO101] the check's page ids, once a run of the phase and outside its timed traffic
         idx = torch.as_tensor(cached, device=model.embedding.device)
         before = [b[idx].clone() for entry in engine._pools for b in entry]
         batcher, _, results, m = drive(engine, reqs, SERVE_CLIENTS)
@@ -1308,6 +1323,7 @@ def serve_spill_phase(cfg, model, smi: str, kv: str) -> dict:
         end.record()
         idx = torch.as_tensor(pages, device=dev)
         parts = [engine._split(e) for e in engine._pools]
+        # ko: lint-ok[KO101] the bit-exactness check of a promotion, after its timed window closed
         same = all(torch.equal(torch.stack([p[kind][idx] for p in parts]),
                                payload[kind].to(dev))
                    for kind in range(len(payload)))
@@ -2751,6 +2767,146 @@ def dist_multi_phase(smi: str) -> dict:
     return rec
 
 
+# the benches phase: ring attention at the width --cost-model prices (the
+# reference decoder's d 4096 over heads of 128), in bf16, at T 8192
+BENCH_RING = {"batch": 1, "heads": 32, "head_dim": 128, "dtype": "bfloat16"}
+
+
+def benches_phase(cfg, model, smi: str) -> dict:
+    """The port's benches and dry run on the card (see the module doc);
+    each record on a line of its own, then the phase's summary. Any
+    failed record or check fails the phase."""
+    from kubeoperator_tpu_torch import bench_multichip as bm
+    from kubeoperator_tpu_torch import bench_serving as bs
+    from kubeoperator_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    cards = torch.cuda.device_count()
+
+    def show(part: str, rec: dict) -> None:
+        emit({"phase": "benches", "part": part, "nvidia_smi": smi, **rec})
+
+    # -- the cost model, priced for this card
+    priced = bm.cost_model_records([1, 2, 4, 8], name)
+    for rec in priced["records"]:
+        show("cost_model", rec)
+    wins = [r["speedup"] for r in priced["records"]
+            if r["config"] == "fsdp-overlap"]
+    g = priced["guards"]
+    if not (wins[0] == 1.0 and wins == sorted(wins)
+            and abs(g["bubble_measured"] - g["bubble_analytic"])
+            <= 0.10 * g["bubble_analytic"]):
+        raise AssertionError(f"benches cost model: wins {wins}, {g}")
+    ring_name = f"ring-attention-{bm.SEQ_POINTS[0] // 1024}k"    # T 8192
+    ring_price = {r["n_devices"]: r["compute_s"] for r in priced["records"]
+                  if r["config"] == ring_name}
+
+    # -- the measured matrix over the visible cards
+    worlds = [n for n in (1, 2, 4) if n <= cards]
+    t_matrix = time.perf_counter()
+    measured = bm.run_measured(worlds, 3, 1, False, card=name,
+                               ring=BENCH_RING)
+    matrix_s = time.perf_counter() - t_matrix
+    for rec in measured:
+        show("measured", rec)
+    if cards == 1:
+        show("measured", {"config": "fsdp-overlap, gpipe", "ran": False,
+                          "why": "the matrix runs the fsdp A/B and GPipe "
+                                 "from 2 cards; 1 is visible"})
+    bad = [r for r in measured if not r["ok"]]
+    if bad:
+        raise AssertionError(f"benches measured: {bad}")
+    rings = [r for r in measured if r["config"] == ring_name]
+    if {r["n_devices"] for r in rings} != set(worlds) or any(
+            r["shape"] != BENCH_RING or r["priced_card"] != name
+            or abs(r["priced_compute_s"] - ring_price[r["n_devices"]])
+            > 1e-6 for r in rings):
+        raise AssertionError(f"benches ring: {rings}")
+    for n in {r["n_devices"] for r in measured
+              if r["config"] == "fsdp-overlap"}:
+        over, eager = (next(r for r in measured if r["config"] == c
+                            and r["n_devices"] == n)
+                       for c in ("fsdp-overlap", "fsdp-eager"))
+        if abs(over["loss"] - eager["loss"]) \
+                > TOL["atol"] + TOL["rtol"] * abs(eager["loss"]):
+            raise AssertionError(f"benches fsdp A/B at {n}: losses "
+                                 f"{over['loss']} vs {eager['loss']}")
+
+    # -- the serving arms at the bench LM's width
+    spec = bs.bench_spec_real(cfg, model)
+    rows = [{**near_tie(model, i, got, want, NEAR_TIE),
+             "prompt_len": len(bs.SPEC_PROMPTS[i])}
+            for i, (got, want) in enumerate(zip(spec["rows"],
+                                                 spec["plain_rows"]))]
+    show("spec_real", {**{k: v for k, v in spec.items()
+                          if k not in ("rows", "plain_rows")},
+                       "greedy_vs_plain": rows,
+                       "near_tie_rows": sum(not r["equal"] for r in rows)})
+    if not 0 <= spec["accepted"] <= spec["drafted"] or not spec["drafted"]:
+        raise AssertionError(f"benches spec: {spec}")
+    scaling = bs.bench_scaling_real(cfg, model)
+    show("scaling_real", scaling)
+    ran = [p for p in scaling["curve"] if "skipped" not in p]
+    if [(p["dp"], p["tp"]) for p in ran] != [
+            s for s in bs.SCALING_SHAPES
+            if s[0] * s[1] <= scaling["world"]] or any(
+            p["tok_s"] <= 0 for p in ran):
+        raise AssertionError(f"benches scaling: {scaling}")
+    bring = bs.bench_bringup(cfg, model)
+    show("bringup", bring)
+    for arm in bring["bringup_ab"].values():
+        if isinstance(arm, dict) and (arm["compiles"]
+                                      or arm["source"] != "none"):
+            raise AssertionError(f"benches bring-up: {bring}")
+
+    # -- the dry run over the visible cards, then entry()'s forward
+    t_dry = time.perf_counter()
+    dry = dryrun.dryrun_multichip(cards)
+    dry_s = time.perf_counter() - t_dry
+    for rec in dry:
+        show("dryrun", rec)
+    want = ["resnet", "transformer", "vit", "pipeline-stance",
+            "fsdp-overlap", "gpipe"]
+    if cards % 8 == 0:
+        want[3:3] = ["multislice", "resnet-multislice"]
+        want.append("moe")
+    if [r["config"] for r in dry] != want or not all(
+            r["ok"] and math.isfinite(r["loss"]) for r in dry):
+        raise AssertionError(f"benches dryrun: {dry}")
+    forward, inputs = dryrun.entry()
+    logits = forward(*inputs)
+    torch.cuda.synchronize()
+    if tuple(logits.shape) != (8, 1000) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"benches entry: {logits.shape}")
+    del inputs, forward
+    rec = {"phase": "benches", "part": "total", "nvidia_smi": smi,
+           "cards": cards, "worlds": worlds, "seconds":
+           time.perf_counter() - t0, "matrix_seconds": matrix_s,
+           "dryrun_seconds": dry_s, "entry_logits": list(logits.shape)}
+    emit(rec)
+    return rec
+
+
+def benches_alone() -> dict:
+    """The benches phase by itself, on the bench LM seeded from 0 (no
+    kernel is built: the phase launches none): ``python3 -c "import
+    chip_smoke as c; c.benches_alone()"``."""
+    from kubeoperator_tpu_torch.profile_lm import BENCH_LM
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    with torch.device("cuda"):
+        model = Transformer(BENCH_LM).reset_parameters(0).eval()
+    return benches_phase(BENCH_LM, model, smi)
+
+
 def bench_phase(smi: str, resnet_ms: float, conv_launches,
                 reset_conv, measured: dict) -> dict:
     """``kubeoperator_tpu_torch.bench.main()`` once, its line echoed, with
@@ -3171,6 +3327,9 @@ def main() -> int:
     emit({"phase": "dist_total", "seconds": time.perf_counter() - dist_t0})
     multi = dist_multi_phase(smi)
 
+    # -- 10e. the port's benches and dry run --------------------------------
+    benches = benches_phase(cfg, model, smi)
+
     # -- 11. K9's probe -----------------------------------------------------
     bp.reset_launches()
     probe = bp.probe()
@@ -3187,6 +3346,7 @@ def main() -> int:
 
     emit({"phase": "script_total", "seconds": time.perf_counter() - script_t0,
           "aot_bringup_seconds": aot["seconds"],
+          "benches_seconds": benches["seconds"],
           "multislice_seconds": (multi["cases"]["multislice"]["seconds"]
                                  if multi["ran"] else None)})
 

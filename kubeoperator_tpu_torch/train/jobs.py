@@ -667,8 +667,7 @@ def mlp_lm(args: argparse.Namespace, n_stages: int, dev: torch.device):
     """The fsdp and pipeline jobs' MLP LM from ``--seed``: embedding [V, d]
     and head [d, V], and ``n_stages`` residual tanh MLPs {w1, w2} [d, d],
     all N(0, 0.1²) from one CPU generator, so every rank draws the same
-    weights. Returns (embed, stages, head, fns) with the jobs' functions
-    for the loss builders."""
+    weights. Returns (embed, stages, head, ``pipeline.MLP_FNS``)."""
     d, vocab = args.d_model, args.vocab
     gen = torch.Generator().manual_seed(args.seed)
 
@@ -678,13 +677,9 @@ def mlp_lm(args: argparse.Namespace, n_stages: int, dev: torch.device):
     embed = draw(vocab, d)
     stages = [{"w1": draw(d, d), "w2": draw(d, d)} for _ in range(n_stages)]
     head = draw(d, vocab)
-    fns = dict(
-        embed_fn=lambda e, t: e[t],
-        stage_fn=lambda p, h: h + torch.tanh(h @ p["w1"]) @ p["w2"],
-        head_fn=lambda p, h: h @ p,
-        loss_fn=lambda out, y: -torch.log_softmax(out, -1)[
-            torch.arange(y.shape[0], device=y.device), y])
-    return embed, stages, head, fns
+    from kubeoperator_tpu_torch.workloads.pipeline import MLP_FNS
+
+    return embed, stages, head, MLP_FNS
 
 
 def synthetic_ids(batch: int, vocab: int, seed: int,

@@ -66,6 +66,7 @@ def layout_free(step: int, state: dict, placements: dict, mesh) -> dict:
                                        mesh).cpu()
 
     saved = {name: whole(name, p) for name, p in params.items()}
+    # ko: lint-ok[KO102] a save writes every tensor to the host, once per checkpoint and off the step loop
     saved.update({n: b.detach().cpu() for n, b in model.named_buffers()})
     names = _opt_names(opt, params)
     opt_sd = opt.state_dict()

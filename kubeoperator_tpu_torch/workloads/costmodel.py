@@ -1,22 +1,33 @@
-"""Collective cost model, step attribution and benchmark records: the
-parts of ``kubeoperator_tpu/workloads/costmodel.py`` the port's jobs use.
+"""Collective cost model, schedule models, step attribution and benchmark
+records: the counterpart of ``kubeoperator_tpu/workloads/costmodel.py``.
 
 One ``LinkModel`` (per-hop latency + per-link rate) prices each
-collective a schedule issues; ``fsdp_step_model`` splits the chunked
-ZeRO-3 step into compute, all-gather and reduce-scatter; ``attribute``
-scales those shares onto a measured step; and on a card
-``profiled_collective_seconds`` reads the NCCL kernels' device time from
-``torch.profiler`` instead. The link comes from the card's own table
-(``LINKS``), never from the reference's TPU constants.
-``config_record`` is the one per-config schema the benches share. The
-reference's ``gpipe_step_model``, ``ring_attention_model`` and overlap-win
-helpers belong to its benches and are not ported yet (ROADMAP queue 1,
-item 16).
+collective a schedule issues. The schedule models split a step into
+compute and collectives:
+
+* ``fsdp_step_model`` — the chunked ZeRO-3 step, overlapped or eager,
+  and ``fsdp_overlap_win``, their ratio;
+* ``gpipe_step_model`` — the fill/drain schedule, its bubble measured
+  from two simulated step times by ``pipeline.bubble_from_timings``;
+* ``ring_attention_model`` — one ring-attention forward, block compute
+  against the K/V hop;
+* ``reference_overlap_win`` — the overlap win at ``REFERENCE_LLM``'s
+  scale.
+
+``attribute`` scales a model's shares onto a measured step, and on a
+card ``profiled_collective_seconds`` reads the NCCL kernels' device time
+from ``torch.profiler`` instead. Peaks and links come from the card's
+own tables (``train.PEAKS``/``peaks_for``, ``LINKS``/``link_for``),
+never from the reference's TPU constants, so every model takes them as
+arguments. ``config_record`` is the one per-config schema the benches
+share.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from kubeoperator_tpu_torch.workloads.pipeline import bubble_from_timings
 
 COLLECTIVES = ("all_gather", "reduce_scatter", "ppermute", "all_reduce")
 
@@ -158,6 +169,94 @@ def fsdp_step_model(*, n_layers: int, layer_param_bytes: float,
         ici_hops=n_layers * (2 * ici_hops("all_gather", n_fsdp)
                              + ici_hops("reduce_scatter", n_fsdp)))
 
+
+
+def fsdp_overlap_win(*, n_layers: int, layer_param_bytes: float,
+                     fwd_flops_per_layer: float, n_fsdp: int,
+                     peak_flops: float, link: LinkModel) -> dict:
+    """The two ZeRO-3 schedules priced side by side: each one's
+    ``as_dict()`` and ``speedup``, eager over overlapped."""
+    kw = dict(n_layers=n_layers, layer_param_bytes=layer_param_bytes,
+              fwd_flops_per_layer=fwd_flops_per_layer, n_fsdp=n_fsdp,
+              peak_flops=peak_flops, link=link)
+    eager = fsdp_step_model(overlap=False, **kw)
+    overlapped = fsdp_step_model(overlap=True, **kw)
+    return {"eager": eager.as_dict(), "overlapped": overlapped.as_dict(),
+            "speedup": round(eager.step_s / overlapped.step_s, 3)}
+
+
+def gpipe_step_model(*, pp: int, microbatches: int,
+                     stage_fwd_flops_per_micro: float, hop_bytes: float,
+                     peak_flops: float, link: LinkModel,
+                     overhead_s: float = 0.0) -> StepAttribution:
+    """GPipe fill/drain step (fwd + bwd): ``M + pp − 1`` ticks, each one
+    stage's compute (forward 1× + backward 2×) plus an activation hop each
+    way. ``bubble_fraction`` is measured as the bench measures it, from
+    the simulated step times at M and 2M through
+    ``pipeline.bubble_from_timings``, so it can be held against the
+    analytic ``(pp − 1)/(M + pp − 1)``."""
+    c = 3 * stage_fwd_flops_per_micro / peak_flops
+    hop = collective_seconds("ppermute", hop_bytes, pp, link)
+    tick = c + 2 * hop
+
+    def step_s(m: int) -> float:
+        return overhead_s + (m + pp - 1) * tick
+
+    t = step_s(microbatches)
+    measured = (bubble_from_timings(t, microbatches,
+                                    step_s(2 * microbatches),
+                                    2 * microbatches, pp)
+                if pp > 1 else 0.0)
+    ticks = microbatches + pp - 1
+    return StepAttribution(
+        step_s=t, compute_s=ticks * c,
+        collective_s={"ppermute": ticks * 2 * hop},
+        exposed_collective_s=ticks * 2 * hop,
+        ici_hops=ticks * 2 * ici_hops("ppermute", pp),
+        bubble_fraction=measured)
+
+
+def ring_attention_model(*, seq_len: int, sp: int, batch: int, heads: int,
+                         head_dim: int, peak_flops: float, link: LinkModel,
+                         bytes_per_elem: int = 4) -> StepAttribution:
+    """One ring-attention forward: ``sp`` hops, each a Q block × K/V block
+    (4·B·(T/sp)²·H·D FLOPs) overlapped with the K/V hop for the next, so
+    each hop's critical path is ``max(block, hop)`` with one hop
+    exposed."""
+    s_local = seq_len // sp
+    block = 4 * batch * s_local * s_local * heads * head_dim / peak_flops
+    kv_bytes = 2 * batch * s_local * heads * head_dim * bytes_per_elem
+    hop = collective_seconds("ppermute", kv_bytes, sp, link)
+    compute = sp * block
+    step = compute if sp == 1 else hop + sp * max(block, hop)
+    return StepAttribution(
+        step_s=step, compute_s=compute,
+        collective_s={"ppermute": sp * hop},
+        exposed_collective_s=step - compute if sp > 1 else 0.0,
+        ici_hops=sp * ici_hops("ppermute", sp) if sp > 1 else 0)
+
+
+# The reference's overlap scale: a 32-layer d=4096 decoder at seq 8192, one
+# sequence per device; per-layer matmul params 12·d², forward FLOPs
+# 2·params·tokens, f32 chunks. The peak is the card's (``peaks_for``).
+REFERENCE_LLM = {
+    "d_model": 4096,
+    "n_layers": 32,
+    "seq_len": 8192,
+    "layer_params": 12 * 4096 * 4096,
+}
+
+
+def reference_overlap_win(n_fsdp: int, *, peak_flops: float,
+                          link: LinkModel) -> dict:
+    """``fsdp_overlap_win`` at ``REFERENCE_LLM``'s scale over ``n_fsdp``
+    devices of ``peak_flops`` joined by ``link``."""
+    layer_params = REFERENCE_LLM["layer_params"]
+    return fsdp_overlap_win(
+        n_layers=REFERENCE_LLM["n_layers"],
+        layer_param_bytes=4 * layer_params,
+        fwd_flops_per_layer=2 * layer_params * REFERENCE_LLM["seq_len"],
+        n_fsdp=n_fsdp, peak_flops=peak_flops, link=link)
 
 # substrings of NCCL's kernel names (lower case, no underscores) → keys
 _NCCL_KERNELS = (("allgather", "all_gather"),

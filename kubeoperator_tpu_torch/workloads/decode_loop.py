@@ -1071,6 +1071,7 @@ class SlotPoolEngine:
         transfer per kind, then ``_page_copy`` per layer."""
         dst = torch.as_tensor(self._local_pages(pages), device=self.device)
         src = torch.arange(len(pages), device=self.device)
+        # ko: lint-ok[KO101] one copy per kind of buffer (K, V and, for a quantized pool, their scales), each already stacked over the layers
         kinds = [b.to(self.device) for b in payload]
         for li, entry in enumerate(self._pools):
             kp, vp, ks, vs = self._split(entry)
@@ -1484,11 +1485,14 @@ class SlotPoolEngine:
         pages = [sh.free.pop() for _ in range(n)]
         dst = torch.as_tensor(pages, device=self.device)
         src = torch.arange(n, device=self.device)
+        # K and V of every layer stacked where they are, then moved once each
         dt = self.cfg.dtype
-        for entry, (lk, lv) in zip(self._pools, layers):
+        k_all = torch.stack([lk for lk, _ in layers]).to(self.device, dt)
+        v_all = torch.stack([lv for _, lv in layers]).to(self.device, dt)
+        for li, entry in enumerate(self._pools):
             kp, vp, ks, vs = self._split(entry)
-            self._page_copy(kp, dst, src, lk.to(self.device, dt), scale=ks)
-            self._page_copy(vp, dst, src, lv.to(self.device, dt), scale=vs)
+            self._page_copy(kp, dst, src, k_all[li], scale=ks)
+            self._page_copy(vp, dst, src, v_all[li], scale=vs)
         self._publish_prefix(sh, toks, pages)
         return n
 

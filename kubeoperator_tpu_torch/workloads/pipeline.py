@@ -27,6 +27,17 @@ from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads import sharding
 
 
+# the MLP LM's functions for the loss builders (the fsdp and pipeline
+# jobs, the multi-device bench, the dry run): embedding lookup, residual
+# tanh MLP stage, linear head, per-example cross-entropy
+MLP_FNS = dict(
+    embed_fn=lambda e, t: e[t],
+    stage_fn=lambda p, h: h + torch.tanh(h @ p["w1"]) @ p["w2"],
+    head_fn=lambda p, h: h @ p,
+    loss_fn=lambda out, y: -torch.log_softmax(out, -1)[
+        torch.arange(y.shape[0], device=y.device), y])
+
+
 def bubble_fraction(pp: int, microbatches: int) -> float:
     """Analytic GPipe bubble: the fill/drain schedule runs ``microbatches +
     pp − 1`` ticks, of which ``microbatches`` advance a given stage."""

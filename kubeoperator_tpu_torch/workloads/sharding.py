@@ -535,9 +535,11 @@ def fsdp_overlapped_loss_fn(mesh, embed_fn: Callable, stage_fn: Callable,
     block of ``pack_stages``' matrix, "head": replicated}; x/y the global
     batch (each rank takes its rows over dp×fsdp). Its gradients are the
     whole step's: summed over the data axes (embed and head), and over dp
-    then reduce-scattered over fsdp (the stage chunks)."""
+    then reduce-scattered over fsdp (the stage chunks). In a world of one
+    device every axis has one rank: the gathers are the chunks themselves
+    and the schedule is the layers in order."""
     names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
-    if axis not in names:
+    if axis not in names and world_size() > 1:
         raise ValueError(f"mesh has no {axis!r} axis (axes: {names})")
     extra = set(names) - {"dp", "fsdp"}
     if extra:

@@ -61,16 +61,24 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def peaks_for(name: str) -> tuple[float, float]:
+    """(bf16 dense FLOP/s, HBM bytes/s) of the card named ``name`` (as
+    ``torch.cuda.get_device_name`` gives it), from ``PEAKS``: what the
+    cost models price a named card with, no card present. Raises for a
+    name the table does not know rather than guessing."""
+    low = name.lower()
+    for key, flops, hbm in PEAKS:
+        if key in low:
+            return flops, hbm
+    raise ValueError(f"unknown card {low!r}: add its bf16 dense peak and "
+                     f"HBM rate to PEAKS")
+
+
 def _peaks(device) -> tuple[float, float]:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"no published peak for device type {dev.type!r}")
-    name = torch.cuda.get_device_name(dev).lower()
-    for key, flops, hbm in PEAKS:
-        if key in name:
-            return flops, hbm
-    raise ValueError(f"unknown card {name!r}: add its bf16 dense peak and "
-                     f"HBM rate to PEAKS")
+    return peaks_for(torch.cuda.get_device_name(dev))
 
 
 def peak_flops_per_chip(device: str | torch.device | None = None) -> float:

@@ -405,8 +405,14 @@ def test_pack_stages_is_the_reference_s(multiple):
         ts.pack_stages([{"w": torch.zeros(2)}, {"w": torch.zeros(3)}])
 
 
-def test_overlapped_shardings_cover_the_param_tree():
+def test_overlapped_shardings_cover_the_param_tree(monkeypatch):
     assert ts.fsdp_overlapped_shardings(None) == {
         "embed": (), "stages": (None, None), "head": ()}
+    # a world of one device: every axis has one rank (the dry run's and
+    # the bench's fsdp-overlap at n = 1); over several ranks the mesh must
+    # have the axis, as the reference's must
+    assert callable(ts.fsdp_overlapped_loss_fn(None, None, None, None, None,
+                                               None))
+    monkeypatch.setattr(ts, "world_size", lambda: 2)
     with pytest.raises(ValueError, match="no 'fsdp' axis"):
         ts.fsdp_overlapped_loss_fn(None, None, None, None, None, None)

@@ -1014,9 +1014,60 @@ JOBS_MLP = [
                       "3")),
 ]
 
+
+
+# -- the multi-device bench and the dry run --------------------------------------
+
+# bench_multichip's matrix at world 2, the ring at a short sequence
+BENCH_SEQ = 1024
+BENCH2_CONFIGS = ("resnet", "transformer", "vit", "fsdp-overlap", "gpipe",
+                  f"ring-attention-{BENCH_SEQ // 1024}k")
+
+
+def _bench(config: str):
+    """One config of ``bench_multichip.matrix`` at this world, one step
+    after one warm-up step, priced for ``inputs["card"]``: its records.
+    The ring runs ``_measure_ring`` at ``BENCH_SEQ`` (the matrix's T 8k
+    is the card's length)."""
+    def case(rank, inputs):
+        import torch.distributed as dist
+
+        from kubeoperator_tpu_torch import bench_multichip as bm
+
+        n, cpu = dist.get_world_size(), torch.device("cpu")
+        if config.startswith("ring-attention"):
+            # the matrix's ring steps: max(2, steps // 2)
+            return bm.run_config(config, lambda: bm._measure_ring(
+                n, BENCH_SEQ, 2, 1, cpu, inputs["card"]), n)
+        fns = dict(bm.matrix(n, 1, 1, False, cpu, inputs["card"]))
+        return bm.run_config(config, fns[config], n)
+    return case
+
+
+def _dryrun(rank, inputs):
+    """``dryrun._dryrun_multichip_impl`` at this world on the CPU: each
+    rank's OK lines (rank 0's only) and records; rank 0 writes the
+    artifact that ``KO_DRYRUN_ARTIFACT`` names."""
+    import os
+
+    import torch.distributed as dist
+
+    from kubeoperator_tpu_torch import dryrun
+
+    n = dist.get_world_size()
+    os.environ["KO_DRYRUN_ARTIFACT"] = inputs["artifact"][n]
+    lines: list[str] = []
+    records = dryrun._dryrun_multichip_impl(n, "cpu", lines.append)
+    return {"lines": lines if rank == 0 else [], "records": records}
+
+
+BENCH2 = [(name, _bench(name)) for name in BENCH2_CONFIGS]
+DRYRUN = [("dryrun", _dryrun)]
+
 GROUPS = {"ring": RING, "lm": LM, "pipeline": PIPELINE,
           "sharding": SHARDING, "jobs_llm": JOBS_LLM,
           "jobs_vision": JOBS_VISION, "jobs_mlp": JOBS_MLP, "resnet": RESNET,
           "vit2": VIT2, "vit4": VIT4, "checkpoint": CHECKPOINT,
           "moe2": MOE2, "moe4": MOE4, "serve2": SERVE2, "serve4": SERVE4,
-          "harness": HARNESS}
+          "harness": HARNESS, "bench2": BENCH2, "dryrun4": DRYRUN,
+          "dryrun8": DRYRUN}
