@@ -91,8 +91,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    --draft-layers 1`` and with ``--moe 8``, answers ``/generate`` (4
    requests on a continuous engine, 2 on the dynamic one), ``/healthz``,
    ``/stats`` and ``/metrics`` (the spec and MoE families included) on a
-   free local port, then shuts down. ``serve_total`` times the serve
-   phases together.
+   free local port, then shuts down. (h) serve_cluster: the cluster tier
+   with phase 5's weights: phase (a)'s traffic behind one batcher with the
+   serve tracer off, on, on, off (tokens/s); then two
+   ``SlotPoolEngine(slots=16, segment=8)`` replicas and a third engine
+   behind a ``PrefillWorker``, all behind one traced ``ServeGateway``
+   (sticky prefix): phase (a)'s traffic (tokens/s, TTFT beside phase
+   (a)'s), its first half again with ``drain_replica(0)`` once replica 0
+   holds ``CLUSTER_DRAIN_AT`` rows mid-decode and ``readmit_replica(0)``
+   (requeued, the drain's seconds), and ``CLUSTER_HANDOFFS`` of
+   serve_prefix's longer requests handed off (pages, seconds a handoff):
+   no port kernel, no sync in a segment of the drain and handoff runs,
+   every greedy reply equal to solo ``generate()`` or first different at
+   a near-tie, every request's trace complete with its critical path
+   tiling its duration. ``serve_total`` times the serve phases together.
    jobs (``jobs_total``): ``smoke`` sums a bf16 matmul of ones to 256³;
    ``mnist`` at its defaults improves its loss (seconds a step);
    ``llm --metrics-port`` at a tiny depth serves ``/metrics`` (200, the
@@ -172,8 +184,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
     without overlap, the pipeline job, the llm job saved at dp 2
     (resumed here on one rank) — ``MULTI_TRAINERS`` — ResNet-50 (K7/K8)
     at dp 2 and fsdp 2, ViT-B/16 at dp 2 and tp 2 — and ``MULTI_POOLS``
-    — the slot pool of the 2-layer bench LM at tp 2 and dp 2 — each
-    against its one-rank run: losses within ``TOL``, the BatchNorm
+    — the slot pool of the 2-layer bench LM at tp 2 and dp 2 — and
+    ``MULTI_HANDOFF`` — that pool's prefill→decode handoff over tp 2, the
+    mesh's export landed in one rank's pool and one rank's export landed
+    in the mesh — each against its one-rank run: losses within ``TOL``,
+    the BatchNorm
     running statistics equal on both ranks, greedy rows equal or first
     different at a near-tie (bf16 GEMMs of other shapes round
     otherwise); then its ``multislice`` case: four NCCL ranks in two
@@ -361,6 +376,10 @@ SPILL_PREFIXES, SPILL_NEW, SPILL_PAGES = 8, 64, 1088
 # serve_spec: bench_serving.py:321's bench_spec_real defaults, on phase
 # (a)'s engine shape and traffic
 SPEC_K, DRAFT_LAYERS = 4, 1
+# serve_cluster: the drain run's requests (phase (a)'s first), the rows
+# replica 0 holds mid-decode when it is drained, and how many of
+# serve_prefix's requests hand their pages off
+CLUSTER_DRAIN_REQUESTS, CLUSTER_DRAIN_AT, CLUSTER_HANDOFFS = 16, 4, 4
 
 
 def defined_at(source: str, kernel: str) -> str:
@@ -1711,6 +1730,255 @@ def serve_http_phase(cfg, jobs, smi: str) -> dict:
     return out
 
 
+def cluster_instrument(engines: list, strict: bool) -> dict:
+    """Wrap every device call of ``engines`` (the gateway's replicas and
+    its prefill worker's engine) in place. ``strict``: the calls of all
+    of them take one lock, and every segment runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` while it holds it. The
+    mode is the process's, not a thread's, so without the lock another
+    replica's retirement fetch would trip it; with it, no segment syncs
+    and no other call runs meanwhile. Counts the segments either way."""
+    rec = {"segments": 0}
+    lock = threading.RLock()
+    for eng in engines:
+        for name in ("admit", "run_segment", "poll", "release",
+                     "export_prefix", "import_prefix"):
+            call = getattr(eng, name)
+
+            def wrapped(*a, _call=call, _seg=name == "run_segment", **kw):
+                with lock if strict else contextlib.nullcontext():
+                    if not _seg:
+                        return _call(*a, **kw)
+                    rec["segments"] += 1
+                    if strict:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return _call(*a, **kw)
+                    finally:
+                        if strict:
+                            torch.cuda.set_sync_debug_mode("default")
+
+            setattr(eng, name, wrapped)
+    return rec
+
+
+def release_pools(engines) -> None:
+    """Free the page pools of engines whose batchers are done. A
+    batcher's worker thread idles for the life of the process and keeps
+    its engine object; the later phases need the pages' device memory."""
+    for eng in engines:
+        eng._pools = []
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cluster_phase(cfg, model, smi: str, base: dict) -> dict:
+    """Phase (h): the cluster tier at the bench LM's width with phase 5's
+    weights. (0) The tracer's cost: phase (a)'s traffic behind one
+    batcher with the tracer off, on, on, off (tokens/s; reported, not
+    gated). Then two ``SlotPoolEngine(slots=16, segment=8)`` replicas
+    and a third engine behind a ``PrefillWorker``, all behind one
+    ``ServeGateway`` (sticky prefix, a ``ServeTracer``; prompts of more
+    than ``PREFIX_LEN`` tokens hand their pages off): (1) phase (a)'s
+    traffic from 8 clients: tokens/s and TTFT beside phase (a)'s one
+    replica; (2) its first ``CLUSTER_DRAIN_REQUESTS`` requests again,
+    ``drain_replica(0)`` once replica 0 holds ``CLUSTER_DRAIN_AT`` rows
+    mid-decode, then ``readmit_replica(0)``: requeued requests and the
+    drain's wall time; (3) ``CLUSTER_HANDOFFS`` of serve_prefix's cover
+    and partial requests (greedy), each handed off: pages and seconds a
+    handoff. Runs (2) and (3) check every segment under sync-debug
+    "error" (run (1) is timed without the lock that needs); no port
+    kernel may launch; every greedy reply equals solo ``generate()`` or
+    differs first at a near-tie; every retired request's tree is
+    complete and its critical path tiles its duration."""
+    from kubeoperator_tpu_torch.cluster import PrefillWorker, ServeGateway
+    from kubeoperator_tpu_torch.telemetry.serve_trace import (
+        ServeTracer, ServeTraceStore, critical_path, render_record,
+    )
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.generate import generate
+    from kubeoperator_tpu_torch.workloads.serving import (
+        BatcherStats, ContinuousBatcher,
+    )
+
+    t_phase = time.perf_counter()
+    dev = model.embedding.device
+
+    def build(strict: bool):
+        engines = [SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                                  segment=SERVE_SEGMENT, device=dev)
+                   for _ in range(2)]
+        prefill = SlotPoolEngine(cfg, model, slots=1, segment=SERVE_SEGMENT,
+                                 device=dev)
+        seg = cluster_instrument([*engines, prefill], strict)
+        batchers = [ContinuousBatcher(e, stats=BatcherStats())
+                    for e in engines]
+        store = ServeTraceStore(max_records=1024)
+        gw = ServeGateway(batchers, policy="sticky_prefix",
+                          prefill_worker=PrefillWorker(prefill),
+                          handoff_min_pages=PREFIX_LEN // engines[0].page
+                          + 1, tracer=ServeTracer(store))
+        return gw, batchers, store, seg, [*engines, prefill]
+
+    reqs = serve_requests(cfg.vocab_size)
+    tokens = sum(mt for _, mt, _, _ in reqs)
+    reset_port_launches()
+    out: dict = {}
+    # (0) the tracer's cost: phase (a)'s engine and traffic behind one
+    # batcher, off, on, on, off
+    overhead = {"off": [], "on": []}
+    for arm in ("off", "on", "on", "off"):
+        engine = SlotPoolEngine(cfg, model, slots=SERVE_SLOTS,
+                                segment=SERVE_SEGMENT, device=dev)
+        store = ServeTraceStore(max_records=len(reqs))
+        batcher = ContinuousBatcher(engine, tracer=(
+            ServeTracer(store) if arm == "on" else None))
+        t0 = time.perf_counter()
+        run_clients(batcher.submit, reqs, SERVE_CLIENTS)
+        overhead[arm].append(tokens / (time.perf_counter() - t0))
+        if arm == "on" and len(store.records()) != len(reqs):
+            raise AssertionError("serve_cluster: the tracer kept "
+                                 f"{len(store.records())} trees")
+        release_pools([engine])
+    out["trace_overhead"] = {
+        "tokens_per_s": overhead,
+        "on_over_off": statistics.median(overhead["on"])
+        / statistics.median(overhead["off"])}
+    # (1) throughput through the gateway
+    gw, batchers, store, seg, engines = build(strict=False)
+    t0 = time.perf_counter()
+    replies = {"throughput": run_clients(gw.submit, reqs, SERVE_CLIENTS)}
+    wall = time.perf_counter() - t0
+    out["throughput"] = {
+        "requests": len(reqs), "clients": SERVE_CLIENTS, "wall_s": wall,
+        "generated_tokens": tokens, "tokens_per_s": tokens / wall,
+        "one_replica_tokens_per_s": base["tokens_per_s"],
+        "ttft_p50_s": gw.stats.ttft_quantile(0.5),
+        "ttft_p95_s": gw.stats.ttft_quantile(0.95),
+        "one_replica_ttft_p50_s": base["ttft_p50_s"],
+        "one_replica_ttft_p95_s": base["ttft_p95_s"],
+        "segments": seg["segments"], "gateway": gw.snapshot(),
+        "per_replica_requests": [b.stats.snapshot()["requests_total"]
+                                 for b in batchers]}
+    traces = [render_record(r) for r in store.records()]
+    release_pools(engines)
+    # (2) a drain mid-decode, then the readmit, under the strict checks
+    gw, batchers, store, seg, engines = build(strict=True)
+    dreqs = reqs[:CLUSTER_DRAIN_REQUESTS]
+    box: dict = {}
+    clients = threading.Thread(target=lambda: box.update(
+        r=run_clients(gw.submit, dreqs, SERVE_CLIENTS)))
+    clients.start()
+    deadline = time.monotonic() + 600.0
+    while len(batchers[0]._track) < CLUSTER_DRAIN_AT:
+        if time.monotonic() > deadline or not clients.is_alive():
+            raise AssertionError("serve_cluster: replica 0 never held "
+                                 f"{CLUSTER_DRAIN_AT} rows")
+        time.sleep(0.001)
+    in_flight = len(batchers[0]._track)
+    t0 = time.perf_counter()
+    requeued = gw.drain_replica(0)
+    drain_s = time.perf_counter() - t0
+    gw.readmit_replica(0)
+    clients.join(timeout=900.0)
+    if "r" not in box:
+        raise AssertionError("serve_cluster: the drained run did not finish")
+    replies["drain"] = box["r"]
+    snap = gw.snapshot()
+    drain_segments = seg["segments"]
+    out["drain"] = {"requests": len(dreqs),
+                    "in_flight_on_replica_0": in_flight,
+                    "requeued": len(requeued), "drain_s": drain_s,
+                    "routed": snap["routed"],
+                    "requeued_total": snap["requeued_total"],
+                    "segments": drain_segments,
+                    "sync_debug_mode": "error",
+                    "requests_requeued_total": gw.stats.snapshot()[
+                        "requests_requeued_total"]}
+    if not requeued:
+        raise AssertionError("serve_cluster: the drain requeued nothing")
+    # (3) handoffs: serve_prefix's shared system prompt and tails
+    system, kinds, tails = prefix_traffic(cfg.vocab_size)
+    page = batchers[0].engine.page
+    picked = [i for kind in ("cover", "partial") for i in [
+        j for j, k in enumerate(kinds)
+        if k == kind and len(tails[j][0]) >= page][:CLUSTER_HANDOFFS // 2]]
+    hreqs = [(system + tails[i][0], tails[i][1], 0.0, i) for i in picked]
+    before = gw.snapshot()["handoff_pages"]
+    t0 = time.perf_counter()
+    replies["handoff"] = run_clients(gw.submit, hreqs, len(hreqs) // 2)
+    handoff_wall = time.perf_counter() - t0
+    launches = port_launches()
+    torch.cuda.synchronize()
+    if any(launches.values()):
+        raise AssertionError(f"serve_cluster: port kernels launched: "
+                             f"{launches}")
+    traces += [render_record(r) for r in store.records()]
+    prefix_hits = sum(b.engine.prefix_hits for b in batchers)
+    release_pools(engines)
+    hand = [s["duration_s"] for t in traces for s in t["spans"]
+            if s["name"] == "handoff"]
+    pages = gw.snapshot()["handoff_pages"] - before
+    out["handoff"] = {"requests": len(hreqs), "kinds": [kinds[i]
+                                                        for i in picked],
+                      "prompt_lens": [len(r[0]) for r in hreqs],
+                      "wall_s": handoff_wall, "handoffs": len(hand),
+                      "pages": pages,
+                      "seconds_per_handoff": (statistics.median(hand)
+                                              if hand else None),
+                      "prefix_hits": prefix_hits,
+                      "segments": seg["segments"] - drain_segments}
+    if not pages or not hand:
+        raise AssertionError(f"serve_cluster: no pages handed off "
+                             f"({pages} pages, {len(hand)} spans)")
+    # every retired request's tree
+    bad = []
+    for t in traces:
+        names = {s["name"] for s in t["spans"]}
+        cp = critical_path(t)
+        if not {"request", "gateway", "enqueue", "admit", "segment",
+                "retire"} <= names or cp["status"] != "ok" or abs(
+                    sum(cp["phases"].values()) + cp["unattributed"]
+                    - cp["duration_s"]) > 1e-5:
+            bad.append({"request": t["request"], "spans": sorted(names),
+                        "critical_path": cp})
+    if bad or len(traces) != len(reqs) + len(dreqs) + len(hreqs):
+        raise AssertionError(f"serve_cluster: {len(traces)} trees, "
+                             f"incomplete: {bad[:3]}")
+    out["traces"] = {"trees": len(traces), "with_hop": sum(
+        any(s["name"] == "hop" for s in t["spans"]) for t in traces),
+        "critical_path_s_sum": {
+            k: sum(critical_path(t)["phases"].get(k, 0.0) for t in traces)
+            for k in ("gateway_wait", "replica_queue", "admit", "prefill",
+                      "handoff", "decode", "host_blocked", "hop")}}
+    # greedy replies against solo generate(), near-tie rule
+    checks, solo = [], {}
+    for run, rs in (("throughput", reqs), ("drain", dreqs),
+                    ("handoff", hreqs)):
+        for i, (prompt, mt, temp, _) in enumerate(rs):
+            row = replies[run][i]
+            if len(row) != len(prompt) + mt or row[:len(prompt)] != prompt:
+                raise AssertionError(f"serve_cluster {run}: request {i} "
+                                     f"came back malformed")
+            if temp:
+                continue
+            key = (len(prompt), tuple(prompt[-8:]), mt)
+            if key not in solo:
+                with torch.no_grad():
+                    solo[key] = generate(cfg, model, [prompt], mt,
+                                         device=dev)[0].tolist()
+            checks.append({**near_tie(model, i, row, solo[key], NEAR_TIE),
+                           "run": run})
+    out["greedy_vs_solo"] = {"rows": len(checks), "near_tie_rows": [
+        c for c in checks if not c["equal"]]}
+    rec = {"phase": "serve_cluster", "nvidia_smi": smi, "replicas": 2,
+           "slots": SERVE_SLOTS, "segment": SERVE_SEGMENT,
+           "launches": launches, **out,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 def run_job(jobs, argv: list) -> tuple[int, list[dict]]:
     """A job through its entry point, its records captured and echoed:
     (exit code, records)."""
@@ -2421,6 +2689,10 @@ MULTI_STEPS = 5
 MULTI_POOLS = (("pool_tp2", {"tp": 2}), ("pool_dp2", {"dp": 2}))
 MULTI_POOL_REQS = ((16, 48), (200, 32), (64, 40), (33, 64), (128, 24),
                    (7, 56), (256, 32), (90, 40))
+# dist_multi's handoff case: that pool's prefill→decode handoff over tp 2,
+# and its request (prompt length, max_tokens): 32 whole pages hand off
+MULTI_HANDOFF = ("handoff_tp2", {"tp": 2})
+MULTI_HANDOFF_REQ = (520, 40)
 
 
 def pool_run(mesh: dict, compile_cache=None) -> dict:
@@ -2456,6 +2728,91 @@ def pool_run(mesh: dict, compile_cache=None) -> dict:
     return {"rows": rows, "segment_ms": statistics.median(times) * 1e3,
             "cfg": cfg, "model": model, "aot": eng.aot,
             "prompts": [len(pr) for _, pr, _, _, _ in entries]}
+
+
+def handoff_run(mesh: dict) -> dict:
+    """The prefill→decode handoff of ``MULTI_HANDOFF_REQ``'s prompt (its
+    whole pages) on ``pool_run``'s model over ``mesh``, every rank making
+    the engine calls: a ``PrefillWorker`` on the mesh exports the pages,
+    which rank 0 lands in a one-device pool and decodes over; then rank
+    0's one-device export lands in a fresh meshed pool (the other ranks
+    pass no payload), which decodes. Each decode's row, pages, prefix
+    hits and the export and import seconds. With ``mesh`` {} the row of a
+    cold decode, the model and the prompt's length (for the near-tie
+    rule)."""
+    import torch.distributed as dist
+
+    from kubeoperator_tpu_torch.cluster import PrefillWorker, aligned_prefix
+    from kubeoperator_tpu_torch.profile_lm import BENCH_LM
+    from kubeoperator_tpu_torch.workloads.decode_loop import SlotPoolEngine
+    from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    cfg = dataclasses.replace(BENCH_LM, n_layers=2)
+    with torch.device("cuda"):
+        model = Transformer(cfg).reset_parameters(4).eval()
+    n, mt = MULTI_HANDOFF_REQ
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                               n).tolist()
+
+    def engine(m: dict):
+        return SlotPoolEngine(cfg, model, slots=8, segment=8,
+                              mesh_spec=MeshSpec(**m), device="cuda")
+
+    def decode(eng) -> tuple[list[int], int]:
+        pos = eng.admit([(0, prompt, mt, 0.0, 0)])[0]
+        while pos < n + mt - 1:
+            eng.run_segment()
+            pos = min(pos + eng.segment, n + mt - 1)
+        buf, _ = eng.poll()
+        return buf[0][:n + mt].tolist(), eng.prefix_hits
+
+    if not mesh:
+        return {"row": decode(engine({}))[0], "cfg": cfg, "model": model,
+                "prompt_len": n}
+    lead = dist.get_rank() == 0
+    out: dict = {}
+    src = engine(mesh)
+    aligned = aligned_prefix(prompt, src.page)
+    t0 = time.perf_counter()
+    payload = PrefillWorker(src).prefill(aligned)
+    torch.cuda.synchronize()
+    out["export_s"] = time.perf_counter() - t0
+    if lead:
+        one = engine({})
+        out["export_pages"] = one.import_prefix(payload["tokens"],
+                                                payload["layers"])
+        out["export_row"], out["export_hits"] = decode(one)
+        layers = PrefillWorker(engine({})).prefill(aligned)["layers"]
+    else:
+        layers = None
+    del src, payload
+    dst = engine(mesh)
+    t0 = time.perf_counter()
+    out["import_pages"] = dst.import_prefix(aligned, layers)
+    torch.cuda.synchronize()
+    out["import_s"] = time.perf_counter() - t0
+    out["import_row"], out["import_hits"] = decode(dst)
+    out["pages"] = len(aligned) // dst.page
+    return out
+
+
+def handoff_check(got: dict) -> dict:
+    """``handoff_run``'s meshed rows against its one-device cold row, by
+    the near-tie rule of the solo decode's logits; each decode a prefix
+    hit over every page."""
+    one = handoff_run({})
+    rows = [near_tie(one["model"], i, got[k], one["row"], NEAR_TIE,
+                     lambda pre: decode_logits(one["cfg"], one["model"], pre,
+                                               one["prompt_len"]))
+            for i, k in enumerate(("export_row", "import_row"))]
+    ok = (got["export_pages"] == got["import_pages"] == got["pages"]
+          and got["export_hits"] == got["import_hits"] == 1)
+    return {"ok": ok, "rows": rows, "pages": got["pages"],
+            "export_pages": got["export_pages"],
+            "import_pages": got["import_pages"],
+            "prefix_hits": [got["export_hits"], got["import_hits"]],
+            "export_s": got["export_s"], "import_s": got["import_s"]}
 
 
 def trainer_run(model: str, mesh: dict, steps: int = MULTI_STEPS) -> dict:
@@ -2519,6 +2876,7 @@ def dist_multi_rank(rank: int, world: int, out: str, cases: tuple) -> None:
         got = pool_run(mesh)
         results[name] = {"rows": got["rows"],
                          "segment_ms": got["segment_ms"]}
+    results[MULTI_HANDOFF[0]] = handoff_run(MULTI_HANDOFF[1])
     for name, argv in cases:
         fa.reset_launches()
         buf = io.StringIO()
@@ -2691,6 +3049,7 @@ def dist_multi_phase(smi: str) -> dict:
                         "segment_ms": got["segment_ms"],
                         "one_rank_segment_ms": one_pool["segment_ms"]}
     del one_pool
+    checks[MULTI_HANDOFF[0]] = handoff_check(res[MULTI_HANDOFF[0]])
     rc, resumed = run_job(jobs, ["llm", *MULTI_LM, "--ckpt-dir", str(ckpt)])
     third = [r["loss"] for r in resumed if "loss" in r]
     checks["llm_ckpt_dp2"] = {
@@ -2898,13 +3257,65 @@ def benches_alone() -> dict:
     from kubeoperator_tpu_torch.profile_lm import BENCH_LM
     from kubeoperator_tpu_torch.workloads.transformer import Transformer
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     with torch.device("cuda"):
         model = Transformer(BENCH_LM).reset_parameters(0).eval()
     return benches_phase(BENCH_LM, model, smi)
+
+
+def handoff_rank(rank: int, world: int, out: str) -> None:
+    """One NCCL rank of ``handoff_alone``: ``MULTI_HANDOFF``'s case."""
+    got = handoff_run(MULTI_HANDOFF[1])
+    if rank == 0:
+        Path(out, "handoff.json").write_text(json.dumps(got))
+
+
+def handoff_alone() -> dict:
+    """``dist_multi``'s handoff case by itself on two NCCL ranks (no
+    kernel is built: the pool launches none): ``python3 -c "import
+    chip_smoke as c; c.handoff_alone()"`` on a machine with two or more
+    cards."""
+    from kubeoperator_tpu_torch.train import launch
+
+    out = ROOT / "build" / "handoff_alone"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launch.spawn(handoff_rank, 2, (str(out),), backend="nccl",
+                 store=str(out / "store"), timeout_s=300.0, deadline_s=600.0)
+    rec = {"phase": "handoff_alone", "nvidia_smi": nvidia_smi(),
+           "seconds": time.perf_counter() - t0,
+           MULTI_HANDOFF[0]: handoff_check(json.loads(
+               (out / "handoff.json").read_text()))}
+    emit(rec)
+    if not rec[MULTI_HANDOFF[0]]["ok"]:
+        raise AssertionError(f"handoff_alone: {rec}")
+    return rec
+
+
+def serve_cluster_alone() -> dict:
+    """Phases (a) and (h) by themselves, on the bench LM seeded from 0
+    (no kernel is built: serving launches none): ``python3 -c "import
+    chip_smoke as c; c.serve_cluster_alone()"``."""
+    from kubeoperator_tpu_torch.profile_lm import BENCH_LM
+    from kubeoperator_tpu_torch.workloads.train import peak_hbm_bytes_per_chip
+    from kubeoperator_tpu_torch.workloads.transformer import Transformer
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    with torch.device("cuda"):
+        model = Transformer(BENCH_LM).reset_parameters(0).eval()
+    base, _ = serve_engine_phase(BENCH_LM, model, smi,
+                                 peak_hbm_bytes_per_chip())
+    return serve_cluster_phase(BENCH_LM, model, smi, base)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def bench_phase(smi: str, resnet_ms: float, conv_launches,
@@ -2996,9 +3407,7 @@ def main() -> int:
     from kubeoperator_tpu_torch.workloads.train import (
         peak_flops_per_chip, peak_hbm_bytes_per_chip)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
@@ -3144,6 +3553,7 @@ def main() -> int:
         serve_spill_phase(cfg, model, smi, kv)
     serve_moe_phase(moe_cfg, smi)
     serve_http_phase(cfg, jobs, smi)
+    serve_cluster_phase(cfg, model, smi, bf16_serve)
     emit({"phase": "serve_total", "seconds": time.perf_counter() - serve_t0})
 
     # -- 5c. the one-device jobs: smoke, mnist, /metrics, checkpoints -------

@@ -1,1 +1,3 @@
-"""Telemetry of the PyTorch port: the serving-plane metric families."""
+"""Telemetry of the PyTorch port: the metric families (``metrics``), serve
+request span trees (``tracing``, ``serve_trace``) and the gateway's
+flight recorder (``flight``)."""

@@ -5,8 +5,12 @@ process-wide ``REGISTRY``, the ``ko_serve_*`` vocabulary and the
 ``ko_train_*`` one with ``record_train_step``), copied so the port imports
 nothing of the JAX package. The families, names, labels and exposition
 format are the reference's, so one ``/metrics`` scrape reads the same on
-both. The control-plane families the reference declares on its
-``REGISTRY`` are not part of the workload layer and are not copied.
+both. The cluster tier's ``ko_gateway_*`` families and the QoS ones
+(``ko_serve_shed_total``, ``ko_serve_preemptions_total``), which
+``cluster/gateway.py`` sets on the process ``REGISTRY``, are the
+reference's too. The control-plane families the reference declares on
+its ``REGISTRY`` (SLOs, scenarios, the autoscaler, rollouts) are not part
+of the workload layer and are not copied.
 
 Design points:
 
@@ -539,6 +543,55 @@ def record_aot_event(fn: str, *, hit: bool, seconds: float,
     (fams["hits"] if hit else fams["misses"]).inc(fn=fn)
     fams["bringup"].observe(float(seconds), fn=fn,
                             outcome="hit" if hit else "miss")
+
+
+# -- cluster gateway families (cluster/gateway.py) --------------------------
+# Set by the ServeGateway fronting N batcher replicas: routing decisions,
+# prefix-affinity quality and disaggregated page handoffs, on the
+# process-global REGISTRY so one scrape covers the whole cluster tier.
+GATEWAY_ROUTED = REGISTRY.counter(
+    "ko_gateway_requests_routed_total",
+    "Requests the cluster gateway routed, by target replica and routing "
+    "decision (sticky | spill | requeue | round_robin | least_loaded).",
+    labels=("replica", "policy"))
+GATEWAY_AFFINITY = REGISTRY.gauge(
+    "ko_gateway_prefix_affinity_ratio",
+    "Fraction of sticky-eligible requests that landed on their hashed "
+    "prefix's home replica (spill-over and drains erode it).")
+GATEWAY_HANDOFF_PAGES = REGISTRY.counter(
+    "ko_gateway_handoff_pages_total",
+    "Whole KV pages shipped from disaggregated prefill workers into "
+    "decode replicas' prefix caches as block-table page lists.")
+# A gateway dequeue is sub-ms on an idle cost model but stretches to
+# many seconds for batch-class work parked behind full replicas; start
+# finer than DEFAULT_BUCKETS and keep its tail.
+GATEWAY_WAIT_BUCKETS: tuple[float, ...] = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 15.0, 60.0)
+GATEWAY_QUEUE_WAIT = REGISTRY.histogram(
+    "ko_gateway_queue_wait_seconds",
+    "Time one request spent in the gateway tier before dispatch to a "
+    "replica (QoS admission + weighted-fair queue wait, measured at "
+    "dispatch), by tenant.",
+    labels=("tenant",), buckets=GATEWAY_WAIT_BUCKETS)
+
+# -- multi-tenant QoS families (cluster/gateway.py) -------------------------
+# Set by the gateway's tenant admission and preemption paths, on the
+# process-global REGISTRY like the other gateway families.
+SERVE_SHED = REGISTRY.counter(
+    "ko_serve_shed_total",
+    "Requests deliberately rejected by the gateway's QoS admission, by "
+    "tenant and reason (rate = over the tenant's token bucket at cluster "
+    "saturation, deadline = the required backoff exceeds the request's "
+    "deadline, expired = the request out-waited its deadline queued). "
+    "Every shed carries a retry_after_s hint.",
+    labels=("tenant", "reason"))
+SERVE_PREEMPTIONS = REGISTRY.counter(
+    "ko_serve_preemptions_total",
+    "Batch-class in-flight requests evicted mid-decode so a latency-class "
+    "request could take the slot, by victim tenant (victims requeue and "
+    "re-prefill with bit-identical replies).",
+    labels=("tenant",))
 
 
 # declared at import, as the reference does, so a scrape of the process

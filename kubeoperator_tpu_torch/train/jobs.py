@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -446,6 +447,10 @@ def build_server(args: argparse.Namespace):
     -> ``{"tokens": [...], "new_tokens": [...]}``; a bad body answers 400,
     a timeout 503 and an engine failure 500.
 
+    The continuous engine's batcher traces every request into the
+    process ring ``telemetry.serve_trace.SERVE_TRACES`` (span cap
+    ``KO_TRACE_MAX_SPANS``, default 4,000); no route serves the ring.
+
     ``--mesh`` (``--engine continuous`` only) serves from the ranks of a
     ``torchrun`` group: every rank builds the model and the engine over
     the mesh; rank 0 drives it through an ``EngineLeader`` and serves
@@ -534,7 +539,16 @@ def build_server(args: argparse.Namespace):
                 follow(engine)
                 return None, None
             engine = EngineLeader(engine)
-        batcher = ContinuousBatcher(engine, stats=stats)
+        # per-request span trees into the process ring, as the reference's
+        # serve job wires them; the span cap is the reference's config key
+        # trace_max_spans, read from KO_TRACE_MAX_SPANS alone (the
+        # reference also layers a KO_CONFIG YAML file under the
+        # environment; the port reads no YAML)
+        from kubeoperator_tpu_torch.telemetry.serve_trace import ServeTracer
+
+        tracer = ServeTracer(max_spans=int(os.environ.get(
+            "KO_TRACE_MAX_SPANS", 4000)))
+        batcher = ContinuousBatcher(engine, stats=stats, tracer=tracer)
         emit({"job": "serve", "engine": "continuous", "slots": args.slots,
               "segment": args.segment, "page": engine.page,
               "pages": engine.pages, "kv_dtype": engine.kv_dtype,

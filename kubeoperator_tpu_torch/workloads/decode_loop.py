@@ -130,20 +130,21 @@ inside a forward pass stay within a shard; only ``poll``,
 dp, so every rank returns every slot. One process serves: rank 0 holds
 an ``EngineLeader``, which sends each call that touches the engine
 (admit, run_segment, poll, poll_spec, release, expert_load,
-debug_logits) to the other ranks, over a gloo control group, before it
-runs it itself; they run ``follow(engine)``, making the same calls until
-the leader's ``stop()``. The allocator's read-only accounting
-(``pages_for``, ``free_pages``, …) needs no message: every rank holds
-the same. Greedy rows on a mesh equal the one-device pool's.
+debug_logits, export_prefix, import_prefix) to the other ranks, over a
+gloo control group, before it runs it itself; they run
+``follow(engine)``, making the same calls until the leader's ``stop()``.
+The handoff's pages never ride the control group: ``export_prefix``
+gathers the slot's row's head slices to rank 0, and ``import_prefix``
+broadcasts rank 0's payload, as device tensors of the world's group
+(NCCL on the cards), each rank of the target row landing its heads.
+The allocator's read-only accounting (``pages_for``, ``free_pages``, …)
+needs no message: every rank holds the same. Greedy rows on a mesh
+equal the one-device pool's.
 
 ``compile_cache`` (an ``aot.CompileCache``) is consulted at
 construction, as the reference's engine consults its segment executable:
 the pool launches no port kernel, so the result (``engine.aot``) says
 ``source`` "none" and nothing is built or written.
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP queue 1
-item): the handoff (``export_prefix``/``import_prefix``) under a mesh
-[20].
 """
 
 from __future__ import annotations
@@ -1428,31 +1429,88 @@ class SlotPoolEngine:
                     sh.cache_ref[pg] = sh.cache_ref.get(pg, 0) + 1
 
     # -- prefill→decode handoff, engine half ----------------------------------
-    def _refuse_mesh(self, what: str) -> None:
-        if self.spec is not None:
-            raise NotImplementedError(
-                f"{what} under a serving mesh: the handoff's caller, the "
-                f"batcher's handoff lever, is not ported yet (ROADMAP "
-                f"queue 1, item 20)")
+    def _row_ranks(self, shard: int) -> list[int]:
+        """The global ranks of dp shard ``shard``'s row in tp order (its
+        first ep rank's: the ep ranks of a row hold the same KV)."""
+        names = self.mesh.mesh_dim_names
+        at = tuple(shard if a == "dp" else slice(None) if a == "tp" else 0
+                   for a in names)
+        return [int(r) for r in self.mesh.mesh[at].reshape(-1).tolist()]
+
+    def _heads(self) -> slice:
+        """This rank's heads of the pool: [t·H/tp, (t+1)·H/tp)."""
+        h = self.cfg.n_heads // (self.spec.tp if self.spec else 1)
+        t = sharding.axis_index(self.mesh, "tp")
+        return slice(t * h, (t + 1) * h)
+
+    def check_payload(self, tokens: Sequence[int], layers: Any) -> None:
+        """Raise, before any page moves, for a handoff payload this engine
+        cannot import: a prefix that is not a non-empty multiple of the
+        page, or a payload that is missing or whose layer count is not
+        the model's. On a meshed rank other than 0 only the tokens are
+        checked: rank 0's payload is the one landed."""
+        if not tokens or len(tokens) % self.page:
+            raise ValueError(
+                f"imported prefix must be a non-empty multiple of the "
+                f"page size ({self.page}), got {len(tokens)} tokens")
+        if self.spec is not None and dist.get_rank() != 0:
+            return
+        if layers is None:
+            raise ValueError("handoff payload is None: no pages to land")
+        if len(layers) != self.cfg.n_layers:
+            raise ValueError(
+                f"handoff payload has {len(layers)} layers, engine has "
+                f"{self.cfg.n_layers}")
 
     @torch.no_grad()
     def export_prefix(self, slot: int, n_pages: int
-                      ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+                      ) -> list[tuple[torch.Tensor, torch.Tensor]] | None:
         """Whole-page gather of ``slot``'s first ``n_pages`` KV pages, the
         prefill worker's half of a handoff. The caller guarantees the pages
         are final (the slot's position has passed ``n_pages * page``).
         Returns one ``(k_pages, v_pages)`` pair per layer, each ``[n,
-        page, H, D]`` in the model dtype: a quantized pool exports
-        dequantized pages, so any pool layout can import them."""
-        self._refuse_mesh("export_prefix")
+        page, H, D]`` with every head, in the model dtype and on the
+        engine's device: a quantized pool exports dequantized pages, so
+        any pool layout can import them.
+
+        Over a serving mesh every rank calls it (``EngineLeader`` sends
+        it as a command): the ranks of the slot's dp row gather their
+        head slices of its pages, every rank's block goes to rank 0 in one
+        ``gather`` of device tensors over the world, and rank 0 joins its
+        row's slices in tp order and returns the payload; the other ranks
+        return None."""
         pages = self._slot_pages.get(int(slot), [])
         if n_pages > len(pages):
             raise ValueError(
                 f"slot {slot} holds {len(pages)} pages, cannot export "
                 f"{n_pages}")
-        idx = torch.as_tensor(pages[:n_pages], device=self.device)
-        return [(self._gather_kv(kp, ks, idx), self._gather_kv(vp, vs, idx))
-                for kp, vp, ks, vs in map(self._split, self._pools)]
+        pages = pages[:n_pages]
+        shard = self._shard_of(slot)
+        if self.spec is None or self._owns(shard):
+            idx = torch.as_tensor(self._local_pages(pages),
+                                  device=self.device)
+            mine = [(self._gather_kv(kp, ks, idx),
+                     self._gather_kv(vp, vs, idx))
+                    for kp, vp, ks, vs in map(self._split, self._pools)]
+            if self.spec is None:
+                return mine
+            block = torch.stack([torch.stack(kv) for kv in mine])
+        else:
+            heads = self._heads()
+            h = heads.stop - heads.start
+            block = torch.zeros(
+                (self.cfg.n_layers, 2, n_pages, self.page, h,
+                 self.cfg.head_dim), dtype=self.cfg.dtype,
+                device=self.device)
+        lead = dist.get_rank() == 0
+        parts = ([torch.empty_like(block)
+                  for _ in range(dist.get_world_size())] if lead else None)
+        dist.gather(block, parts, dst=0)
+        if not lead:
+            return None
+        whole = torch.cat([parts[r] for r in self._row_ranks(shard)], dim=4)
+        return [(whole[li, 0], whole[li, 1])
+                for li in range(self.cfg.n_layers)]
 
     @torch.no_grad()
     def import_prefix(self, tokens: Sequence[int], layers: Any,
@@ -1465,34 +1523,47 @@ class SlotPoolEngine:
         quantized pool quantizes them on land). The entries start
         cache-only, i.e. evictable. Returns the pages newly imported (0
         when the cache already covers the prefix). Call from the thread
-        that drives admit/release."""
-        self._refuse_mesh("import_prefix")
+        that drives admit/release.
+
+        Over a serving mesh every rank calls it with the same tokens
+        (``EngineLeader`` sends it as a command carrying no payload):
+        rank 0's ``layers`` is broadcast as one device tensor over the
+        world, the ranks of dp shard ``shard``'s row land their heads of
+        it, and every rank publishes the same prefix entry, so the host
+        state stays the same on every rank. The other ranks' ``layers``
+        are not read (None will do)."""
         toks = [int(t) for t in tokens]
-        if not toks or len(toks) % self.page:
-            raise ValueError(
-                f"imported prefix must be a non-empty multiple of the "
-                f"page size ({self.page}), got {len(toks)} tokens")
+        meshed = self.spec is not None
+        self.check_payload(toks, layers)
         n = len(toks) // self.page
-        if len(layers) != self.cfg.n_layers:
-            raise ValueError(
-                f"handoff payload has {len(layers)} layers, engine has "
-                f"{self.cfg.n_layers}")
         sh = self._shards[shard]
         n_hit, _ = self._lookup_prefix(shard, toks)
         if n_hit >= n:
             return 0
         self._ensure_free(sh, n)
         pages = [sh.free.pop() for _ in range(n)]
-        dst = torch.as_tensor(pages, device=self.device)
-        src = torch.arange(n, device=self.device)
-        # K and V of every layer stacked where they are, then moved once each
         dt = self.cfg.dtype
-        k_all = torch.stack([lk for lk, _ in layers]).to(self.device, dt)
-        v_all = torch.stack([lv for _, lv in layers]).to(self.device, dt)
-        for li, entry in enumerate(self._pools):
-            kp, vp, ks, vs = self._split(entry)
-            self._page_copy(kp, dst, src, k_all[li], scale=ks)
-            self._page_copy(vp, dst, src, v_all[li], scale=vs)
+        if not meshed or dist.get_rank() == 0:
+            # every layer's K and V stacked where they are, moved once
+            whole = torch.stack([torch.stack([lk, lv]) for lk, lv in layers]
+                                ).to(self.device, dt)
+        else:
+            whole = torch.empty(
+                (self.cfg.n_layers, 2, n, self.page, self.cfg.n_heads,
+                 self.cfg.head_dim), dtype=dt, device=self.device)
+        if meshed:
+            dist.broadcast(whole, src=0)
+        if not meshed or self._owns(shard):
+            heads = self._heads() if meshed else slice(None)
+            dst = torch.as_tensor(self._local_pages(pages),
+                                  device=self.device)
+            src = torch.arange(n, device=self.device)
+            for li, entry in enumerate(self._pools):
+                kp, vp, ks, vs = self._split(entry)
+                self._page_copy(kp, dst, src, whole[li, 0, :, :, heads],
+                                scale=ks)
+                self._page_copy(vp, dst, src, whole[li, 1, :, :, heads],
+                                scale=vs)
         self._publish_prefix(sh, toks, pages)
         return n
 
@@ -1503,11 +1574,18 @@ class SlotPoolEngine:
 
 #: the engine calls the leader sends to every rank before running them
 ENGINE_COMMANDS = ("admit", "run_segment", "poll", "poll_spec", "release",
-                   "expert_load", "debug_logits")
+                   "expert_load", "debug_logits", "export_prefix",
+                   "import_prefix")
 
 # a follower waits for the leader's next command as long as the server
 # idles, so the control group's collectives must outlast any idle spell
 _CONTROL_TIMEOUT = timedelta(days=30)
+
+
+def _import_call(tokens, layers, shard: int = 0) -> dict:
+    """``import_prefix``'s arguments by name."""
+    return {"tokens": [int(t) for t in tokens], "layers": layers,
+            "shard": int(shard)}
 
 
 class EngineLeader:
@@ -1530,7 +1608,15 @@ class EngineLeader:
         with self._lock:
             if self._stopped:
                 raise RuntimeError("the serving mesh has stopped")
-            dist.broadcast_object_list([(name, args, kwargs)], src=0,
+            sent = args, kwargs
+            if name == "import_prefix":
+                # the command carries the tokens only: the payload moves
+                # inside the call, as a broadcast of device tensors. A bad
+                # payload raises here, before any rank is told
+                call = _import_call(*args, **kwargs)
+                self.engine.check_payload(call["tokens"], call["layers"])
+                sent = (call["tokens"], None), {"shard": call["shard"]}
+            dist.broadcast_object_list([(name, *sent)], src=0,
                                        group=self._group)
             return getattr(self.engine, name)(*args, **kwargs)
 

@@ -30,15 +30,19 @@ families live in a ``telemetry.metrics`` registry (private per batcher by
 default; the serve job passes its one registry so ``/metrics`` is one
 scrape).
 
-Left out of the reference's ``ContinuousBatcher`` (ROADMAP queue 1): the
-cluster tier's levers (``drain``, ``preempt``, ``preemptible``,
-``readmit``, ``inject``, ``handoff``, ``requeue_sink``, ``replica``), the
-request tracer, per-shard (dp mesh) accounting, and engines without page
-accounting. Only the paged engine exists in the port.
+The continuous batcher also carries the reference's request tracer
+(``tracer=``, ``telemetry/serve_trace.py``), per-shard accounting over a
+serving mesh's dp shards, and the cluster tier's levers (``drain``,
+``preempt``, ``preemptible``, ``free_slots``, ``backlog``, ``readmit``,
+``inject``, ``handoff``, ``requeue_sink``, ``replica``), which
+``cluster.ServeGateway`` and ``cluster.PrefillWorker`` drive. Only the
+paged engine exists in the port, so the reference's paths for engines
+without page accounting are left out.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -49,6 +53,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 
+from kubeoperator_tpu_torch.analysis.compile_guard import active_guard
 from kubeoperator_tpu_torch.telemetry import metrics as tm
 
 
@@ -89,6 +94,14 @@ def plan_bucket(lens: Sequence[int], max_tokens: Sequence[int],
     return p_bucket, new_bucket, _pow2_at_most(min(lens))
 
 
+#: process-wide admission order: ``time.monotonic`` ties on coarse
+#: clocks, so every requeue sort uses (submitted_at, seq) — two victims
+#: drained in the same tick re-route deterministically instead of in
+#: container order
+_SEQ = itertools.count()
+_SEQ_LOCK = threading.Lock()
+
+
 @dataclass
 class _Pending:
     prompt_ids: list[int]
@@ -98,8 +111,37 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     result: list[int] | None = None
     error: Exception | None = None
-    submitted_at: float = field(default_factory=time.monotonic)
+    submitted_at: float = -1.0
+    # request identity for serve traces; the trace handle is a
+    # telemetry.serve_trace.RequestTrace when the batcher (or the
+    # gateway) was built with a tracer, else None (tracing off)
     id: str = field(default_factory=lambda: short_id(12))
+    trace: Any = None
+    # multi-tenant QoS: identity and class stamped by the gateway's
+    # admission; the batcher treats them as labels, except that the
+    # gateway preempts only ``batch``-class victims
+    tenant: str = "default"
+    priority: str = "latency"
+    deadline_s: float | None = None
+    # the gateway's replica-group selector, carried so requeue victims
+    # re-route inside their own group; None = the single-group fleet
+    model: str | None = None
+    # first-token latency stamped by the worker at the TTFT observation,
+    # so the gateway can aggregate TTFT per tenant
+    ttft_s: float | None = None
+    seq: int = -1
+
+    def __post_init__(self) -> None:
+        # both stamps under one lock: independently evaluated field
+        # factories let two racing submits interleave the clock read and
+        # the counter bump, giving inverted (submitted_at, seq) pairs that
+        # make the requeue sort disagree with admission order
+        if self.seq < 0:
+            with _SEQ_LOCK:
+                stamp = time.monotonic()
+                if self.submitted_at < 0:
+                    self.submitted_at = stamp
+                self.seq = next(_SEQ)
 
 
 class BatcherStats:
@@ -204,12 +246,38 @@ class BatcherStats:
         for e, v in enumerate(loads):
             self._m["moe_expert_load"].set(float(v), expert=str(e))
 
+    def requeued(self, reason: str, n: int = 1) -> None:
+        """In-flight requests taken off drained or preempted slots and
+        pushed back to the queue head (or out through a gateway's sink)
+        instead of dropped, by reason (drain | preempt | ...)."""
+        self._m["requeued"].inc(n, reason=reason)
+
+    def dequeued(self, n: int = 1) -> None:
+        """Requests that left this batcher's queue without finishing here
+        (handed to a gateway's requeue sink for another replica): keeps
+        the queue-depth gauge honest across migrations (the receiving
+        batcher counts them again in ``enqueued``)."""
+        with self._lock:   # clamp at 0 needs read-modify-write
+            depth = self._m["queue_depth"].value()
+            self._m["queue_depth"].set(max(0.0, depth - n))
+
     def ttft_mean(self) -> float:
         """Mean observed time-to-first-token in seconds (0.0 before any
         observation)."""
         h = self._m["ttft"]
         n = h.count()
         return h.sum() / n if n else 0.0
+
+    def ttft_histogram(self) -> tuple[tuple[float, ...], list[int], int,
+                                      float]:
+        """(bucket bounds, per-bucket counts, count, sum) of the TTFT
+        histogram: what a cluster gateway merges to take quantiles across
+        replicas (a p95 of p95s is not a p95)."""
+        h = self._m["ttft"]
+        slot = h.samples().get(())
+        if not slot:
+            return h.buckets, [0] * len(h.buckets), 0, 0.0
+        return h.buckets, list(slot["counts"]), int(slot["count"]), h.sum()
 
     def ttft_quantile(self, q: float = 0.95) -> float | None:
         """Upper-bound quantile over the TTFT histogram buckets, the
@@ -397,9 +465,10 @@ class DynamicBatcher:
 class ContinuousBatcher:
     """Continuous (in-flight) batching over the paged slot-pool engine.
 
-    ``engine`` is duck-typed (``decode_loop.SlotPoolEngine``): attributes
-    ``slots`` / ``segment`` / ``max_total`` / ``max_request_pages`` /
-    ``pages`` / ``page``, and methods ``admit(entries) -> {slot: pos}``,
+    ``engine`` is duck-typed (``decode_loop.SlotPoolEngine``, or its
+    ``EngineLeader`` over a serving mesh): attributes ``slots`` /
+    ``segment`` / ``max_total`` / ``max_request_pages`` / ``pages`` /
+    ``page``, and methods ``admit(entries) -> {slot: pos}``,
     ``run_segment()``, ``poll() -> (buf [S, max_total], pos [S])``,
     ``release(slots)``, ``pages_for``, ``free_pages``,
     ``evictable_pages`` and ``pages_in_use``; optionally the counters
@@ -407,7 +476,10 @@ class ContinuousBatcher:
     ``spill_pages`` set, ``spill_pages_used``, which ``_report_pages``
     turns into the prefix-hit and spill-tier metrics; with ``spec_k > 0``,
     ``poll_spec() -> (pos [S], drafted, accepted)``; for an MoE config
-    (``cfg.moe_experts > 0``), ``expert_load()``.
+    (``cfg.moe_experts > 0``), ``expert_load()``; for ``handoff``,
+    ``import_prefix(tokens, layers, shard=)``; the plans of the last
+    admission wave (``last_plans``) and the compile cache's result
+    (``aot``) when the engine has them.
 
     The worker alternates: admit queued requests into free slots, dispatch
     ONE segment, retire finished slots from one batched fetch, idle when
@@ -432,18 +504,65 @@ class ContinuousBatcher:
     its own pool, so a request needs one shard with a free slot and the
     pages for it, and the occupancy, pages, spill and host-blocked
     gauges carry one ``shard=`` series each.
+
+    Request tracing: pass a ``telemetry.serve_trace.ServeTracer`` and
+    every request gets a span tree (enqueue → admit → prefill → segments
+    → retire) annotated from host values the worker already holds
+    (``engine.last_plans``, segment wall times, the retirement fetch).
+    Without a tracer every hook is one ``is None`` test, and either way
+    tracing reads nothing from the device.
+
+    The cluster tier's levers, the reference's, each applied by the
+    worker between steps through a control handshake, so ``_track`` and
+    the engine keep one writer:
+
+    * ``drain(shards)`` takes every in-flight request off the named dp
+      shards (the prompt, position and page reservation are host
+      state), requeues them at the **head** of the queue in submission
+      order, and fences the shards' slots off admission; ``readmit``
+      hands them back. A requeued request re-prefills from scratch
+      wherever it admits next: greedy decode is deterministic and
+      sampling is keyed by (seed, position), so its tokens are those of
+      an undisturbed run.
+    * ``preempt(slots)`` is ``drain`` narrowed to slots, with no fence;
+      ``preemptible``, ``free_slots`` and ``backlog`` are the gateway's
+      lock-free read-outs.
+    * With a ``requeue_sink`` (a ``cluster.ServeGateway`` wires one)
+      victims leave through the sink oldest first instead, and once a
+      drain newly covers every shard the stranded queue leaves with them,
+      exactly once. ``inject`` is the other end: pre-built requests enter
+      the queue unvalidated, their ``done`` events still reaching their
+      callers.
+    * ``handoff`` lands a prefill worker's pages (``engine.import_
+      prefix``) on the worker thread; ``replica`` stamps this batcher's
+      identity onto every admit span.
+
+    One difference from the reference: retired requests are counted and
+    woken after their pages are released and the gauges reported, so a
+    caller that reads the stats after its reply sees them.
     """
 
-    def __init__(self, engine: Any, *, stats: BatcherStats | None = None):
+    def __init__(self, engine: Any, *, stats: BatcherStats | None = None,
+                 tracer: Any = None,
+                 requeue_sink: Callable[[list[_Pending]], None] | None = None,
+                 replica: int | str | None = None):
         self.engine = engine
         self.stats = stats if stats is not None else BatcherStats()
+        self._tracer = tracer
+        self.requeue_sink = requeue_sink
+        self.replica = replica
         # dispatch→ready attribution: when the retirement fetch returns,
         # the segment dispatched at _dispatch_t0 is known device-complete
         self._dispatch_t0: float | None = None
+        self._compiles_seen = 0
+        self._aot_noted = False
+        self._traced_seen = False       # a gateway-traced request arrived
         self._cond = threading.Condition()
         self._queue: deque[_Pending] = deque()
         self._track: dict[int, dict] = {}       # slot -> in-flight state
         self._free = list(range(engine.slots))
+        self._ctl: deque = deque()              # handshakes (worker-applied)
+        self._drained: set[int] = set()         # dp shards fenced off admission
         # slot s lives on dp shard s // (slots/dp): the engine shards the
         # slot axis over dp in contiguous blocks, so occupancy is reported
         # per shard without device reads
@@ -474,8 +593,8 @@ class ContinuousBatcher:
         need = self.engine.pages_for(len(prompt_ids), max_tokens)
         if need > self.engine.max_request_pages:
             raise ValueError(
-                f"request needs {need} KV pages but the pool only has "
-                f"{self.engine.max_request_pages} allocatable "
+                f"request needs {need} KV pages but one dp shard only "
+                f"has {self.engine.max_request_pages} allocatable "
                 f"(pages={self.engine.pages}, page={self.engine.page}): "
                 f"it could never be admitted")
         req = _Pending(list(prompt_ids), int(max_tokens), float(temperature),
@@ -487,6 +606,10 @@ class ContinuousBatcher:
             req.result = list(req.prompt_ids)
             self.stats.finished(req, ok=True)
             return req.result
+        if self._tracer is not None:
+            req.trace = self._tracer.begin(
+                req.id, prompt_len=len(req.prompt_ids),
+                max_tokens=req.max_tokens)
         with self._cond:
             self._queue.append(req)
             self._cond.notify()
@@ -557,29 +680,281 @@ class ContinuousBatcher:
         while True:
             with self._cond:
                 while True:
+                    if self._ctl:
+                        self._apply_ctl_locked()
                     admit_now = self._admit_wave_locked()
                     if admit_now or self._track:
                         break
-                    self._cond.wait()     # idle: the pool is drained
+                    # idle: the pool is drained, or every admittable shard
+                    # is fenced off while requests wait for readmit()
+                    self._cond.wait()
             try:
                 self._step(admit_now)
             except Exception as e:  # noqa: BLE001 — engine boundary
                 self._fail_all(admit_now, e)
 
+    def _evict_locked(self, victims: list[int], reason: str
+                      ) -> list[_Pending]:
+        """Take the in-flight requests off ``victims`` (slots): count
+        them, open their hop spans, and release their pages (best effort:
+        a revoked shard may not answer; the next step judges it)."""
+        reqs = [self._track.pop(s)["req"] for s in victims]
+        for r in reqs:
+            self.stats.requeued(reason)
+            if r.trace is not None:
+                # the hop span stays open until the victim's NEXT
+                # admission — same trace id, same tree
+                r.trace.hop_begin(reason=reason, from_replica=self.replica)
+        if victims:
+            try:
+                self.engine.release(victims)
+            except Exception:  # noqa: BLE001 — judged at the next step
+                pass
+        return reqs
+
+    def _requeue_locked(self, reqs: list[_Pending]) -> None:
+        """Victims in submission order: out through the sink, or back to
+        this queue's head, oldest first."""
+        reqs.sort(key=lambda r: (r.submitted_at, r.seq))
+        sink = self.requeue_sink
+        if sink is not None and reqs:
+            self.stats.dequeued(len(reqs))
+            # the gateway's sink takes its own lock, never this _cond
+            sink(reqs)
+        else:
+            # appendleft newest-first so the head ends up oldest-first
+            for r in reversed(reqs):
+                self._queue.appendleft(r)
+
+    def _apply_ctl_locked(self) -> None:
+        """Service pending control handshakes (worker thread, lock held).
+
+        ``drain``: take every in-flight request off the drained shards,
+        release their page reservations, and fence the shards' slots out
+        of the free list. Without a ``requeue_sink`` the victims go back
+        to this queue's head in submission order; with one (the cluster
+        gateway) they leave oldest-first through the sink to be re-routed
+        — and once EVERY shard is fenced the stranded queue goes with
+        them, because nothing left here could ever admit it.
+
+        ``preempt``: the drain narrowed to slots, fencing nothing: the
+        freed slots go straight back to admission.
+
+        ``handoff``: import a prefill worker's finished KV pages into the
+        engine's prefix cache on the worker thread, preserving the
+        engine's single-writer protocol."""
+        while self._ctl:
+            op, args, ev, out = self._ctl.popleft()
+            if op == "handoff":
+                tokens, layers, shard = args
+                try:
+                    out["pages"] = int(self.engine.import_prefix(
+                        tokens, layers, shard=shard))
+                except Exception as e:  # noqa: BLE001 — judged by caller
+                    out["error"] = e
+                ev.set()
+                continue
+            if op == "preempt":
+                slot_set, reason = args
+                victims = sorted(s for s in self._track if s in slot_set)
+                reqs = self._evict_locked(victims, reason)
+                self._free.extend(s for s in victims
+                                  if s // self._shard_slots
+                                  not in self._drained)
+                self._requeue_locked(reqs)
+                out["requeued"] = [r.id for r in reqs]
+                self._report_occupancy()
+                ev.set()
+                continue
+            shard_set, reason = args
+            victims = sorted(s for s in self._track
+                             if s // self._shard_slots in shard_set)
+            reqs = self._evict_locked(victims, reason)
+            self._free = [s for s in self._free
+                          if s // self._shard_slots not in shard_set]
+            # the stranded queue leaves through the sink exactly once:
+            # when this drain NEWLY completes full-shard coverage. A
+            # re-drain of already-fenced shards finds covered_before True
+            # and must not ship the queue again — its contents were
+            # either requeued already or submitted after the fence and
+            # belong to the next readmit.
+            covered_before = len(self._drained) == self._dp
+            self._drained |= shard_set
+            if self.requeue_sink is not None and not covered_before \
+                    and len(self._drained) == self._dp:
+                reqs += list(self._queue)
+                self._queue.clear()
+            self._requeue_locked(reqs)
+            out["requeued"] = [r.id for r in reqs]
+            self._report_occupancy()
+            ev.set()
+
+    def _handshake(self, op: str, args: tuple, what: str,
+                   timeout: float | None) -> dict:
+        """Queue one control op for the worker and wait until it has
+        applied it; the op's results."""
+        ev = threading.Event()
+        out: dict = {}
+        with self._cond:
+            self._ctl.append((op, args, ev, out))
+            self._cond.notify()
+        if not ev.wait(timeout):
+            raise TimeoutError(f"{what} timed out waiting for the worker")
+        return out
+
+    def drain(self, shards, reason: str = "drain",
+              timeout: float | None = 60.0) -> list[str]:
+        """Fence the given dp shards off from admission and requeue their
+        in-flight requests (head of the queue, submission order) instead
+        of dropping them. Blocks until the worker has applied the drain;
+        returns the requeued request ids. Safe to call for shards with no
+        in-flight work (the fence still applies)."""
+        shard_set = {int(s) for s in shards}
+        bad = [s for s in shard_set if not 0 <= s < self._dp]
+        if bad:
+            raise ValueError(f"unknown dp shards {sorted(bad)} "
+                             f"(engine has {self._dp})")
+        return self._handshake("drain", (shard_set, reason), "drain",
+                               timeout)["requeued"]
+
+    def preempt(self, slots, reason: str = "preempt",
+                timeout: float | None = 60.0) -> list[str]:
+        """Evict the in-flight requests holding the given slots — the
+        drain protocol narrowed from per-shard to per-slot. Victims
+        requeue exactly like drained ones (queue head, or out through the
+        gateway sink) and re-prefill from scratch wherever they admit
+        next, so greedy tokens stay those of an undisturbed run. Unlike
+        ``drain`` there is NO shard fence: the freed slots return to the
+        admission pool at once. Slots with no in-flight request are
+        ignored. Returns the requeued ids."""
+        slot_set = {int(s) for s in slots}
+        bad = [s for s in slot_set if not 0 <= s < self.engine.slots]
+        if bad:
+            raise ValueError(f"unknown slots {sorted(bad)} "
+                             f"(engine has {self.engine.slots})")
+        return self._handshake("preempt", (slot_set, reason), "preempt",
+                               timeout)["requeued"]
+
+    def preemptible(self, priority: str = "batch") -> list[tuple[int, Any]]:
+        """(slot, request) pairs of the in-flight requests of the given
+        priority class, newest admission first — the gateway's victim
+        list when a latency-class request finds no free slot (the newest
+        victim has the least decode progress to throw away)."""
+        with self._cond:
+            rows = [(s, t["req"]) for s, t in self._track.items()
+                    if t["req"].priority == priority]
+        rows.sort(key=lambda x: (x[1].submitted_at, x[1].seq), reverse=True)
+        return rows
+
+    def free_slots(self) -> int:
+        """Admittable slot count — the gateway's preemption trigger. A
+        lock-free read of one container length: a heuristic, not a
+        barrier, like ``backlog``."""
+        return len(self._free)
+
+    def backlog(self) -> int:
+        """Queued + in-flight request count — the admission pressure the
+        cluster gateway's router balances on. Lock-free reads of two
+        container lengths: a heuristic, not a barrier."""
+        return len(self._queue) + len(self._track)
+
+    def inject(self, reqs: list[_Pending], front: bool = True) -> None:
+        """Enqueue pre-built requests (the gateway's requeue path). The
+        requests were validated by their original ``submit`` and their
+        ``done`` events still reach the original callers. ``front`` keeps
+        drained victims ahead of this replica's own arrivals (they are the
+        oldest requests in the cluster)."""
+        if not reqs:
+            return
+        for _ in reqs:
+            self.stats.enqueued()
+        with self._cond:
+            if front:
+                # appendleft newest-first so the head ends up oldest-first
+                for r in sorted(reqs, key=lambda r: (r.submitted_at, r.seq),
+                                reverse=True):
+                    self._queue.appendleft(r)
+            else:
+                self._queue.extend(sorted(
+                    reqs, key=lambda r: (r.submitted_at, r.seq)))
+            self._cond.notify()
+
+    def handoff(self, tokens: Sequence[int], layers: Any = None,
+                shard: int = 0, timeout: float | None = 60.0) -> int:
+        """Import a disaggregated prefill worker's finished pages into
+        this replica's engine (``engine.import_prefix``) through the
+        control handshake, so the import runs on the worker thread between
+        steps. Returns the whole pages imported (0 when the prefix was
+        already cached)."""
+        out = self._handshake("handoff", (list(tokens), layers, int(shard)),
+                              "handoff", timeout)
+        if "error" in out:
+            raise out["error"]
+        return out["pages"]
+
+    def readmit(self, shards=None) -> list[int]:
+        """Hand drained shards' slots back to the admission pool (all
+        drained shards when ``shards`` is None). Returns the shard ids
+        re-opened. Requeued requests then re-admit in FIFO order."""
+        with self._cond:
+            shard_set = (set(self._drained) if shards is None
+                         else {int(s) for s in shards} & self._drained)
+            for shard in sorted(shard_set):
+                self._drained.discard(shard)
+                lo = shard * self._shard_slots
+                self._free.extend(range(lo, lo + self._shard_slots))
+            self._cond.notify()
+            return sorted(shard_set)
+
+    def _note_compiles(self) -> None:
+        """The compile cache's bring-up outcome (``engine.aot``), noted
+        once on the first in-flight traces, and compile events from the
+        compile-count guard active now, if any. The port's guard counts
+        nvcc builds of kernel libraries, and the pool builds none, so a
+        pool's traces carry no compile event."""
+        aot = getattr(self.engine, "aot", None)
+        if aot is not None and not self._aot_noted and self._track:
+            self._aot_noted = True
+            for t in self._track.values():
+                if t["req"].trace is not None:
+                    t["req"].trace.aot_event(hit=aot.hit,
+                                             seconds=aot.seconds)
+        guard = active_guard()
+        if guard is None:
+            return
+        n = guard.total()
+        if n > self._compiles_seen:
+            delta = n - self._compiles_seen
+            self._compiles_seen = n
+            for t in self._track.values():
+                if t["req"].trace is not None:
+                    t["req"].trace.compile_event(delta)
+
     def _step(self, admit_now: list[tuple[int, _Pending]]) -> None:
         now = time.monotonic
         if admit_now:
+            t_admit = now()
             pos_map = self.engine.admit(
                 [(slot, r.prompt_ids, r.max_tokens, r.temperature, r.seed)
                  for slot, r in admit_now])
+            admit_s = now() - t_admit
+            # the admission plans the engine built on the host (shard,
+            # pages, hit kind): a trace annotation is a dict lookup
+            plans = getattr(self.engine, "last_plans", None) or {}
             for slot, r in admit_now:
                 plen = len(r.prompt_ids)
                 t = {"req": r, "plen": plen, "pos": pos_map[slot],
                      "last": plen + r.max_tokens - 1, "ttft": False}
+                if r.trace is not None:
+                    self._traced_seen = True
+                    r.trace.admitted(slot=slot,
+                                     shard=slot // self._shard_slots,
+                                     wave_s=admit_s, plan=plans.get(slot),
+                                     replica=self.replica)
                 if t["pos"] >= plen:
                     # pow2-length prompt: its first token was born in the
                     # admission prefill itself
-                    self.stats.ttft(now() - r.submitted_at)
+                    self._first_token(r, now() - r.submitted_at)
                     t["ttft"] = True
                 self._track[slot] = t
             self._report_occupancy()
@@ -589,9 +964,15 @@ class ContinuousBatcher:
         if active:
             t0 = now()
             self.engine.run_segment()
-            self.stats.segment(now() - t0)
+            seg_s = now() - t0
+            self.stats.segment(seg_s)
             self.stats.executed(len(active))
             self._dispatch_t0 = t0
+            # gateway-minted traces ride requests injected into an
+            # untraced batcher; once one has been seen, compile events
+            # must reach those trees too
+            if self._tracer is not None or self._traced_seen:
+                self._note_compiles()
             k = self.engine.segment
             pos_vec = None
             if self._spec:
@@ -599,24 +980,32 @@ class ContinuousBatcher:
                 self.stats.spec_tokens(drafted, accepted)
             for s in active:
                 t = self._track[s]
+                r = t["req"]
+                prev = t["pos"]
                 t["pos"] = (min(int(pos_vec[s]), t["last"])
                             if pos_vec is not None
-                            else min(t["pos"] + k, t["last"]))
+                            else min(prev + k, t["last"]))
                 if not t["ttft"] and t["pos"] >= t["plen"]:
-                    self.stats.ttft(now() - t["req"].submitted_at)
+                    self._first_token(r, now() - r.submitted_at)
                     t["ttft"] = True
+                if r.trace is not None:
+                    r.trace.segment(seg_s, pos=prev, k=t["pos"] - prev,
+                                    shard=s // self._shard_slots)
 
         done = [s for s, t in self._track.items() if t["pos"] >= t["last"]]
         if done:
             t0 = now()
             buf, _ = self.engine.poll()         # ONE batched fetch
             poll_end = now()
+            blocked_s = poll_end - t0
             for shard in sorted({s // self._shard_slots for s in done}):
-                self.stats.host_blocked(poll_end - t0, shard=shard)
+                self.stats.host_blocked(blocked_s, shard=shard)
             # the fetch forces the last dispatch to device-complete, so
             # dispatch→fetch-return bounds its device time
-            if self._dispatch_t0 is not None:
-                self.stats.segment_device(poll_end - self._dispatch_t0)
+            device_s = (None if self._dispatch_t0 is None
+                        else poll_end - self._dispatch_t0)
+            if device_s is not None:
+                self.stats.segment_device(device_s)
             self._dispatch_t0 = None
             retired = []
             for s in done:
@@ -624,6 +1013,10 @@ class ContinuousBatcher:
                 r = t["req"]
                 r.result = [int(x)
                             for x in buf[s][:t["plen"] + r.max_tokens]]
+                if r.trace is not None:
+                    r.trace.retire(blocked_s=blocked_s, device_s=device_s,
+                                   shard=s // self._shard_slots,
+                                   tokens=r.max_tokens)
                 retired.append(r)
             # hand the retired slots' pages back BEFORE the slots are
             # offered for re-admission, and report before the clients wake,
@@ -639,6 +1032,12 @@ class ContinuousBatcher:
                 self.stats.finished(r, ok=True)
                 r.done.set()
 
+    def _first_token(self, r: _Pending, ttft_s: float) -> None:
+        r.ttft_s = ttft_s
+        self.stats.ttft(ttft_s)
+        if r.trace is not None:
+            r.trace.ttft(ttft_s)
+
     def _fail_all(self, admit_now: list[tuple[int, _Pending]],
                   err: Exception) -> None:
         """Engine-level failure: fail every in-flight request and reset
@@ -648,7 +1047,10 @@ class ContinuousBatcher:
             victims = [t["req"] for t in self._track.values()]
             victims += [r for _, r in admit_now if not r.done.is_set()]
             self._track.clear()
-            self._free = list(range(self.engine.slots))
+            # the reset pool keeps drained shards fenced: a revocation
+            # mid-step must not resurrect the dead shard's slots
+            self._free = [s for s in range(self.engine.slots)
+                          if s // self._shard_slots not in self._drained]
         try:
             # drop every slot's page reservation so the reset pool starts
             # from a consistent allocator (best-effort: the engine may be
@@ -659,6 +1061,8 @@ class ContinuousBatcher:
         for r in victims:
             if not r.done.is_set():
                 r.error = err
+                if r.trace is not None:
+                    r.trace.fail(err)
                 self.stats.finished(r, ok=False)
                 r.done.set()
         self._report_occupancy()

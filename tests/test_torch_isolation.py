@@ -70,10 +70,23 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "kubeoperator_tpu_torch/bench_multichip.py",
             "kubeoperator_tpu_torch/bench_serving.py",
             "kubeoperator_tpu_torch/dryrun.py",
+            "kubeoperator_tpu_torch/telemetry/tracing.py",
+            "kubeoperator_tpu_torch/telemetry/serve_trace.py",
+            "kubeoperator_tpu_torch/telemetry/flight.py",
+            "kubeoperator_tpu_torch/cluster/gateway.py",
+            "kubeoperator_tpu_torch/cluster/disagg.py",
             "chip_smoke.py"} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_imports_no_yaml():
+    """The card's machine has no PyYAML: no port module (nor
+    chip_smoke.py) imports ``yaml``; the serve job reads its span cap
+    from the environment instead of a config file."""
+    for path in port_files():
+        assert "yaml" not in _imported_roots(path), path.relative_to(ROOT)
 
 
 def test_scan_sees_a_forbidden_import(tmp_path):

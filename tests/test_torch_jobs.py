@@ -734,6 +734,29 @@ def test_serve_stats_are_on_the_process_registry(engine):
         assert batcher.counted.metrics(text)["ko_serve_requests_total"] == 1
 
 
+def test_serve_traces_each_request_into_the_process_ring(monkeypatch):
+    """As the reference's serve job does, the continuous engine's batcher
+    carries a ``ServeTracer`` writing to ``SERVE_TRACES``, its span cap
+    the reference's ``trace_max_spans`` (4,000; ``KO_TRACE_MAX_SPANS``
+    overrides it): a reply leaves a complete tree under its request."""
+    from kubeoperator_tpu_torch.telemetry.serve_trace import SERVE_TRACES
+
+    monkeypatch.setenv("KO_TRACE_MAX_SPANS", "64")
+    with serving("--engine", "continuous") as (url, batcher):
+        assert batcher._tracer.max_spans == 64
+        assert batcher._tracer.store is SERVE_TRACES
+        before = {r.name for r in SERVE_TRACES.records()}
+        assert call(url + "/generate", {"prompt_ids": [1, 2, 3],
+                                        "max_tokens": 4})[0] == 200
+        new = [r for r in SERVE_TRACES.records() if r.name not in before]
+        assert len(new) == 1 and new[0].dropped == 0
+        assert {"request", "enqueue", "admit", "prefill", "segment",
+                "retire"} <= {sp["name"] for sp in new[0].spans}
+    monkeypatch.delenv("KO_TRACE_MAX_SPANS")
+    with serving("--engine", "continuous") as (url, batcher):
+        assert batcher._tracer.max_spans == 4000
+
+
 def test_serve_answers_from_the_llm_jobs_checkpoint(capsys, tmp_path):
     """``serve --ckpt-dir`` over the llm job's checkpoint (2 steps at the
     serve widths): it announces the checkpoint's step, and a greedy

@@ -10,8 +10,10 @@ and spill tier of each dp shard against the JAX engine's host state
 after every wave. Then the host protocol:
 ``ContinuousBatcher`` on rank 0 over an ``EngineLeader`` with the other
 rank following, admitting across two shards with per-shard gauges, and
-the ``serve --mesh`` job over HTTP. ``validate_serve_mesh`` against the
-reference's accept and refuse."""
+the ``serve --mesh`` job over HTTP, and the prefill→decode handoff at dp
+2 and tp 2 in both directions (the JAX engine's tokens, every rank's
+host state alike). ``validate_serve_mesh`` against the reference's
+accept and refuse."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +34,7 @@ from test_torch_bridge import jax_params, port_cfg, port_model
 from test_torch_decode_loop import JCFG
 from test_torch_moe import JCFG as MOE_JCFG
 from torch_dist_cases import (
-    POOL_MIXED, POOL_MOE, POOL_SAMPLED, _drain, spawn_group,
+    HANDOFF_PROMPT, POOL_MIXED, POOL_MOE, POOL_SAMPLED, _drain, spawn_group,
 )
 
 torch.set_num_threads(2)
@@ -288,3 +290,40 @@ def test_admission_picks_a_shard_with_room():
     cb._free = [1, 3]
     cb._queue = deque([_Pending([1] * 20, 4, 0.0, 0)])     # 3 pages
     assert cb._admit_wave_locked() == [] and len(cb._queue) == 1
+
+
+@pytest.mark.parametrize("name", ["handoff_dp2", "handoff_tp2"])
+def test_meshed_handoff_both_ways(runs, name):
+    """The prefill→decode handoff over the pool at dp 2 (the slot on the
+    shard of rank 1) and at tp 2 (each rank half the heads): the mesh's
+    export is rank 0's whole payload (two pages of every head, the other
+    rank's None), which a one-device engine lands and decodes over; rank
+    0's one-device export lands in the mesh (once: the second import is a
+    no-op); and over an ``EngineLeader`` the ``PrefillWorker`` and the
+    batcher's ``handoff`` lever run unchanged, the control group carrying
+    no tensor. Every decode is a prefix hit with the JAX engine's greedy
+    tokens, and every rank ends with the same host state."""
+    params, ranks, _ = runs
+    got = ranks[name]
+    jeng = jdl.SlotPoolEngine(JCFG, jax.tree.map(jnp.asarray,
+                                                 params["dense"]),
+                              slots=4, segment=3, compile_cache=None)
+    want = _drain(jeng, [(0, HANDOFF_PROMPT, 6, 0.0, 0)])
+    head = got[0]
+    shape = (2, 8, JCFG.n_heads, JCFG.d_model // JCFG.n_heads)
+    assert head["export_payload"] == [(shape, shape, "torch.float32",
+                                       "cpu")] * JCFG.n_layers
+    assert got[1]["export_payload"] is None
+    assert (head["export_pages"], head["export_hits"]) == (2, 1)
+    assert head["export_rows"] == want
+    for r in got:
+        assert r["import_pages"] == [2, 0]
+        assert r["import_rows"] == want
+        assert r["import_state"]["counters"]["prefix_hits"] == 1
+        for key in ("export_state", "import_state", "decode_state"):
+            assert r[key] == head[key], key
+    assert head["leader_pages"] == 2
+    assert [head["leader_reply"]] == want
+    assert head["decode_state"]["counters"]["prefix_hits"] == 1
+    assert {"export_prefix", "import_prefix"} <= set(head["commands"])
+    assert head["command_tensors"] == 0

@@ -371,11 +371,20 @@ def test_train_metrics_render_like_jax():
     assert tm.TRAIN_STEP_BUCKETS == jm.TRAIN_STEP_BUCKETS
 
 
+GATEWAY_FAMILIES = ("ko_gateway_requests_routed_total",
+                    "ko_gateway_prefix_affinity_ratio",
+                    "ko_gateway_handoff_pages_total",
+                    "ko_gateway_queue_wait_seconds", "ko_serve_shed_total",
+                    "ko_serve_preemptions_total")
+
+
 def test_process_registry_holds_the_workload_vocabularies():
     """The port's ``REGISTRY`` declares the reference's workload families
     (``declare_serve_metrics``, ``declare_train_metrics`` and, since the
-    compile cache is ported, ``declare_aot_metrics``) from import, and
-    none of its control plane's."""
+    compile cache is ported, ``declare_aot_metrics``) from import, and,
+    since the cluster tier is ported, its six gateway and QoS families,
+    with the reference's help, type and labels; none of its control
+    plane's."""
     from kubeoperator_tpu.telemetry import metrics as jm
     from kubeoperator_tpu_torch.telemetry import metrics as tm
 
@@ -383,9 +392,13 @@ def test_process_registry_holds_the_workload_vocabularies():
     jm.declare_serve_metrics(ref)
     jm.declare_train_metrics(ref)
     jm.declare_aot_metrics(ref)
-    assert tm.REGISTRY.names() == ref.names()
-    assert set(ref.names()) <= set(jm.REGISTRY.names())
+    assert tm.REGISTRY.names() == list(GATEWAY_FAMILIES) + ref.names()
+    assert set(tm.REGISTRY.names()) <= set(jm.REGISTRY.names())
     assert len(ref.names()) == 28
+    for name in GATEWAY_FAMILIES:
+        got, want = (r.get(name) for r in (tm.REGISTRY, jm.REGISTRY))
+        assert (got.type, got.help, got.labels) == (want.type, want.help,
+                                                    want.labels)
 
 
 def test_dynamic_batcher_counts_a_batch_once_when_its_rows_fail():

@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -538,6 +539,194 @@ def _serve_job(*flags):
     return case
 
 
+# the handoff cases' prompt: two whole pages (page 8) and a tail
+HANDOFF_PROMPT = SPILL_PRE + [11, 12]
+
+
+def pool_host_state(eng) -> dict:
+    """An engine's host state: counters, each shard's page accounting and
+    prefix-cache entries (their tokens and pages), the block tables."""
+    return {"counters": {k: int(getattr(eng, k)) for k in SPILL_COUNTERS},
+            "shards": [(eng.free_pages(i), eng.evictable_pages(i),
+                        eng.pages_in_use(i),
+                        sorted(eng._shards[i].prefix.values()))
+                       for i in range(eng.dp)],
+            "bt": [list(map(int, r)) for r in eng._bt_np]}
+
+
+def _handoff(spec: MeshSpec, shard: int):
+    """The prefill→decode handoff over the pool at ``spec``, the slot on
+    dp shard ``shard``: (1) a ``PrefillWorker`` on the mesh (every rank
+    calling it) exports the prompt's two pages, which rank 0 lands in a
+    one-device engine and decodes over; (2) rank 0's one-device export is
+    imported into the mesh (the other ranks pass no payload) and decoded
+    there, the import repeated (a no-op); (3) over an ``EngineLeader``,
+    the worker exports from one meshed engine and the batcher's
+    ``handoff`` lands the pages in another, which then serves the prompt
+    (the batcher's other shards drained, so it admits on ``shard``). The
+    rows, pages and every rank's host state."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.cluster import PrefillWorker
+        from kubeoperator_tpu_torch.workloads import decode_loop as tdl
+        from kubeoperator_tpu_torch.workloads.serving import (
+            ContinuousBatcher,
+        )
+
+        cfg, model = _pool_model(inputs, "dense")
+
+        def engine(meshed=True):
+            return tdl.SlotPoolEngine(cfg, model, slots=4, segment=3,
+                                      mesh_spec=spec if meshed else None,
+                                      device="cpu")
+
+        slot = shard * (4 // spec.dp) + (spec.dp == 1)
+        entry = [(slot, HANDOFF_PROMPT, 6, 0.0, 0)]
+        out = {}
+        mesh = engine()
+        payload = PrefillWorker(mesh, slot=slot).prefill(SPILL_PRE)
+        out["export_state"] = pool_host_state(mesh)
+        if rank == 0:
+            one = engine(meshed=False)
+            out["export_payload"] = [(tuple(k.shape), tuple(v.shape),
+                                      str(k.dtype), k.device.type)
+                                     for k, v in payload["layers"]]
+            out["export_pages"] = one.import_prefix(payload["tokens"],
+                                                    payload["layers"])
+            out["export_rows"] = _drain(one, [(0, HANDOFF_PROMPT, 6, 0.0,
+                                               0)])
+            out["export_hits"] = one.prefix_hits
+        else:
+            out["export_payload"] = payload["layers"]
+        src = PrefillWorker(engine(meshed=False)).prefill(SPILL_PRE)
+        layers = src["layers"] if rank == 0 else None
+        mesh = engine()
+        out["import_pages"] = [mesh.import_prefix(src["tokens"], layers,
+                                                  shard=shard)
+                               for _ in range(2)]
+        out["import_rows"] = _drain(mesh, entry)
+        out["import_state"] = pool_host_state(mesh)
+        prefill, decode = engine(), engine()
+        if rank:
+            tdl.follow(prefill)
+            tdl.follow(decode)
+            out["decode_state"] = pool_host_state(decode)
+            return out
+        # what the control group carries: every command object the leader
+        # broadcasts, searched for tensors
+        sent, broadcast = [], tdl.dist.broadcast_object_list
+
+        def spy(objs, *a, **kw):
+            sent.extend(objs)
+            return broadcast(objs, *a, **kw)
+
+        tdl.dist.broadcast_object_list = spy
+        try:
+            lead = tdl.EngineLeader(prefill)
+            shipped = PrefillWorker(lead, slot=slot).prefill(SPILL_PRE)
+            lead.stop()
+            lead = tdl.EngineLeader(decode)
+            cb = ContinuousBatcher(lead)
+            out["leader_pages"] = cb.handoff(shipped["tokens"],
+                                             shipped["layers"], shard=shard)
+            # the other shards fenced, so the request admits where the
+            # pages landed
+            cb.drain(set(range(spec.dp)) - {shard})
+            out["leader_reply"] = cb.submit(HANDOFF_PROMPT, 6)
+            lead.stop()
+        finally:
+            tdl.dist.broadcast_object_list = broadcast
+        out["commands"] = [c[0] for c in sent]
+        out["command_tensors"] = _count_tensors(sent)
+        out["decode_state"] = pool_host_state(decode)
+        return out
+    return case
+
+
+def _count_tensors(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return 1
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_count_tensors(x) for x in obj)
+    return 0
+
+
+# the traced batcher's requests (prompt, max_tokens), greedy
+TRACE_REQS = [([1, 2, 3, 4, 5], 6), ([7, 8, 9], 4),
+              ([3, 1, 4, 1, 5, 9, 2], 8), ([2, 2, 2], 5)]
+
+
+def gated_submits(cb, engine, reqs, wait_s: float = 120.0) -> list:
+    """``reqs`` through ``cb`` (a ``ContinuousBatcher`` of either package
+    over ``engine``), one client thread each, in order, with the engine's
+    admissions held until every request is queued or admitted: the first
+    wave admits the first request alone, the next all the others, so the
+    slots and waves do not depend on the threads' timing. The replies in
+    order."""
+    admitted: list = []
+    admit = engine.admit
+
+    def wait(n: int, queued: bool) -> None:
+        deadline = time.monotonic() + wait_s
+        while len(admitted) + (len(cb._queue) if queued else 0) < n:
+            if time.monotonic() > deadline:
+                raise TimeoutError("requests never reached the batcher")
+            time.sleep(0.001)
+
+    def held(entries):
+        admitted.extend(entries)
+        wait(len(reqs), True)
+        return admit(entries)
+
+    engine.admit = held
+    replies: dict = {}
+    threads = []
+    for i, (prompt, mt) in enumerate(reqs):
+        t = threading.Thread(target=lambda i=i, p=prompt, mt=mt:
+                             replies.__setitem__(i, cb.submit(
+                                 p, mt, timeout=wait_s)))
+        t.start()
+        threads.append(t)
+        wait(i + 1, i > 0)
+    for t in threads:
+        t.join(wait_s)
+    engine.admit = admit
+    return [replies[i] for i in range(len(reqs))]
+
+
+def _trace(spec: MeshSpec):
+    """A traced ``ContinuousBatcher`` on rank 0 over an ``EngineLeader``,
+    the other ranks following: ``TRACE_REQS`` through ``gated_submits``;
+    the replies, the rendered trees, the ring's evictions and the stats'
+    exposition."""
+    def case(rank, inputs):
+        from kubeoperator_tpu_torch.telemetry.serve_trace import (
+            ServeTracer, ServeTraceStore, render_record,
+        )
+        from kubeoperator_tpu_torch.workloads import decode_loop as tdl
+        from kubeoperator_tpu_torch.workloads.serving import (
+            ContinuousBatcher,
+        )
+
+        cfg, model = _pool_model(inputs, "dense")
+        eng = tdl.SlotPoolEngine(cfg, model, slots=4, segment=3,
+                                 mesh_spec=spec, device="cpu")
+        if rank:
+            tdl.follow(eng)
+            return {}
+        lead = tdl.EngineLeader(eng)
+        store = ServeTraceStore()
+        cb = ContinuousBatcher(lead, tracer=ServeTracer(store))
+        replies = gated_submits(cb, lead, TRACE_REQS)
+        lead.stop()
+        return {"replies": replies,
+                "records": [render_record(r) for r in store.records()],
+                "evicted": store.evicted,
+                "prometheus": cb.stats.prometheus()}
+    return case
+
+
 SERVE_TINY = ("--device", "cpu", "--vocab", "64", "--d-model", "32",
               "--heads", "4", "--layers", "2", "--max-seq-len", "24",
               "--no-bf16", "--engine", "continuous", "--slots", "4",
@@ -548,7 +737,10 @@ SERVE2 = [
     ("batcher_dp2", _batcher(MeshSpec(dp=2))),
     ("prefix_spill_dp2", _prefix_spill(MeshSpec(dp=2))),
     ("job_dp2", _serve_job(*SERVE_TINY, "--mesh", "dp:2")),
+    ("handoff_dp2", _handoff(MeshSpec(dp=2), shard=1)),
+    ("handoff_tp2", _handoff(MeshSpec(tp=2), shard=0)),
 ]
+TRACE2 = [("trace_dp2", _trace(MeshSpec(dp=2)))]
 SERVE4 = [
     ("moe_dp2_ep2", _pool(MeshSpec(dp=2, ep=2), "moe", ("moe",))),
     ("pool_dp2_tp2", _pool(MeshSpec(dp=2, tp=2), runs=("mixed",))),
@@ -1069,5 +1261,6 @@ GROUPS = {"ring": RING, "lm": LM, "pipeline": PIPELINE,
           "jobs_vision": JOBS_VISION, "jobs_mlp": JOBS_MLP, "resnet": RESNET,
           "vit2": VIT2, "vit4": VIT4, "checkpoint": CHECKPOINT,
           "moe2": MOE2, "moe4": MOE4, "serve2": SERVE2, "serve4": SERVE4,
+          "trace2": TRACE2,
           "harness": HARNESS, "bench2": BENCH2, "dryrun4": DRYRUN,
           "dryrun8": DRYRUN}
