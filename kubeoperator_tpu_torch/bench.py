@@ -147,8 +147,8 @@ def main(on_point: Callable[[str, dict], None] | None = None,
         name = "resnet" if per_chip_batch == RESNET_BATCHES[0] else (
             "resnet-fallback")
         try:
-            result = guarded(name, lambda: Trainer(cfg).measure(
-                **RESNET_MEASURE), out)
+            result = guarded(name, lambda: Trainer(
+                cfg, workload=name).measure(**RESNET_MEASURE), out)
             break
         except torch.cuda.OutOfMemoryError as e:
             print(f"# batch {per_chip_batch}/chip failed: {e}",
@@ -173,8 +173,8 @@ def main(on_point: Callable[[str, dict], None] | None = None,
         cfg = dataclasses.replace(lm_cfg, max_seq_len=seq,
                                   remat_policy=policy)
         lm = measured.get(name) or guarded(name, lambda: LMTrainer(
-            cfg).measure(batch=batch, seq_len=seq, steps=steps,
-                         warmup=LM_WARMUP), out)
+            cfg, workload=name).measure(batch=batch, seq_len=seq,
+                                        steps=steps, warmup=LM_WARMUP), out)
         done(name, lm)
         record_config(out, name, lm)
         if name == "llm":

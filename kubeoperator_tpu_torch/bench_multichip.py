@@ -366,7 +366,7 @@ def matrix(n: int, steps: int, warmup: int, full: bool,
             "resnet", n,
             lambda: Trainer(TrainConfig(batch_size=2 * n, image_size=32,
                                         stem="space_to_depth"), spec,
-                            device=dev),
+                            device=dev, workload="resnet"),
             lambda tr: tr.synthetic_batch(), {}, steps, warmup)
 
     def transformer() -> dict:
@@ -381,7 +381,8 @@ def matrix(n: int, steps: int, warmup: int, full: bool,
         batch = 2 * max(1, spec.dp)
         return _trainer_point(
             "transformer", n,
-            lambda: LMTrainer(TransformerConfig(**_LM), spec, device=dev),
+            lambda: LMTrainer(TransformerConfig(**_LM), spec, device=dev,
+                              workload="transformer"),
             lambda tr: (tr.synthetic_batch(batch, 64),),
             {"batch": batch, "seq_len": 64}, steps, warmup)
 
@@ -398,7 +399,8 @@ def matrix(n: int, steps: int, warmup: int, full: bool,
                                                   causal=False,
                                                   max_seq_len=16))
         return _trainer_point(
-            "vit", n, lambda: ViTTrainer(cfg, spec, device=dev),
+            "vit", n, lambda: ViTTrainer(cfg, spec, device=dev,
+                                         workload="vit"),
             lambda tr: tr.synthetic_batch(2 * n), {"batch": 2 * n},
             steps, warmup)
 
@@ -412,7 +414,7 @@ def matrix(n: int, steps: int, warmup: int, full: bool,
         rec = _trainer_point(
             "multislice", n,
             lambda: LMTrainer(TransformerConfig(**_LM), spec, device=dev,
-                              slices=slices),
+                              slices=slices, workload="multislice"),
             lambda tr: (tr.synthetic_batch(2 * spec.dp, 64),),
             {"batch": 2 * spec.dp, "seq_len": 64}, steps, warmup)
         rec["slices"] = 2
@@ -426,7 +428,8 @@ def matrix(n: int, steps: int, warmup: int, full: bool,
                                 moe_experts=4)
         batch = 2 * max(1, spec.dp)
         return _trainer_point(
-            "moe", n, lambda: LMTrainer(cfg, spec, device=dev),
+            "moe", n, lambda: LMTrainer(cfg, spec, device=dev,
+                                        workload="moe"),
             lambda tr: (tr.synthetic_batch(batch, 32),),
             {"batch": batch, "seq_len": 32}, steps, warmup)
 

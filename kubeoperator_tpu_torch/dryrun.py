@@ -123,7 +123,7 @@ def _dryrun_multichip_impl(n_devices: int, device=None,
     spec = MeshSpec(dp=dp, fsdp=n // dp)
     tr = Trainer(TrainConfig(batch_size=2 * n, image_size=32, num_classes=16,
                              depth=18, warmup_steps=1, total_steps=4), spec,
-                 device=dev)
+                 device=dev, workload="resnet")
     ok("resnet", spec, trainer_step(tr, *tr.synthetic_batch()))
 
     # the transformer over tp × sp (+ dp)
@@ -136,7 +136,7 @@ def _dryrun_multichip_impl(n_devices: int, device=None,
     lm_cfg = TransformerConfig(vocab_size=128, d_model=64, n_heads=4,
                                n_layers=2, d_ff=128, max_seq_len=64,
                                dtype=torch.float32, remat=True)
-    lt = LMTrainer(lm_cfg, lm_spec, device=dev)
+    lt = LMTrainer(lm_cfg, lm_spec, device=dev, workload="transformer")
     ok("transformer", lm_spec, trainer_step(lt, lt.synthetic_batch(
         max(2, lm_spec.dp * lm_spec.fsdp), 32)))
 
@@ -162,13 +162,15 @@ def _dryrun_multichip_impl(n_devices: int, device=None,
             and 4 % ms_tp == 0):
         slices = with_virtual_slices(n, 2)
         ms_spec = MeshSpec(dp=2, tp=ms_tp, sp=ms_sp)
-        mst = LMTrainer(lm_cfg, ms_spec, device=dev, slices=slices)
+        mst = LMTrainer(lm_cfg, ms_spec, device=dev, slices=slices,
+                        workload="multislice")
         ok("multislice", ms_spec, trainer_step(mst, mst.synthetic_batch(
             2, 32)), extra="slices=2 ", slices=2)
         rs_spec = MeshSpec(dp=2, fsdp=inner)
         rst = Trainer(TrainConfig(batch_size=2 * n, image_size=32,
                                   num_classes=8, dtype=torch.float32),
-                      rs_spec, device=dev, slices=slices)
+                      rs_spec, device=dev, slices=slices,
+                      workload="resnet-multislice")
         ok("resnet-multislice", rs_spec,
            trainer_step(rst, *rst.synthetic_batch()), extra="slices=2 ",
            slices=2)
@@ -251,7 +253,7 @@ def _dryrun_multichip_impl(n_devices: int, device=None,
                                     n_layers=2, d_ff=128, max_seq_len=64,
                                     dtype=torch.float32, remat=True,
                                     moe_experts=4)
-        mt = LMTrainer(moe_cfg, moe_spec, device=dev)
+        mt = LMTrainer(moe_cfg, moe_spec, device=dev, workload="moe")
         ok("moe", moe_spec, trainer_step(mt, mt.synthetic_batch(
             max(2, moe_spec.dp), 32)))
 

@@ -5,7 +5,11 @@ process-wide ``REGISTRY``, the ``ko_serve_*`` vocabulary and the
 ``ko_train_*`` one with ``record_train_step``), copied so the port imports
 nothing of the JAX package. The families, names, labels and exposition
 format are the reference's, so one ``/metrics`` scrape reads the same on
-both. The cluster tier's ``ko_gateway_*`` families and the QoS ones
+both, but for four ``ko_train_*`` families the reference lacks: the step
+phases that ``tracing.StepPhases`` records in the port's trainers
+(``ko_train_steps_total``, ``ko_train_phase_host_seconds_total``,
+``ko_train_phase_device_seconds_total``, ``ko_train_phase_skipped_total``).
+The cluster tier's ``ko_gateway_*`` families and the QoS ones
 (``ko_serve_shed_total``, ``ko_serve_preemptions_total``), which
 ``cluster/gateway.py`` sets on the process ``REGISTRY``, are the
 reference's too. The control-plane families the reference declares on
@@ -479,6 +483,30 @@ def declare_train_metrics(registry: Registry) -> dict:
             "ko_train_mfu",
             "Model FLOPs utilization of the last measured step window, "
             "per workload (model FLOPs / peak FLOPs of the mesh).",
+            labels=("workload",)),
+        # the port's own: the trainers' step phases (tracing.StepPhases)
+        "steps": registry.counter(
+            "ko_train_steps_total",
+            "Train steps the trainer's train_step ran, per workload.",
+            labels=("workload",)),
+        "phase_host": registry.counter(
+            "ko_train_phase_host_seconds_total",
+            "Host wall seconds inside each phase of a train step (step | "
+            "forward | backward | grad_reduce | optimizer | metrics; step "
+            "holds the others), per workload.",
+            labels=("workload", "phase")),
+        "phase_device": registry.counter(
+            "ko_train_phase_device_seconds_total",
+            "Device seconds of each phase of a train step, from timing "
+            "events on the step's stream at each phase's entry and the "
+            "step's end (marker to marker: a phase's idle time on the card "
+            "included); counted once the card has passed them, per "
+            "workload.",
+            labels=("workload", "phase")),
+        "phase_skipped": registry.counter(
+            "ko_train_phase_skipped_total",
+            "Train steps whose device markers were dropped because the "
+            "trainer's pool of timing events ran empty, per workload.",
             labels=("workload",)),
     }
 

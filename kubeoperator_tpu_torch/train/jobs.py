@@ -11,8 +11,11 @@ functions in ``kubeoperator_tpu/train/jobs.py``, with the same flags plus
 ``--device``. ``llm`` and ``resnet50`` checkpoint to ``--ckpt-dir`` and
 resume from its latest checkpoint, on one device or under a mesh, of the
 same shape or another; ``serve --ckpt-dir`` serves the llm job's weights,
-saved on one device or under a mesh; ``--metrics-port`` serves the
-process registry on ``/metrics``.
+saved on one device or under a mesh; ``--metrics-port`` (``llm``,
+``resnet50``, ``vit``, ``fsdp``, ``pipeline``) serves the process
+registry on ``/metrics``, where the trainers' step phases
+(``ko_train_phase_*``) show where a step's time goes and every training
+job observes its mean step in ``ko_train_step_seconds``.
 
 A multi-device job is one process per device: ``torchrun
 --nproc-per-node N -m kubeoperator_tpu_torch.train.jobs ...`` (NCCL on N
@@ -164,6 +167,22 @@ def maybe_start_metrics_server(port: int):
     return server
 
 
+def settle_phases(trainer, mfu: float | None = None) -> None:
+    """After a training loop: wait for the card, count the device seconds
+    of the steps' phases that were still in flight, and observe the mean
+    step of the phase counters once in the reference's
+    ``ko_train_step_seconds`` (``record_train_step``, with ``mfu``), as the
+    fsdp and pipeline jobs observe theirs."""
+    from kubeoperator_tpu_torch.telemetry.metrics import record_train_step
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize(trainer.device)
+    ph = trainer.phases
+    ph.flush()
+    step_s = ph.mean_step_seconds()
+    if step_s is not None:
+        record_train_step(ph.workload, step_s, mfu)
+
+
 def open_checkpoint(args: argparse.Namespace, state: dict, job: str,
                     trainer, lead: bool):
     """The job's ``WorkloadCheckpointer`` under ``--ckpt-dir`` (None
@@ -233,7 +252,7 @@ def cmd_mnist(args: argparse.Namespace) -> int:
                       depth=18, learning_rate=0.05, warmup_steps=5,
                       total_steps=max(args.steps, 6), dtype=torch.float32,
                       stem="conv")
-    tr = Trainer(cfg, device=args.device)
+    tr = Trainer(cfg, device=args.device, workload="mnist")
     state = tr.init_state()
     images, labels = tr.synthetic_batch()
     first_loss = None
@@ -243,6 +262,7 @@ def cmd_mnist(args: argparse.Namespace) -> int:
         first_loss = first_loss if first_loss is not None else loss
         if step % max(1, args.steps // 10) == 0:
             emit({"job": "mnist", "step": step, "loss": round(loss, 4)})
+    settle_phases(tr)
     emit({"job": "mnist", "done": True, "steps": args.steps,
           "first_loss": round(first_loss, 4), "last_loss": round(loss, 4),
           "improved": bool(loss < first_loss)})
@@ -294,6 +314,12 @@ def cmd_llm(args: argparse.Namespace) -> int:
         if lead and (step % max(1, args.steps // 10) == 0
                      or step == args.steps):
             emit({"job": "llm", "step": step, "loss": round(loss, 4)})
+    step_s = statistics.median(times[1:] or times) if times else None
+    mfu = None
+    if step_s and lt.device.type == "cuda":
+        mfu = (3 * flops_per_token(cfg, args.seq_len) * batch * args.seq_len
+               / step_s / (peak_flops_per_chip(lt.device) * world))
+    settle_phases(lt, mfu)
     finish_checkpoint(ckpt, state)
     model = state["model"]
     if args.sample > 0 and spec.n_devices > 1:
@@ -308,11 +334,6 @@ def cmd_llm(args: argparse.Namespace) -> int:
                            max_new_tokens=min(args.sample, cfg.max_seq_len - 4),
                            temperature=0.8, device=lt.device)
         emit({"job": "llm", "sampled_tokens": sampled[0].tolist()})
-    step_s = statistics.median(times[1:] or times) if times else None
-    mfu = None
-    if step_s and lt.device.type == "cuda":
-        mfu = (3 * flops_per_token(cfg, args.seq_len) * batch * args.seq_len
-               / step_s / (peak_flops_per_chip(lt.device) * world))
     if lead:
         emit({"job": "llm", "done": True, "steps": state["step"],
               "chips": world, "mesh": dict(spec.sizes()),
@@ -333,6 +354,8 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
     least 64, warmup min(100, steps)."""
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
+    if lead:
+        maybe_start_metrics_server(args.metrics_port)
     from kubeoperator_tpu_torch.workloads import data as data_pipe
     from kubeoperator_tpu_torch.workloads.sharding import batch_index
     from kubeoperator_tpu_torch.workloads.train import TrainConfig, Trainer
@@ -373,6 +396,7 @@ def cmd_resnet50(args: argparse.Namespace) -> int:
                   "loss": round(float(metrics["loss"]), 4)})
     dt = time.perf_counter() - t0
     img_s = cfg.batch_size * (state["step"] - start) / dt if dt > 0 else 0.0
+    settle_phases(tr)
     finish_checkpoint(ckpt, state)
     if lead:
         emit({"job": "resnet50", "done": True, "steps": state["step"],
@@ -392,6 +416,8 @@ def cmd_vit(args: argparse.Namespace) -> int:
     dense attention path."""
     dist_info = maybe_initialize_distributed(args.device)
     lead = dist_info["process_id"] == 0
+    if lead:
+        maybe_start_metrics_server(args.metrics_port)
     from kubeoperator_tpu_torch.workloads.data import (
         prefetch_to_device, synthetic_image_batches,
     )
@@ -424,6 +450,7 @@ def cmd_vit(args: argparse.Namespace) -> int:
                   "loss": round(float(metrics["loss"]), 4)})
     dt = time.perf_counter() - t0
     img_s = batch * args.steps / dt
+    settle_phases(tr)
     if lead:
         emit({"job": "vit", "done": True, "steps": args.steps,
               "chips": world, "mesh": dict(spec.sizes()),
@@ -915,6 +942,8 @@ def build_parser() -> argparse.ArgumentParser:
                                          "dp×fsdp mesh")
     rn.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
+    rn.add_argument("--metrics-port", type=int, default=0,
+                    help=">0: serve ko_train_* prometheus text on this port")
     rn.add_argument("--steps", type=int, default=200)
     rn.add_argument("--batch-per-chip", type=int, default=256)
     rn.add_argument("--image-size", type=int, default=224)
@@ -937,6 +966,8 @@ def build_parser() -> argparse.ArgumentParser:
                                     "over a dp×fsdp×tp×sp mesh")
     vt.add_argument("--device", type=str, default=None,
                     help="torch device; default cuda (raises without a card)")
+    vt.add_argument("--metrics-port", type=int, default=0,
+                    help=">0: serve ko_train_* prometheus text on this port")
     vt.add_argument("--steps", type=int, default=50)
     vt.add_argument("--batch-per-chip", type=int, default=64)
     vt.add_argument("--image-size", type=int, default=224)

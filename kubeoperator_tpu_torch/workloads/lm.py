@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kubeoperator_tpu_torch.telemetry.tracing import StepPhases
 from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads import sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
@@ -86,13 +87,14 @@ class LMTrainer:
     (``sharding.build_mesh``); ``compile_cache`` (an
     ``aot.CompileCache``) brings up the kernel library the configuration
     launches, ``flash_attention`` when its attention takes flash on the
-    card, at construction, into ``self.aot``."""
+    card, at construction, into ``self.aot``. ``workload`` labels the step
+    phases' counters (``self.phases``): the job's name."""
 
     def __init__(self, cfg: TransformerConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
                  learning_rate: float = 3e-4,
                  slices: list[int] | None = None,
-                 compile_cache=None):
+                 compile_cache=None, workload: str = "llm"):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         self.mesh = sharding.build_mesh(self.spec, self.device.type, slices)
@@ -112,6 +114,7 @@ class LMTrainer:
         self.tp = sharding.axis_group(self.mesh, "tp")
         self.placements: dict = {}
         self.last_metrics: dict = {}
+        self.phases = StepPhases(workload, self.device)
 
     # -- state -------------------------------------------------------------
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
@@ -172,19 +175,28 @@ class LMTrainer:
     def train_step(self, state: dict, tokens: torch.Tensor):
         """One AdamW step on the global batch ``tokens`` [B, T]; updates
         ``state`` in place and returns it with {"loss": 0-d tensor, "aux":
-        0-d tensor}: the global loss on every rank, aux included."""
-        model, opt = state["model"], state["opt"]
-        opt.zero_grad(set_to_none=True)
-        loss, aux = self.objective(model, tokens)
-        loss.backward()
-        if self.placements:
-            sharding.reduce_grads(model, self.placements, self.mesh)
-        opt.step()
-        state["step"] += 1
-        loss = loss.detach()
-        for axis in ("dp", "fsdp", "sp"):
-            loss = cl.reduce_from(loss, sharding.axis_group(self.mesh, axis))
-        self.last_metrics = {"loss": loss, "aux": aux.detach()}
+        0-d tensor}: the global loss on every rank, aux included. Its
+        phases go to ``self.phases``."""
+        model, opt, ph = state["model"], state["opt"], self.phases
+        with ph.step():
+            with ph.phase("optimizer"):
+                opt.zero_grad(set_to_none=True)
+            with ph.phase("forward"):
+                loss, aux = self.objective(model, tokens)
+            with ph.phase("backward"):
+                loss.backward()
+            if self.placements:
+                with ph.phase("grad_reduce"):
+                    sharding.reduce_grads(model, self.placements, self.mesh)
+            with ph.phase("optimizer"):
+                opt.step()
+            state["step"] += 1
+            with ph.phase("metrics"):
+                loss = loss.detach()
+                for axis in ("dp", "fsdp", "sp"):
+                    loss = cl.reduce_from(loss, sharding.axis_group(self.mesh,
+                                                                    axis))
+                self.last_metrics = {"loss": loss, "aux": aux.detach()}
         return state, self.last_metrics
 
     # -- data / measurement ------------------------------------------------

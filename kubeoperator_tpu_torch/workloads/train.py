@@ -26,6 +26,7 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from kubeoperator_tpu_torch.telemetry.tracing import StepPhases
 from kubeoperator_tpu_torch.workloads import collectives as cl
 from kubeoperator_tpu_torch.workloads import resnet, sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
@@ -234,13 +235,14 @@ class Trainer:
     (``sharding.build_mesh``); ``compile_cache`` (an ``aot.CompileCache``)
     is consulted at construction, into ``self.aot``. Other mesh axes raise: the reference places its state by
     shape over fsdp and splits the batch over dp×fsdp, so they have no
-    meaning for it."""
+    meaning for it. ``workload`` labels the step phases' counters
+    (``self.phases``): the job's name."""
 
     def __init__(self, cfg: TrainConfig | None = None,
                  spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
                  slices: list[int] | None = None,
-                 compile_cache: Any = None):
+                 compile_cache: Any = None, workload: str = "resnet50"):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         refuse_axes(self.spec, ("dp", "fsdp"),
@@ -264,6 +266,7 @@ class Trainer:
         self.schedule = lr_schedule(self.cfg)
         self.placements: dict = {}
         self.last_metrics: dict = {}
+        self.phases = StepPhases(workload, self.device)
 
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
         """{"step", "model", "opt"}: the model, built on the trainer's
@@ -300,26 +303,35 @@ class Trainer:
         """One step on this rank's block of the global batch: images
         [b, S, S, 3] and integer labels [b]; updates ``state`` in place and
         returns it with {"loss", "accuracy"} of the global batch as 0-d
-        tensors."""
-        model, opt = state["model"], state["opt"]
-        model.train()
-        lr = self.schedule(state["step"])
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.zero_grad(set_to_none=True)
-        logits = model(images)
-        loss = local_share(cross_entropy(logits, labels,
-                                         self.cfg.label_smoothing), self.mesh)
-        loss.backward()
-        if self.placements:
-            sharding.reduce_grads(model, self.placements, self.mesh)
-        opt.step()
-        state["step"] += 1
-        hits = (logits.detach().argmax(-1) == labels).float()
-        self.last_metrics = {
-            "loss": data_sum(loss, self.mesh),
-            "accuracy": data_sum(local_share(hits.mean(), self.mesh),
-                                 self.mesh)}
+        tensors. Its phases go to ``self.phases`` (``tracing.StepPhases``:
+        the learning rate, ``zero_grad`` and ``opt.step()`` are the
+        optimizer's)."""
+        model, opt, ph = state["model"], state["opt"], self.phases
+        with ph.step():
+            model.train()
+            with ph.phase("optimizer"):
+                lr = self.schedule(state["step"])
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.zero_grad(set_to_none=True)
+            with ph.phase("forward"):
+                logits = model(images)
+                loss = local_share(cross_entropy(
+                    logits, labels, self.cfg.label_smoothing), self.mesh)
+            with ph.phase("backward"):
+                loss.backward()
+            if self.placements:
+                with ph.phase("grad_reduce"):
+                    sharding.reduce_grads(model, self.placements, self.mesh)
+            with ph.phase("optimizer"):
+                opt.step()
+            state["step"] += 1
+            with ph.phase("metrics"):
+                hits = (logits.detach().argmax(-1) == labels).float()
+                self.last_metrics = {
+                    "loss": data_sum(loss, self.mesh),
+                    "accuracy": data_sum(local_share(hits.mean(), self.mesh),
+                                         self.mesh)}
         return state, self.last_metrics
 
     def multi_step(self, k: int):

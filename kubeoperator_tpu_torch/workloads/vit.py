@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeoperator_tpu_torch.telemetry.tracing import StepPhases
 from kubeoperator_tpu_torch.workloads import sharding
 from kubeoperator_tpu_torch.workloads.sharding import MeshSpec
 from kubeoperator_tpu_torch.workloads.train import (
@@ -165,13 +166,14 @@ class ViTTrainer:
     ``AdamW`` with optax.adamw's settings on every parameter shard,
     updating the model and optimizer state in place (the JAX step returned
     a new state and donated the old one). ep and pp raise: the reference's
-    ViT has no experts and no stages."""
+    ViT has no experts and no stages. ``workload`` labels the step phases'
+    counters (``self.phases``): the job's name."""
 
     def __init__(self, cfg: ViTConfig, spec: MeshSpec | None = None,
                  device: str | torch.device | None = None,
                  learning_rate: float = 3e-4,
                  slices: list[int] | None = None,
-                 compile_cache=None):
+                 compile_cache=None, workload: str = "vit"):
         self.device = resolve_device(device)
         self.spec = spec or MeshSpec(dp=sharding.world_size())
         refuse_axes(self.spec, ("dp", "fsdp", "tp", "sp"),
@@ -191,6 +193,7 @@ class ViTTrainer:
         self.learning_rate = learning_rate
         self.placements: dict = {}
         self.last_metrics: dict = {}
+        self.phases = StepPhases(workload, self.device)
 
     def init_state(self, params: dict | None = None, seed: int = 0) -> dict:
         """{"step", "model", "opt"}: a model built whole on the trainer's
@@ -232,21 +235,28 @@ class ViTTrainer:
         """One AdamW step on this rank's block of the global batch:
         images [b, H, W, 3] and integer labels [b]; updates ``state`` in
         place and returns it with {"loss", "accuracy"} of the global batch
-        as 0-d tensors."""
-        model, opt = state["model"], state["opt"]
-        opt.zero_grad(set_to_none=True)
-        loss, logits = self.loss(model, images, labels)
-        loss.backward()
-        if self.placements:
-            sharding.reduce_grads(model, self.placements, self.mesh,
-                                  axes=("dp", "fsdp"))
-        opt.step()
-        state["step"] += 1
-        hits = (logits.detach().argmax(-1) == labels).float()
-        self.last_metrics = {
-            "loss": data_sum(loss, self.mesh),
-            "accuracy": data_sum(local_share(hits.mean(), self.mesh),
-                                 self.mesh)}
+        as 0-d tensors; its phases go to ``self.phases``."""
+        model, opt, ph = state["model"], state["opt"], self.phases
+        with ph.step():
+            with ph.phase("optimizer"):
+                opt.zero_grad(set_to_none=True)
+            with ph.phase("forward"):
+                loss, logits = self.loss(model, images, labels)
+            with ph.phase("backward"):
+                loss.backward()
+            if self.placements:
+                with ph.phase("grad_reduce"):
+                    sharding.reduce_grads(model, self.placements, self.mesh,
+                                          axes=("dp", "fsdp"))
+            with ph.phase("optimizer"):
+                opt.step()
+            state["step"] += 1
+            with ph.phase("metrics"):
+                hits = (logits.detach().argmax(-1) == labels).float()
+                self.last_metrics = {
+                    "loss": data_sum(loss, self.mesh),
+                    "accuracy": data_sum(local_share(hits.mean(), self.mesh),
+                                         self.mesh)}
         return state, self.last_metrics
 
     def multi_step(self, k: int):

@@ -357,17 +357,30 @@ def test_dynamic_batcher_splits_temperatures_and_reports_errors(model):
     assert bad.stats.snapshot()["errors_total"] == 1
 
 
+# the port's own ko_train_* families: its trainers' step phases
+PHASE_FAMILIES = ("ko_train_steps_total", "ko_train_phase_host_seconds_total",
+                  "ko_train_phase_device_seconds_total",
+                  "ko_train_phase_skipped_total")
+
+
 def test_train_metrics_render_like_jax():
     """``record_train_step`` on a fresh registry of each package renders
-    the same ko_train_* text."""
+    the same ko_train_* text, but for the port's step-phase families,
+    which it declares beside them (headers only: the call records no
+    phase)."""
     from kubeoperator_tpu.telemetry import metrics as jm
     from kubeoperator_tpu_torch.telemetry import metrics as tm
 
     got, want = tm.Registry(), jm.Registry()
     tm.record_train_step("w", 0.5, 0.3, {"all_reduce": 0.1}, registry=got)
     jm.record_train_step("w", 0.5, 0.3, {"all_reduce": 0.1}, registry=want)
-    assert got.render() == want.render()
-    assert 'ko_train_step_seconds_count{workload="w"} 1' in got.render()
+    text = got.render()
+    ours = [ln for ln in text.splitlines()
+            if any(f" {name} " in ln for name in PHASE_FAMILIES)]
+    assert len(ours) == 2 * len(PHASE_FAMILIES)      # # HELP, # TYPE
+    assert "\n".join(ln for ln in text.splitlines()
+                     if ln not in ours) + "\n" == want.render()
+    assert 'ko_train_step_seconds_count{workload="w"} 1' in text
     assert tm.TRAIN_STEP_BUCKETS == jm.TRAIN_STEP_BUCKETS
 
 
@@ -384,16 +397,22 @@ def test_process_registry_holds_the_workload_vocabularies():
     compile cache is ported, ``declare_aot_metrics``) from import, and,
     since the cluster tier is ported, its six gateway and QoS families,
     with the reference's help, type and labels; none of its control
-    plane's."""
+    plane's. Its own step-phase families follow the reference's
+    ko_train_* ones."""
     from kubeoperator_tpu.telemetry import metrics as jm
     from kubeoperator_tpu_torch.telemetry import metrics as tm
 
     ref = jm.Registry()
     jm.declare_serve_metrics(ref)
     jm.declare_train_metrics(ref)
+    train = ref.names()
     jm.declare_aot_metrics(ref)
-    assert tm.REGISTRY.names() == list(GATEWAY_FAMILIES) + ref.names()
-    assert set(tm.REGISTRY.names()) <= set(jm.REGISTRY.names())
+    assert tm.REGISTRY.names() == (list(GATEWAY_FAMILIES) + train
+                                   + list(PHASE_FAMILIES)
+                                   + ref.names()[len(train):])
+    assert set(tm.REGISTRY.names()) - set(PHASE_FAMILIES) <= set(
+        jm.REGISTRY.names())
+    assert not set(PHASE_FAMILIES) & set(jm.REGISTRY.names())
     assert len(ref.names()) == 28
     for name in GATEWAY_FAMILIES:
         got, want = (r.get(name) for r in (tm.REGISTRY, jm.REGISTRY))
