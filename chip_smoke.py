@@ -136,22 +136,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    them, the halves' phase-0 sums added, phase 1 on each half with
    ``n_total`` = N, against the plain version on all N rows within
    ``CONV_TOL``, the same bits twice.
+   kernels_bn: BatchNorm's kernels (``batch_norm``: ``bn_fwd_sums``,
+   ``bn_fwd_apply``, ``bn_bwd_sums``, ``bn_bwd_dx``) at each distinct shape
+   of ResNet-50's 53 BatchNorms at batch 256 (``bn_sites``): the apply
+   and dx the same bits as their plain versions on the same statistics,
+   the sums within ``F32_TOL`` and the same bits twice; kernel, plain and
+   bound times, and a whole site forward and backward through
+   ``BatchNormTrain`` beside the f32 op chain it replaces and
+   ``F.batch_norm`` (a yardstick only); then each kernel's time a step on
+   the two one-card paths (``bn_kernel_phase``). Alone, with a step's
+   launches on both paths at batch 256: ``python3 -c "import chip_smoke
+   as c; c.bn_alone()"``.
 9. resnet_train: the ResNet main path, ``Trainer(RESNET_K7_K8).measure``
    at ResNet-50's full width and depth (224², batch 128, 8 steps per
    call), launch counts reset before and read after: each K7 kernel at
    least 24 and each K8 kernel at least 9 launches per step, no flash
    kernel; then one more step records K7's shapes, which must be
-   ``K7_SITES``.
+   ``K7_SITES``, and BatchNorm's launches, which must be 53 of each
+   forward kernel and 44 of each backward kernel (``bn_step_launches``).
 10. resnet_job: the ``resnet50`` entry point at its defaults (no K7/K8, as
-    the JAX job), 2 steps of 64 images: finite losses, no K7/K8 launch.
+    the JAX job), 2 steps of 64 images: finite losses, no K7/K8 launch,
+    each BatchNorm kernel 53 times a step and nothing on the plain ops.
     resnet_dot2: the K7/K8 configuration with ``conv_bwd="dot2"`` and
     ``fused_bn=False``: finite loss, no K7/K8 launch, step ms beside
     resnet_train's.
     aot_bringup: the compile cache (``aot.CompileCache``) in a fresh
     directory under ``build/``: a fresh process builds
     ``Trainer(RESNET_K7_K8, compile_cache=...)`` under
-    ``compile_count_guard`` and takes one step (cold: one nvcc build,
-    ``conv_bwd``), then another fresh process does the same against the
+    ``compile_count_guard`` and takes one step (cold: two nvcc builds,
+    ``conv_bwd`` and ``batch_norm``), then another fresh process does the same against the
     populated directory (warm: none); both launch K7 24 times and each K8
     kernel 9 times from the cache's library and give the same loss bits;
     each arm's bring-up seconds (construction to the first kernel launch),
@@ -876,6 +889,283 @@ def k8_split_rows(bn, check, x, g, y, w, vecs, relu: bool, sums_p) -> dict:
                                   for a, b in zip((sums, dx, dw), again))}
     if not rec["same_bits_twice"]:
         raise AssertionError("K8 split rows: two runs differ")
+    return rec
+
+
+# BatchNorm's kernels (batch_norm.cu) replace no TPU kernel: the JAX
+# package leaves flax's nn.BatchNorm to XLA
+BN_SOURCE = "kubeoperator_tpu_torch/csrc/batch_norm.cu"
+BN_KERNELS = {"bn_fwd_sums": ["bn_sums_kernel", "bn_finish_kernel"],
+              "bn_fwd_apply": ["bn_apply_kernel"],
+              "bn_bwd_sums": ["bn_sums_kernel", "bn_finish_kernel"],
+              "bn_bwd_dx": ["bn_dx_kernel"]}
+
+
+def host_us(fn, n: int = 200) -> float:
+    """The host's µs a call of ``fn``, over ``n`` calls back to back
+    (launches not waited for), after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def bn_sites(batch: int) -> list[tuple]:
+    """(n, c, relu, fused) of each of ResNet-50's 53 BatchNorms in a step
+    at 224² (s2d stem) and this batch, in model order: the stem, each
+    block's bn1 (at its input's size), bn2 and bn3 (at its output's), and
+    the four projections; ``fused`` marks those that are K8 units in the
+    K7/K8 configuration (their forward on these kernels, their backward
+    K8's)."""
+    sites = [(batch * 112 * 112, 64, True, False)]
+    hw = 56
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        c = 64 * 2 ** stage
+        for i in range(blocks):
+            stride = 2 if stage and i == 0 else 1
+            fused, out = hw * hw >= 3136, hw // stride
+            sites += [(batch * hw * hw, c, True, fused),
+                      (batch * out * out, c, True, False),
+                      (batch * out * out, 4 * c, False, fused)]
+            if i == 0:
+                sites.append((batch * out * out, 4 * c, False,
+                              fused and stride == 1))
+            hw = out
+    return sites
+
+
+def bn_step_launches(batch_sites: list, k7k8: bool) -> dict:
+    """The BatchNorm kernels' launches in one step: every site's forward,
+    the backward where no K8 unit takes it."""
+    bwd = sum(1 for *_, fused in batch_sites if not (k7k8 and fused))
+    return {"bn_fwd_sums": len(batch_sites), "bn_fwd_apply": len(batch_sites),
+            "bn_bwd_sums": bwd, "bn_bwd_dx": bwd, "bn_plain": 0}
+
+
+def bn_kernel_phase(peaks, batch: int = 256) -> dict:
+    """The four BatchNorm kernels at each distinct shape of ResNet-50's
+    BatchNorms at this batch, each against its plain version: the apply
+    and dx the same bits as their plain versions on the same statistics
+    (one f32 operation at a time, in one order), the sums within
+    ``F32_TOL`` (f32 sums in another order) and the same bits twice;
+    kernel, plain and bound times, and two yardsticks a site: the
+    formulation the kernels replace (``resnet.BatchNorm``'s f32 op chain,
+    forward and autograd backward) and ``F.batch_norm`` in training mode
+    (forward and backward; the port never calls it). Returns the per-step
+    sums for the two one-card ResNet paths."""
+    import torch.nn.functional as F
+
+    from kubeoperator_tpu_torch.workloads import batch_norm as bnk
+
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    sites = bn_sites(batch)
+    shapes = collections.Counter((n, c, relu) for n, c, relu, _ in sites)
+    fused_bwd = collections.Counter((n, c, relu) for n, c, relu, f in sites
+                                    if f)
+    recs = {}
+    for (n, c, relu), count in shapes.items():
+        x = (torch.randn(n, c, device="cuda", generator=gen) * 2
+             + 0.5).to(torch.bfloat16)
+        g = torch.randn(n, c, device="cuda", generator=gen).to(torch.bfloat16)
+        gamma = torch.linspace(0.5, 1.5, c, device="cuda")
+        beta = torch.linspace(-0.3, 0.3, c, device="cuda")
+
+        def running():
+            return (torch.zeros(c, device="cuda"),
+                    torch.ones(c, device="cuda"))
+
+        stats = bnk.bn_fwd_sums(x, *running(), 0.9, 1e-5, True)
+        again = bnk.bn_fwd_sums(x, *running(), 0.9, 1e-5, True)
+        mean, var, inv = bnk.bn_fwd_sums_plain(x, *running(), 0.9, 1e-5,
+                                               True)
+        out = bnk.bn_fwd_apply(x, mean, gamma, inv, beta, relu)
+        out_p = bnk.bn_fwd_apply_plain(x, mean, gamma, inv, beta, relu)
+        sums = bnk.bn_bwd_sums(x, g, out_p, mean, inv, relu)
+        sums_p = bnk.bn_bwd_sums_plain(x, g, out_p, mean, inv, relu)
+        dx = bnk.bn_bwd_dx(x, g, out_p, mean, inv, gamma, sums_p, relu)
+        dx_p = bnk.bn_bwd_dx_plain(x, g, out_p, mean, inv, gamma, sums_p,
+                                   relu)
+        torch.cuda.synchronize()
+        elems = n * c
+        nbytes = {"bn_fwd_sums": 2 * elems, "bn_fwd_apply": 4 * elems,
+                  "bn_bwd_sums": (6 if relu else 4) * elems,
+                  "bn_bwd_dx": (8 if relu else 6) * elems}
+        rec = {"n": n, "c": c, "relu": relu, "sites_per_step": count,
+               "fused_sites": fused_bwd[(n, c, relu)],
+               "stats_err": errors(torch.stack(stats), torch.stack(
+                   (mean, var, inv)), F32_TOL),
+               "bn_bwd_sums_err": errors(sums, sums_p, F32_TOL),
+               "apply_same_bits": bool(torch.equal(out, out_p)),
+               "dx_same_bits": bool(torch.equal(dx, dx_p)),
+               "same_bits_twice": bool(
+                   all(torch.equal(a, b) for a, b in zip(stats, again))
+                   and torch.equal(sums, bnk.bn_bwd_sums(
+                       x, g, out_p, mean, inv, relu)))}
+        bad = [k for k in ("apply_same_bits", "dx_same_bits",
+                           "same_bits_twice") if not rec[k]]
+        bad += [k for k in ("stats_err", "bn_bwd_sums_err")
+                if not rec[k]["within"]]
+        if bad:
+            raise AssertionError(f"kernels_bn at {n} x {c}: {bad}: {rec}")
+        rm, rv = running()          # the timed calls update these
+        calls = {
+            "bn_fwd_sums": (lambda: bnk.bn_fwd_sums(
+                x, rm, rv, 0.9, 1e-5, True), lambda: bnk.
+                bn_fwd_sums_plain(x, rm, rv, 0.9, 1e-5, True)),
+            "bn_fwd_apply": (lambda: bnk.bn_fwd_apply(
+                x, mean, gamma, inv, beta, relu), lambda: bnk.
+                bn_fwd_apply_plain(x, mean, gamma, inv, beta, relu)),
+            "bn_bwd_sums": (lambda: bnk.bn_bwd_sums(
+                x, g, out_p, mean, inv, relu), lambda: bnk.
+                bn_bwd_sums_plain(x, g, out_p, mean, inv, relu)),
+            "bn_bwd_dx": (lambda: bnk.bn_bwd_dx(
+                x, g, out_p, mean, inv, gamma, sums, relu), lambda: bnk.
+                bn_bwd_dx_plain(x, g, out_p, mean, inv, gamma, sums, relu))}
+        for k, (kern, plain) in calls.items():
+            ms = cuda_ms(kern)
+            bound = nbytes[k] / peaks[1] * 1e3
+            rec[k] = {"ms": ms, "plain_ms": cuda_ms(plain, n=2),
+                      "bound_ms": bound, "bound_by": "bytes",
+                      "bytes": nbytes[k], "roofline_pct": 100 * bound / ms}
+        # a whole site forward and backward: the kernels through the
+        # Function, the f32 op chain they replace, and F.batch_norm
+        x4 = x.view(n, 1, 1, c)
+        g4 = g.view(n, 1, 1, c)
+        xr = x4.clone().requires_grad_()
+        ps = (xr, gamma.clone().requires_grad_(),
+              beta.clone().requires_grad_())
+
+        def function():
+            return torch.autograd.grad(bnk.BatchNormTrain.apply(
+                *ps, (rm, rv), 0.9, 1e-5, relu, True, ()), ps, g4)
+
+        def replaced():
+            # resnet.BatchNorm's plain ops, as the parent ran them
+            xf = xr.float()
+            mu, msq = xf.mean((0, 1, 2)), (xf * xf).mean((0, 1, 2))
+            v = torch.maximum(msq - mu * mu, xf.new_zeros(()))
+            y = ((xf - mu) * (torch.rsqrt(v + 1e-5) * ps[1])
+                 + ps[2]).to(torch.bfloat16)
+            return torch.autograd.grad(torch.relu(y) if relu else y, ps, g4)
+
+        x2r = x.clone().requires_grad_()
+
+        def library():
+            y = F.batch_norm(x2r, rm, rv, ps[1], ps[2], training=True,
+                             momentum=0.1, eps=1e-5)
+            return torch.autograd.grad(torch.relu(y) if relu else y,
+                                       (x2r, ps[1], ps[2]), g)
+
+        rec["site"] = {"ms": cuda_ms(function),
+                       "replaced_ms": cuda_ms(replaced, n=2),
+                       "library_ms": cuda_ms(library),
+                       "bound_ms": sum(rec[k]["bound_ms"] for k in calls)}
+        rec["site_fwd"] = {"ms": rec["bn_fwd_sums"]["ms"]
+                           + rec["bn_fwd_apply"]["ms"],
+                           "bound_ms": rec["bn_fwd_sums"]["bound_ms"]
+                           + rec["bn_fwd_apply"]["bound_ms"]}
+        if (n, c, relu) == min(shapes):
+            # at the smallest shape the card keeps up with the host: what
+            # each call costs the host (µs), which a step pays 53 times
+            rec["host_us"] = {k: host_us(kern)
+                              for k, (kern, _) in calls.items()}
+            rec["host_us"].update(site=host_us(function),
+                                  replaced=host_us(replaced),
+                                  library=host_us(library))
+        emit({"phase": "kernels_bn", **rec})
+        recs[(n, c, relu)] = rec
+        del x, g, out, out_p, dx, dx_p, xr, x2r, x4, g4
+    # a step's device time in the four kernels, by path: every site's
+    # forward; the backward at every site (job) or where no K8 unit takes
+    # it (k7k8); beside the bound and the replaced chain's time
+    per_step = {}
+    for path in ("job", "k7k8"):
+        tot = collections.Counter()
+        for key, r in recs.items():
+            bwd = r["sites_per_step"] - (r["fused_sites"] if path == "k7k8"
+                                         else 0)
+            for k in ("bn_fwd_sums", "bn_fwd_apply"):
+                tot["ms"] += r["sites_per_step"] * r[k]["ms"]
+                tot["bound_ms"] += r["sites_per_step"] * r[k]["bound_ms"]
+            for k in ("bn_bwd_sums", "bn_bwd_dx"):
+                tot["ms"] += bwd * r[k]["ms"]
+                tot["bound_ms"] += bwd * r[k]["bound_ms"]
+            tot["site_ms_plain_bn"] += bwd * r["site"]["ms"]
+            tot["replaced_ms_plain_bn"] += bwd * r["site"]["replaced_ms"]
+            tot["library_ms_plain_bn"] += bwd * r["site"]["library_ms"]
+        per_step[path] = dict(tot)
+    rec = {"phase": "kernels_bn", "batch": batch, "sites": len(sites),
+           "elements_per_step": sum(n * c for n, c, _, _ in sites),
+           "per_step": per_step, "launches_per_step": {
+               "k7k8": bn_step_launches(sites, True),
+               "job": bn_step_launches(sites, False)},
+           "cuda_kernels": {k: {name: defined_at(BN_SOURCE, name)
+                                for name in v}
+                            for k, v in BN_KERNELS.items()},
+           "f32_tolerance": F32_TOL}
+    emit(rec)
+    return rec
+
+
+def bn_step_counts(rcfg, batch: int, smi: str) -> dict:
+    """One training step of ResNet-50 at this batch on each one-card path
+    (``RESNET_K7_K8``'s and the job's defaults), the BatchNorm kernels'
+    launches counted: ``bn_step_launches`` exactly, nothing on the plain
+    ops."""
+    from kubeoperator_tpu_torch.workloads import batch_norm as bnk
+    from kubeoperator_tpu_torch.workloads.train import Trainer
+
+    paths = {"k7k8": rcfg, "job": dataclasses.replace(
+        rcfg, dw_dot_max_k=0, conv_bwd="dot", fused_bn=False)}
+    got = {}
+    for path, cfg in paths.items():
+        cfg = dataclasses.replace(cfg, batch_size=batch)
+        tr = Trainer(cfg)
+        state = tr.init_state()
+        batch_x = tr.synthetic_batch(batch)
+        tr.train_step(state, *batch_x)
+        torch.cuda.synchronize()
+        bnk.reset_launches()
+        tr.train_step(state, *batch_x)
+        torch.cuda.synchronize()
+        got[path] = dict(bnk.LAUNCHES)
+        del tr, state, batch_x
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = {path: bn_step_launches(bn_sites(batch), path == "k7k8")
+            for path in paths}
+    emit({"phase": "bn_step_launches", "batch": batch, "launches": got,
+          "want": want, "nvidia_smi": smi})
+    if got != want:
+        raise AssertionError(f"bn_step_launches at batch {batch}: {got}, "
+                             f"not {want}")
+    return got
+
+
+def bn_alone() -> dict:
+    """BatchNorm's kernels alone: the build, ``kernels_bn`` at batch 256
+    and a step's launches on both one-card paths at batch 256."""
+    from kubeoperator_tpu_torch import kernels
+    from kubeoperator_tpu_torch.profile_lm import RESNET_K7_K8
+    from kubeoperator_tpu_torch.workloads.train import (
+        peak_flops_per_chip, peak_hbm_bytes_per_chip)
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    log = kernels.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {n: {"seconds": v["seconds"], "cached": v["cached"]}
+                        for n, v in log.items()},
+          "ptxas": {n: kernels.ptxas_report(v["ptxas"])
+                    for n, v in log.items() if n == "batch_norm"},
+          "nvidia_smi": smi})
+    peaks = (peak_flops_per_chip(), peak_hbm_bytes_per_chip())
+    rec = bn_kernel_phase(peaks)
+    rec["step_launches"] = bn_step_counts(RESNET_K7_K8, 256, smi)
     return rec
 
 
@@ -2272,9 +2562,9 @@ def aot_bringup_arm(cache_dir: str, out: str) -> None:
 def aot_bringup_phase(smi: str) -> dict:
     """The compile cache on the card, the counterpart of
     ``scripts/bench_serving.py::bench_bringup``: ``aot_bringup_arm`` in a
-    fresh process against an empty cache under ``build/`` (cold: one nvcc
-    build, ``conv_bwd``), then in another against the same cache (warm:
-    none). Both arms launch K7 24 times and each K8 kernel 9 times from
+    fresh process against an empty cache under ``build/`` (cold: two nvcc
+    builds, ``conv_bwd`` and ``batch_norm``), then in another against the
+    same cache (warm: none). Both arms launch K7 24 times and each K8 kernel 9 times from
     the cache's library and give the same loss bits. Then the slot pool
     with ``compile_cache=``: ``source`` "none", nothing written, and its
     greedy rows equal to the same engine's without a cache."""
@@ -2312,8 +2602,10 @@ def aot_bringup_phase(smi: str) -> dict:
            "seconds": time.perf_counter() - t0}
     emit(rec)
     bad = []
-    if cold["compiles"] != 1 or set(cold["builds"]) != {"conv_bwd"}:
-        bad.append(f"cold arm built {cold['builds']}, not conv_bwd once")
+    if cold["compiles"] != 2 or set(cold["builds"]) != {"conv_bwd",
+                                                         "batch_norm"}:
+        bad.append(f"cold arm built {cold['builds']}, not conv_bwd and "
+                   f"batch_norm once each")
     if warm["compiles"] != 0:
         bad.append(f"warm arm built {warm['builds']}")
     if (cold["aot"]["hit"], cold["aot"]["source"]) != (False, "compile"):
@@ -2333,7 +2625,8 @@ def aot_bringup_phase(smi: str) -> dict:
     if (serve["source"], serve["hit"], serve["libraries"]) != ("none", True,
                                                                 0):
         bad.append(f"serve engine: {serve}")
-    if not serve["rows_equal"] or entries != ["conv_bwd"]:
+    if not serve["rows_equal"] or sorted(entries) != ["batch_norm",
+                                                       "conv_bwd"]:
         bad.append(f"serve engine: {serve}")
     if bad:
         raise AssertionError(f"aot_bringup: {bad}")
@@ -3634,6 +3927,8 @@ def main() -> int:
     from kubeoperator_tpu_torch.workloads.train import Trainer
 
     conv_path = conv_kernel_phase(peaks)
+    from kubeoperator_tpu_torch.workloads import batch_norm as bnk
+    bn_kernel_phase(peaks)
 
     def conv_launches():
         return {**conv_vjp.LAUNCHES, **bn_fused.LAUNCHES}
@@ -3680,6 +3975,7 @@ def main() -> int:
         return k7_call(x2, g2, w)
 
     conv_vjp.conv1x1_bwd = recording
+    bnk.reset_launches()
     try:
         trainer.train_step(trainer.init_state(),
                            *trainer.synthetic_batch(rcfg.batch_size))
@@ -3687,14 +3983,20 @@ def main() -> int:
     finally:
         conv_vjp.conv1x1_bwd = k7_call
     want_sites = {(n, ci, co): k for n, ci, co, k in K7_SITES}
+    bn_want = bn_step_launches(bn_sites(rcfg.batch_size), True)
     emit({"phase": "resnet_k7_sites",
-          "sites": [[*key, k] for key, k in sorted(sites.items())]})
+          "sites": [[*key, k] for key, k in sorted(sites.items())],
+          "bn_launches": dict(bnk.LAUNCHES), "bn_want": bn_want})
     if dict(sites) != want_sites:
         raise AssertionError(f"resnet_train: K7 ran at {dict(sites)}, not "
                              f"at the sites kernels_conv times")
+    if bnk.LAUNCHES != bn_want:
+        raise AssertionError(f"resnet_train: BatchNorm's kernels "
+                             f"{bnk.LAUNCHES}, not {bn_want} a step")
 
     # -- 10. the resnet50 entry point at its defaults -----------------------
     reset_conv()
+    bnk.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = jobs.main(["resnet50", "--steps", "2", "--batch-per-chip", "64"])
@@ -3711,9 +4013,16 @@ def main() -> int:
     if any(job_launches.values()):
         raise AssertionError(f"jobs resnet50: the JAX job's config runs no "
                              f"K7/K8, yet they launched: {job_launches}")
+    # every BatchNorm on its kernels, forward and backward, 53 a step
+    bn_job = dict(bnk.LAUNCHES)
     emit({"phase": "resnet_job", "losses": losses,
           "img_per_sec": records[-1]["img_per_sec"],
-          "launches": job_launches})
+          "launches": job_launches, "bn_launches": bn_job})
+    if (bn_job["bn_plain"] or bn_job["bn_fwd_sums"] % 53
+            or not bn_job["bn_fwd_sums"]
+            or len({v for k, v in bn_job.items() if k != "bn_plain"}) != 1):
+        raise AssertionError(f"jobs resnet50: BatchNorm's kernels "
+                             f"{bn_job}, not 53 of each a step")
 
     # -- 10b. ResNet-50 with the dot2 backward -------------------------------
     resnet_dot2_phase(rcfg, smi, rm["step_time_ms"], conv_launches,

@@ -10,11 +10,12 @@ worker computes. The key holds the card and the toolkit, so warming on
 one kind of card gives entries another kind misses.
 
 The reference's entries keep their names and sizes (``serve-smoke``,
-``train-smoke``, ``serve-default``); in the port they build nothing,
-since serving and the ResNet at the reference's defaults launch no port
-kernel. Two entries are the port's own: ``train-k7k8``
-(``profile_lm.RESNET_K7_K8``, the ``conv_bwd`` library) and ``lm-bench``
-(``profile_lm.BENCH_LM``, the ``flash_attention`` library).
+``train-smoke``, ``serve-default``); in the port serving builds nothing,
+and the ResNet at the reference's defaults builds ``batch_norm`` (its
+BatchNorm's kernels). Two entries are the port's own: ``train-k7k8``
+(``profile_lm.RESNET_K7_K8``, the ``conv_bwd`` and ``batch_norm``
+libraries) and ``lm-bench`` (``profile_lm.BENCH_LM``, the
+``flash_attention`` library).
 """
 
 from __future__ import annotations

@@ -63,6 +63,17 @@ SIGNATURES = {
                          _I, _I, _I, _I, _P],
         "ko_channel_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "batch_norm": {
+        # (x, part, sums, mean, var, inv, run_mean, run_var, n, c, count,
+        #  eps, momentum, 1 - momentum, clip, stats, rows, chunks, stream)
+        "ko_bn_fwd_sums": [_P] * 8 + [_I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+                                      _P],
+        "ko_bn_finish": [_P] * 6 + [_I, _F, _F, _F, _F, _I, _P],
+        "ko_bn_fwd_apply": [_P] * 6 + [_I] * 5 + [_P],
+        "ko_bn_bwd_sums": [_P] * 7 + [_I] * 5 + [_P],
+        # (..., n, n_total, c, ...): dx streams n rows of a batch of n_total
+        "ko_bn_bwd_dx": [_P] * 8 + [_I] * 6 + [_P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -2,8 +2,11 @@
 the counterpart of ``kubeoperator_tpu/workloads/bn_fused.py``.
 
 Forward: ``forward_math``, the one copy of conv → batch stats → normalize
-→ relu, shared by the fused op's primal, the small-shape autograd fallback
-and the running-average path. Backward (kernel K8, ``conv_bn_relu_bwd``),
+→ relu, shared by the fused op's primal on the CPU, the small-shape
+autograd fallback and the running-average path; on the card the fused
+op's primal is the library conv, then the statistics and the normalize
+(+ relu) of ``batch_norm`` (``bn_fwd_sums`` without the clip at 0, and
+``bn_fwd_apply``). Backward (kernel K8, ``conv_bn_relu_bwd``),
 from the saved x, w, y, γ, β, μ, inv = rsqrt(var + ε):
 
 - phase 0: Σg′ and Σg′·x̂ per channel, g′ the relu-gated upstream grad;
@@ -37,13 +40,15 @@ trainer sums parameter gradients over the data axes.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
 from kubeoperator_tpu_torch import kernels
+from kubeoperator_tpu_torch.workloads import batch_norm as bnk
 from kubeoperator_tpu_torch.workloads import collectives as cl
+from kubeoperator_tpu_torch.workloads.batch_norm import (
+    data_size, update_running,
+)
 from kubeoperator_tpu_torch.workloads.conv_vjp import (
     _lecun_normal_, check_channels, check_cuda, conv2d_nhwc, k8_dw_chunks,
     stream_of,
@@ -64,12 +69,6 @@ def sum_chunks(n: int) -> tuple[int, int]:
     chunks, fewer than 65,536 of them."""
     rows = max(SUM_ROWS, -(-n // 65535))
     return rows, -(-n // rows)
-
-
-def data_size(groups) -> int:
-    """Ranks the global batch is split over: the product of the data
-    groups' sizes."""
-    return math.prod(cl.group_size(g) for g in groups)
 
 
 def batch_moments(xf: torch.Tensor, groups=()) -> tuple:
@@ -265,29 +264,40 @@ def conv_bn_relu_bwd(x2, g2, y2, w, gamma, beta, mu, inv, relu: bool,
 
 
 class _FusedTrain(torch.autograd.Function):
-    """(out, μ, var) of the unit with batch statistics, global over the
-    data ``groups``; the gradient of out flows to x, w, γ, β through K8 (μ
-    and var feed only the running-stat update, as the JAX package's
-    stop_gradient'd outputs do)."""
+    """out of the unit with batch statistics, global over the data
+    ``groups``, the running statistics ``running`` = (mean, var) updated
+    in place at ``momentum``; the gradient of out flows to x, w, γ, β
+    through K8 (μ and var feed only the running-stat update, as the JAX
+    package's stop_gradient'd outputs do)."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, relu: bool, eps: float, groups):
-        out, mu, var, y, inv = forward_math(x, w[None, None], gamma, beta,
-                                            eps, relu, groups=groups)
+    def forward(ctx, x, w, gamma, beta, relu: bool, eps: float, groups,
+                running, momentum: float):
+        if kernels.runs_plain(x):
+            out, mu, var, y, inv = forward_math(x, w[None, None], gamma,
+                                                beta, eps, relu,
+                                                groups=groups)
+            update_running(running, momentum, mu, var)
+        else:
+            y = conv2d_nhwc(x, w[None, None], (1, 1), ((0, 0), (0, 0)))
+            y2 = y.view(-1, y.shape[-1])
+            mu, _, inv = bnk.bn_fwd_sums(y2, *running, momentum, eps, False,
+                                         groups)
+            out = bnk.bn_fwd_apply(y2, mu, gamma, inv, beta,
+                                   relu).view(y.shape)
         ctx.save_for_backward(x, w, y, gamma, beta, mu, inv)
         ctx.relu, ctx.groups = relu, groups
-        ctx.mark_non_differentiable(mu, var)
-        return out, mu, var
+        return out
 
     @staticmethod
-    def backward(ctx, g, _dmu, _dvar):
+    def backward(ctx, g):
         x, w, y, gamma, beta, mu, inv = ctx.saved_tensors
         n = x.shape[0] * x.shape[1] * x.shape[2]
         dx, dw, dgamma, dbeta = conv_bn_relu_bwd(
             x.reshape(n, -1), g.contiguous().reshape(n, -1),
             y.reshape(n, -1), w, gamma, beta, mu, inv, ctx.relu, ctx.groups)
         return (dx.view(x.shape), dw.to(w.dtype), dgamma, dbeta, None, None,
-                None)
+                None, None, None)
 
 
 class FusedConvBN(nn.Module):
@@ -325,16 +335,16 @@ class FusedConvBN(nn.Module):
         if not self.training:
             return forward_math(x, kernel, self.scale, self.bias, self.eps,
                                 self.relu, mean=self.mean, var=self.var)[0]
+        running = (self.mean, self.var)
         if (x.shape[0] * x.shape[1] * x.shape[2]) % 128:
+            if not kernels.runs_plain(x):
+                bnk.LAUNCHES["bn_plain"] += 1
             out, mu, var, _, _ = forward_math(x, kernel, self.scale,
                                               self.bias, self.eps, self.relu,
                                               groups=self.stat_groups)
-        else:
-            out, mu, var = _FusedTrain.apply(x, kernel[0, 0], self.scale,
-                                             self.bias, self.relu, self.eps,
-                                             self.stat_groups)
-        with torch.no_grad():
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mu)
-            self.var.copy_(m * self.var + (1 - m) * var)
-        return out
+            update_running(running, self.momentum, mu, var)
+            return out
+        return _FusedTrain.apply(x, kernel[0, 0], self.scale, self.bias,
+                                 self.relu, self.eps,
+                                 tuple(self.stat_groups), running,
+                                 self.momentum)

@@ -11,7 +11,9 @@ f32 masters. Convs, the max pool and BatchNorm follow the JAX model:
 - ``BatchNorm`` is flax's: statistics in f32, var = E[x²] − E[x]² clipped at
   0, the running var updated with that biased batch var at momentum 0.9,
   and the output (x − μ)·(rsqrt(var + ε)·γ) + β in the model dtype
-  (``F.batch_norm`` keeps an unbiased running var, so it is not used);
+  (``F.batch_norm`` keeps an unbiased running var, so it is not used),
+  then relu where the model applies one; on the card a bf16 input runs
+  the kernels of ``batch_norm`` (forward and closed-form backward);
 - convs whose kernel is at most ``dw_dot_max_k`` take ``conv_vjp.make_conv``
   with backward ``conv_bwd`` (``"pallas"``: kernel K7 on 1×1 stride-1
   convs); with ``fused_bn`` the (1×1 stride-1 conv, BN, relu)
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeoperator_tpu_torch.workloads import batch_norm as bnk
 from kubeoperator_tpu_torch.workloads.bn_fused import (
     FusedConvBN, batch_moments,
 )
@@ -51,21 +54,25 @@ FUSED_MIN_HW = 3136     # 56 × 56: block inputs at least this large fuse
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over the channel axis of NHWC input: ``scale``
     and ``bias`` parameters, running ``mean`` and ``var`` buffers. Batch
-    statistics in training mode, running ones in eval mode. Under a mesh
-    ``stat_groups`` (set by ``sharding.set_data_groups``) are the data groups:
-    the statistics are then the global batch's (``bn_fused.batch_moments``)
-    and the running buffers equal on every rank."""
+    statistics in training mode, running ones in eval mode; ``relu`` takes
+    the relu of the output in the model dtype, as ``torch.relu`` after it
+    would. Under a mesh ``stat_groups`` (set by ``sharding.set_data_groups``)
+    are the data groups: the statistics are then the global batch's
+    (``bn_fused.batch_moments``) and the running buffers equal on every
+    rank. Where ``batch_norm.takes_kernels`` (a bf16 input on the card) the
+    training step is ``batch_norm.BatchNormTrain``, and eval mode without
+    autograd its apply kernel; otherwise the plain ops below."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
-                 zero_scale: bool = False):
+                 zero_scale: bool = False, relu: bool = False):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
-        self.dtype, self.zero_scale = dtype, zero_scale
+        self.dtype, self.zero_scale, self.relu = dtype, zero_scale, relu
         self.stat_groups: list = []
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -73,19 +80,28 @@ class BatchNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if bnk.takes_kernels(x, self.dtype):
+            if self.training:
+                return bnk.BatchNormTrain.apply(
+                    x, self.scale, self.bias, (self.mean, self.var),
+                    self.momentum, self.eps, self.relu, True,
+                    tuple(self.stat_groups))
+            if not torch.is_grad_enabled():    # the apply has no backward
+                inv = torch.rsqrt(self.var + self.eps)
+                return bnk.bn_fwd_apply(
+                    x.contiguous().view(-1, x.shape[-1]), self.mean,
+                    self.scale, inv, self.bias, self.relu).view(x.shape)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean, msq = batch_moments(xf, self.stat_groups)
             var = torch.maximum(msq - mean * mean, xf.new_zeros(()))
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            bnk.update_running((self.mean, self.var), self.momentum, mean,
+                               var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.scale
-        y = (xf - mean) * mul + self.bias
-        return y.to(self.dtype)
+        y = ((xf - mean) * mul + self.bias).to(self.dtype)
+        return torch.relu(y) if self.relu else y
 
 
 def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -144,9 +160,9 @@ class BottleneckBlock(nn.Module):
             self.fused1 = fused(in_features, width, relu=True)
         else:
             self.conv1 = conv(in_features, width, (1, 1))
-            self.bn1 = norm(width)
+            self.bn1 = norm(width, relu=True)
         self.conv2 = conv(width, width, (3, 3), (strides, strides))
-        self.bn2 = norm(width)
+        self.bn2 = norm(width, relu=True)
         if self.fused:
             self.fused3 = fused(width, out, relu=False, zero_scale=True)
         else:
@@ -164,9 +180,8 @@ class BottleneckBlock(nn.Module):
         if self.fused:
             y = self.fused1(x)
         else:
-            y = mask_channels(torch.relu(self.bn1(self.conv1(x))),
-                              self.features)
-        y = mask_channels(torch.relu(self.bn2(self.conv2(y))), self.features)
+            y = mask_channels(self.bn1(self.conv1(x)), self.features)
+        y = mask_channels(self.bn2(self.conv2(y)), self.features)
         y = self.fused3(y) if self.fused else self.bn3(self.conv3(y))
         residual = x
         if self.fused_proj:
@@ -184,7 +199,7 @@ class BasicBlock(nn.Module):
                  conv, norm, hw: tuple, fused=None):
         super().__init__()
         self.conv1 = conv(in_features, features, (3, 3), (strides, strides))
-        self.bn1 = norm(features)
+        self.bn1 = norm(features, relu=True)
         self.conv2 = conv(features, features, (3, 3))
         self.bn2 = norm(features, zero_scale=True)
         self.project = in_features != features or _after(hw, strides) != hw
@@ -194,8 +209,7 @@ class BasicBlock(nn.Module):
             self.proj_bn = norm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
         residual = self.proj_bn(self.proj_conv(x)) if self.project else x
         return torch.relu(residual + y)
 
@@ -264,7 +278,7 @@ class ResNet(nn.Module):
         else:
             self.stem_conv = conv(3, stem_width, (7, 7), (2, 2))
             hw = _after((image_size, image_size), 2)
-        self.stem_bn = norm(stem_width)
+        self.stem_bn = norm(stem_width, relu=True)
         hw = _after(hw, 2)                               # max pool
         block = (partial(BottleneckBlock, pad_to=pad_min_channels)
                  if bottleneck else BasicBlock)
@@ -301,7 +315,7 @@ class ResNet(nn.Module):
             x = self.stem_conv_s2d(space_to_depth(x, 2))
         else:
             x = self.stem_conv(x)
-        x = mask_channels(torch.relu(self.stem_bn(x)), self.width)
+        x = mask_channels(self.stem_bn(x), self.width)
         x = max_pool_same(x, 3, 2)
         for blk in self.blocks:
             x = blk(x)

@@ -251,18 +251,20 @@ class Trainer:
                     "no other axis has a meaning for it")
         self.mesh = sharding.build_mesh(self.spec, self.device.type, slices)
         self.cfg = cfg or TrainConfig()
-        # the compile cache brings up the conv_bwd library (K7-K9) here, at
-        # construction, when the kernel modes are on and the trainer is on
-        # the card; the reference consults at its first step, when its
-        # executable's example arguments exist
+        # the compile cache brings up the libraries the step launches here,
+        # at construction, on the card: conv_bwd (K7-K9) when the kernel
+        # modes are on, batch_norm when the model is bf16; the reference
+        # consults at its first step, when its executable's example
+        # arguments exist
         self.aot = None
         if compile_cache is not None:
-            kernels = (self.device.type == "cuda"
-                       and (self.cfg.conv_bwd == "pallas"
-                            or self.cfg.fused_bn))
-            self.aot = compile_cache.consult(
-                "Trainer", ["conv_bwd"] if kernels else [],
-                mesh_spec=self.spec)
+            card = self.device.type == "cuda"
+            libs = (["conv_bwd"] if card and (self.cfg.conv_bwd == "pallas"
+                                              or self.cfg.fused_bn) else [])
+            if card and self.cfg.dtype == torch.bfloat16:
+                libs.append("batch_norm")
+            self.aot = compile_cache.consult("Trainer", libs,
+                                             mesh_spec=self.spec)
         self.schedule = lr_schedule(self.cfg)
         self.placements: dict = {}
         self.last_metrics: dict = {}

@@ -397,8 +397,9 @@ def test_engine_with_a_cache_is_bit_equal_and_builds_nothing(model,
 def test_trainers_consult_for_the_libraries_they_launch(tmp_path):
     """On the CPU every kernel runs its plain version, so no trainer
     launches a library there; on the card the K7/K8 ResNet takes
-    ``conv_bwd``, the flash LM and ViT ``flash_attention``, the ResNet at
-    the reference's defaults nothing (tests/test_torch_aot_cuda.py)."""
+    ``conv_bwd`` and ``batch_norm``, the flash LM and ViT
+    ``flash_attention``, the bf16 ResNet at the reference's defaults
+    ``batch_norm`` (tests/test_torch_aot_cuda.py)."""
     from kubeoperator_tpu_torch.profile_lm import RESNET_K7_K8
     from kubeoperator_tpu_torch.workloads.lm import LMTrainer
     from kubeoperator_tpu_torch.workloads.train import Trainer
@@ -432,8 +433,9 @@ def test_catalog_keeps_the_reference_s_entries():
 def test_warm_then_all_hits(tmp_path, monkeypatch):
     """The catalog through a stand-in cache on the CPU, whose consumers
     launch no library there: the card's entries are held to their
-    libraries by faking the card (``train-k7k8`` → ``conv_bwd``,
-    ``lm-bench`` → ``flash_attention``; nothing is built on a device)."""
+    libraries by faking the card (``train-k7k8`` → ``conv_bwd`` and
+    ``batch_norm``, ``lm-bench`` → ``flash_attention``; nothing is built on
+    a device)."""
     import kubeoperator_tpu_torch.workloads.train as ttrain
 
     rows = warm(make_cache(tmp_path), device="cpu")
@@ -447,7 +449,8 @@ def test_warm_then_all_hits(tmp_path, monkeypatch):
     monkeypatch.setattr(ttrain.torch.cuda, "current_device", lambda: 0)
     cold = warm(make_cache(tmp_path), ["train-k7k8", "lm-bench"])
     assert [(r["entry"], r["libraries"], r["hit"], r["source"])
-            for r in cold] == [("train-k7k8", ["conv_bwd"], False, "compile"),
+            for r in cold] == [("train-k7k8", ["conv_bwd", "batch_norm"],
+                                False, "compile"),
                                ("lm-bench", ["flash_attention"], False,
                                 "compile")]
     again = warm(make_cache(tmp_path), ["train-k7k8", "lm-bench"])

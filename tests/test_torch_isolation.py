@@ -169,11 +169,12 @@ def test_serve_job_defaults_to_cuda(engine):
 
 
 def test_kernel_sources_are_built_from_the_checkout():
-    """Both CUDA libraries have their C signatures and a source under
-    csrc/; a library's path changes with its source and the shared
-    header, which is the Hopper one alone (no mma.sync kernel is left)."""
+    """Each CUDA library has its C signatures and a source under csrc/; a
+    library's path changes with its source and the shared header, which
+    is the Hopper one alone (no mma.sync kernel is left)."""
     from kubeoperator_tpu_torch import kernels
-    assert set(kernels.SIGNATURES) == {"flash_attention", "conv_bwd"}
+    assert set(kernels.SIGNATURES) == {"flash_attention", "conv_bwd",
+                                       "batch_norm"}
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
         assert kernels.lib_path(name).parent == kernels.BUILD_DIR

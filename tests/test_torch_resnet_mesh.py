@@ -9,7 +9,9 @@ in f32 on the CPU:
   64 each and take the autograd fallback while the reference's whole batch
   takes the kernel: the two paths compute one function.
 - The plain ``BatchNorm`` at dp 2 against flax's on the whole batch, at
-  1e-5.
+  1e-5, and the same step through ``batch_norm.BatchNormTrain`` (the
+  card's route: sums all-reduced before the statistics and before dx, on
+  its plain versions here).
 - Three ``Trainer`` steps (ResNet-18 at 32², the custom-backward 1×1 convs
   of tests/test_torch_resnet.py's ``three_steps``) at dp 2 and at fsdp 2
   against the JAX ``Trainer`` at the same ``MeshSpec`` on 2 virtual CPU
@@ -167,6 +169,15 @@ def test_fused_unit_at_dp2_matches_the_whole_batch(runs, case):
 def test_batch_norm_at_dp2_matches_flax_on_the_whole_batch(runs):
     ranks, want, _, _ = runs
     got = joined(ranks, "bn_dp2")
+    assert set(got) == set(want["bn_dp2"])
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(want["bn_dp2"][k]),
+                                   atol=1e-5, rtol=1e-5, err_msg=k)
+
+
+def test_batch_norm_function_at_dp2_matches_flax_on_the_whole_batch(runs):
+    ranks, want, _, _ = runs
+    got = joined(ranks, "bn_function_dp2")
     assert set(got) == set(want["bn_dp2"])
     for k, v in got.items():
         np.testing.assert_allclose(v.numpy(), np.asarray(want["bn_dp2"][k]),

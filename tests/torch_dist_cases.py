@@ -751,12 +751,15 @@ SERVE4 = [
 
 # -- the ResNet over dp×fsdp: BatchNorm, FusedConvBN (K8), the trainer --------
 
-def _norm_unit(name: str):
+def _norm_unit(name: str, function: bool = False):
     """The BatchNorm or FusedConvBN (with a ``kernel``) of
     ``inputs["units"][name]`` in training mode at dp 2 on this rank's
     rows: its out and dx rows, its parameters' gradient shares and its
-    running statistics."""
+    running statistics. With ``function`` the BatchNorm's step is
+    ``batch_norm.BatchNormTrain`` (the card's route, here on its plain
+    versions) with the module's parameters, buffers and data groups."""
     def case(rank, inputs):
+        from kubeoperator_tpu_torch.workloads.batch_norm import BatchNormTrain
         from kubeoperator_tpu_torch.workloads.bn_fused import FusedConvBN
         from kubeoperator_tpu_torch.workloads.resnet import BatchNorm
 
@@ -770,7 +773,12 @@ def _norm_unit(name: str):
         m.load_state_dict({k: p[k] for k in m.state_dict()})
         sharding.set_data_groups(m, mesh)
         x = sharding.shard_batch(mesh, p["x"]).clone().requires_grad_()
-        out = m(x)
+        if function:
+            out = BatchNormTrain.apply(x, m.scale, m.bias, (m.mean, m.var),
+                                       m.momentum, m.eps, False, True,
+                                       tuple(m.stat_groups))
+        else:
+            out = m(x)
         (out * sharding.shard_batch(mesh, p["g"])).sum().backward()
         return {"out": out.detach(), "dx": x.grad,
                 "rows": x.shape[0] * x.shape[1] * x.shape[2],
@@ -810,6 +818,7 @@ RESNET = [
     # whole batch's 128 the kernel
     *((name, _norm_unit(name)) for name in (
         "fused_n256", "fused_n128_split", "fused_n256_norelu", "bn_dp2")),
+    ("bn_function_dp2", _norm_unit("bn_dp2", function=True)),
     ("trainer_dp2", _resnet_steps(MeshSpec(dp=2))),
     ("trainer_fsdp2", _resnet_steps(MeshSpec(fsdp=2))),
 ]
